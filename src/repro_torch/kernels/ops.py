@@ -1,0 +1,77 @@
+"""The kernel registry the executor's dispatch follows, and the public
+surface of the kernel library (build, launch counts).
+
+``KernelEntry.cuda`` is the wrapper that launches the op's CUDA kernel on a
+CUDA tensor (and runs its plain version on a CPU one); ``reference`` is the
+plain body that ``kernel_mode="reference"`` runs.  Which wrappers have a
+kernel on the card yet is stated in ``streaming_conv`` and ROADMAP.md.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from . import ref, streaming_conv
+from .library import (LAUNCHES, KernelLibrary, launches, load_library,
+                      reset_launches)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelEntry:
+    """One lowerable op kind's dispatch row.
+
+    ``cuda=None`` means the kind has no kernel (data movement / variadic
+    ops) and the reference body runs in every kernel mode.  ``fuse_bfp8``
+    marks kinds whose kernel wrapper can fuse the BFP8 boundary codec
+    (ingress ``payload=`` / egress ``encode=True``).
+    """
+    kind: str
+    reference: Callable
+    cuda: Callable | None = None
+    fuse_bfp8: bool = False
+
+
+KERNEL_REGISTRY: dict[str, KernelEntry] = {}
+
+
+def _register(entry: KernelEntry) -> None:
+    KERNEL_REGISTRY[entry.kind] = entry
+
+
+for _kind in ("conv", "matmul", "deconv"):
+    _register(KernelEntry(kind=_kind, reference=ref.conv2d_ref,
+                          cuda=streaming_conv.conv2d, fuse_bfp8=True))
+_register(KernelEntry(kind="dwconv", reference=ref.dwconv_ref,
+                      cuda=streaming_conv.dwconv, fuse_bfp8=True))
+_register(KernelEntry(kind="pool", reference=ref.pool_ref,
+                      cuda=streaming_conv.pool, fuse_bfp8=True))
+_register(KernelEntry(kind="act", reference=ref.act_relu_ref,
+                      cuda=streaming_conv.act_relu, fuse_bfp8=True))
+# data-movement / variadic kinds: reference body in every mode
+for _kind in ("input", "upsample", "add", "mul", "concat", "output"):
+    _register(KernelEntry(kind=_kind, reference=lambda *a, **k: None))
+
+
+def kernel_for(kind: str, *, use_kernels: bool
+               ) -> tuple[Callable | None, bool]:
+    """(body, is_kernel) for one op kind under the resolved kernel mode."""
+    entry = KERNEL_REGISTRY.get(kind)
+    if entry is None:
+        return None, False
+    if use_kernels and entry.cuda is not None:
+        return entry.cuda, True
+    return entry.reference, False
+
+
+def fusable_kinds() -> tuple[str, ...]:
+    """Op kinds whose kernel wrapper fuses the BFP8 boundary codec."""
+    return tuple(k for k, e in KERNEL_REGISTRY.items() if e.fuse_bfp8)
+
+
+def lowerable_kinds() -> tuple[str, ...]:
+    return tuple(KERNEL_REGISTRY)
+
+
+__all__ = ["KernelEntry", "KERNEL_REGISTRY", "kernel_for", "fusable_kinds",
+           "lowerable_kinds", "LAUNCHES", "KernelLibrary", "launches",
+           "load_library", "reset_launches"]

@@ -1,0 +1,65 @@
+"""Plain PyTorch versions of the kernels: the CPU path, the executor's
+``kernel_mode="reference"`` bodies and the targets each CUDA kernel is
+held against on the card.  They repeat the kernels' arithmetic and are no
+yardstick of speed."""
+from __future__ import annotations
+
+import torch
+
+from .bfp8 import bfp8_dequant_values, bfp8_quant_values
+
+
+def streamed_matmul_ref(x: torch.Tensor, w_static: torch.Tensor,
+                        w_dyn: torch.Tensor) -> torch.Tensor:
+    """y = x @ [w_static; w_dyn] — the fragmentation split is semantically
+    invisible; only the memory placement differs."""
+    return conv2d_ref(x, torch.cat([w_static, w_dyn], dim=0))
+
+
+def conv2d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """1x1 channel mixing (conv/matmul/deconv): y = x @ w, in f32."""
+    return torch.matmul(x, w)
+
+
+def dwconv_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise temporal conv, 'same' zero padding; w: (taps, c).  The
+    tap sum runs in Python ``sum`` order."""
+    taps = w.shape[0]
+    pad = taps // 2
+    xp = torch.nn.functional.pad(x, (0, 0, pad, taps - 1 - pad))
+    m = x.shape[0]
+    return sum(w[k][None, :] * xp[k:k + m] for k in range(taps))
+
+
+def pool_ref(x: torch.Tensor, m_out: int) -> torch.Tensor:
+    """Position-axis mean to m_out rows."""
+    m, c = x.shape
+    if m % m_out:
+        raise ValueError(f"pool needs m_out | m, got {m} -> {m_out}")
+    return x.reshape(m_out, m // m_out, c).mean(dim=1)
+
+
+def upsample_ref(x: torch.Tensor, m_out: int) -> torch.Tensor:
+    """Repeat each row m_out / m times."""
+    m = x.shape[0]
+    if m_out % m:
+        raise ValueError(f"upsample needs m | m_out, got {m} -> {m_out}")
+    return torch.repeat_interleave(x, m_out // m, dim=0)
+
+
+def act_relu_ref(x: torch.Tensor) -> torch.Tensor:
+    """relu that keeps NaN and -0.0 as they are, on every device (the
+    library's ``torch.relu`` treats -0.0 differently on the CPU and the
+    card)."""
+    return torch.where(x < 0, 0.0, x)
+
+
+def bfp8_quant_ref(x: torch.Tensor, block: int = 32):
+    """Block floating point: int8 mantissas + per-block exponent.
+    x: (R, C) with C % block == 0.  Returns (mantissa i8, exponent i8)."""
+    return bfp8_quant_values(x, block=block)
+
+
+def bfp8_dequant_ref(man: torch.Tensor, exp: torch.Tensor, block: int = 32,
+                     dtype=torch.float32) -> torch.Tensor:
+    return bfp8_dequant_values(man, exp, block=block, dtype=dtype)
