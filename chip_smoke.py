@@ -9,21 +9,24 @@ and prints no result line):
 1. the card: name and power limit from ``nvidia-smi``; no CUDA device is a
    failure;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes plus ragged shapes and the BFP8 exponent's edge cases,
-   and time kernel, plain version and one PyTorch call as a yardstick
-   (CUDA events, L2 flushed before every launch);
-4. the main path: the paper-width UNet (widths 64-1024, 368x480 input)
+3. the main path: the paper-width UNet (widths 64-1024, 368x480 input)
    through ``repro_torch.compile`` (DSE on the u200 sheet, staged executor)
-   — a few seeded frames, held against the same plan in
-   ``kernel_mode="reference"`` on the card, with the spill report, each
-   kernel's launches in one frame and the time per frame;
-5. one JSON line of per-kernel numbers, then the result line.
+   — a few seeded frames, each with its kernel launches counted and held
+   against the same plan in ``kernel_mode="reference"`` on the card;
+4. hold each kernel against its plain PyTorch version on the card, at every
+   shape the main path launched it with in phase 3 plus ragged shapes and
+   the BFP8 exponent's edge cases, and time kernel, plain version and one
+   PyTorch call as a yardstick (CUDA events, L2 flushed before every
+   launch);
+5. the frame's time and peak device memory, with the skips evicted as
+   planned and with the same plan's skips kept on the device;
+6. one JSON line of per-kernel numbers, then the result line.
 
 Imports nothing of JAX and nothing of the ``repro`` package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -49,6 +52,11 @@ MATMUL_TOL = 2e-4          # rtol = atol, as the port's CPU parity tests
 # main path vs reference mode: a one-ulp difference before a BFP8 encode
 # may move a mantissa by one step of its block's scale
 FRAME_TOL = 2e-2           # of max |reference output|
+# launches per frame of the paper-width UNet's staged plan on u200: the 8
+# weight layers with K > 128, 9 relus (4 encode a skip), 4 pools, 4 skip
+# decodes at the concats
+EXPECTED = {"streamed_matmul": 8, "act_relu": 5, "act_relu_encode": 4,
+            "pool": 4, "bfp8_dequant": 4}
 
 TPU_SRC = {
     "streamed_matmul": "src/repro/kernels/streamed_matmul.py:31",
@@ -104,44 +112,14 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def path_launches(g, plan):
-    """The kernel launches of one frame of the staged main path, with each
-    launch's shape, read from the plan the way the executor lowers it."""
-    from repro_torch.runtime import executor as ex
-    from repro_torch.kernels.streamed_matmul import TILE, _round_up
-
-    an = ex.analyze_plan(g, plan, use_kernels=True)
-    out = []
-    for name in an.topo:
-        v = g.vertex(name)
-        lv = ex._lower_vertex(g, name, an)
-        for e in g.in_edges(name):
-            edge = (e.src, name)
-            if edge in an.bfp8_edges and lv.fuse_in != edge:
-                m, c = an.out_shape[e.src]
-                out.append(("bfp8_dequant", (m, _round_up(c, 32))))
-        spec = v.meta["exec"]
-        if v.kind in ex.WEIGHT_KINDS and an.frac[name] < 1.0:
-            kp = _round_up(spec["cin"], TILE)
-            if kp > TILE:
-                ks = int(round(an.frac[name] * kp / 128.0)) * 128
-                ks = max(min(ks, kp - TILE), 128)
-                out.append(("streamed_matmul",
-                            (_round_up(spec["m"], TILE), ks, kp - ks,
-                             _round_up(spec["cout"], TILE))))
-        elif v.kind == "act":
-            out.append(("act_relu_encode" if lv.fuse_out else "act_relu",
-                        (spec["m"], spec["cout"])))
-        elif v.kind == "pool":
-            out.append(("pool", (spec["m"], spec["cout"], spec["m_out"])))
-    return out
-
-
-def kernel_phase(torch, timer, launches):
-    """Hold every kernel against its plain version; time both and the
-    yardstick per launch of one frame.  Returns per-kernel rows."""
+def kernel_phase(torch, timer, shapes):
+    """Hold every kernel against its plain version at each ``(name, tensor
+    shapes)`` the main path launched, and time kernel, plain version and
+    yardstick; ``shapes`` maps each to its launches per frame, and the times
+    and bounds are summed over one frame.  Returns per-kernel rows."""
     from repro_torch.kernels import ref, streaming_conv as SC
     from repro_torch.kernels.bfp8 import bfp8_dequant, bfp8_quant_values
+    from repro_torch.kernels.library import reset_launches
     from repro_torch.kernels.streamed_matmul import (streamed_matmul,
                                                      streamed_matmul_padded)
 
@@ -191,29 +169,60 @@ def kernel_phase(torch, timer, launches):
         exact("act_relu_encode", man, pman)
         exact("act_relu_encode", exp, pexp)
 
-    # -- correctness at the path's shapes ------------------------------------
-    for kind, shape in launches:
+    def case(kind, arg_shapes):
+        """Inputs at one launch's shapes: (check, kernel, plain, yardstick
+        or None, bytes moved, operations)."""
         if kind == "streamed_matmul":
-            m, ks, kd, n = shape
-            x = randn(m, ks + kd)
-            ws = randn(ks, n) / math.sqrt(ks + kd)
-            wd = randn(kd, n) / math.sqrt(ks + kd)
-            close(kind, streamed_matmul(x, ws, wd),
-                  ref.streamed_matmul_ref(x, ws, wd), MATMUL_TOL, MATMUL_TOL)
-        elif kind == "act_relu":
-            x = randn(*shape)
-            exact(kind, SC.act_relu(x), ref.act_relu_ref(x))
-        elif kind == "act_relu_encode":
-            check_encode(randn(*shape))
-        elif kind == "pool":
-            m, c, m_out = shape
+            (m, k), (ks, n), (kd, _), _ = arg_shapes
+            x = randn(m, k)
+            ws, wd = randn(ks, n) / math.sqrt(k), randn(kd, n) / math.sqrt(k)
+            w = torch.cat([ws, wd])
+            kern = lambda: streamed_matmul(x, ws, wd)          # noqa: E731
+            plain = lambda: ref.streamed_matmul_ref(x, ws, wd)  # noqa: E731
+            return ((lambda: close(kind, kern(), plain(), MATMUL_TOL,
+                                   MATMUL_TOL)),
+                    kern, plain, lambda: torch.matmul(x, w),
+                    4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
+        if kind == "act_relu":
+            (m, c), _ = arg_shapes
             x = randn(m, c)
-            exact(kind, SC.pool(x, m_out), ref.pool_ref(x, m_out))
-        else:
-            man, exp = randi8(-127, 127, *shape), randi8(-30, 20, shape[0],
-                                                        shape[1] // 32)
-            exact(kind, bfp8_dequant(man, exp),
-                  ref.bfp8_dequant_ref(man, exp))
+            kern = lambda: SC.act_relu(x)                      # noqa: E731
+            plain = lambda: ref.act_relu_ref(x)                # noqa: E731
+            return ((lambda: exact(kind, kern(), plain())), kern, plain,
+                    lambda: torch.relu(x), 8.0 * m * c, m * c)
+        if kind == "act_relu_encode":
+            (m, c), _, (_, cq), (_, nb) = arg_shapes
+            x = randn(m, c)
+            return ((lambda: check_encode(x)),
+                    lambda: SC.act_relu(x, encode=True),
+                    lambda: enc_plain(x), None,
+                    8.0 * m * c + m * cq + m * nb, 6.0 * m * cq)
+        if kind == "pool":
+            (m, c), (m_out, _) = arg_shapes
+            x = randn(m, c)
+            kern = lambda: SC.pool(x, m_out)                   # noqa: E731
+            plain = lambda: ref.pool_ref(x, m_out)             # noqa: E731
+            return ((lambda: exact(kind, kern(), plain())), kern, plain,
+                    lambda: x.view(m_out, m // m_out, c).mean(1),
+                    4.0 * (m * c + m_out * c), m * c)
+        (r, c), (_, nb), _ = arg_shapes                        # bfp8_dequant
+        man, exp = randi8(-127, 127, r, c), randi8(-30, 20, r, nb)
+        kern = lambda: bfp8_dequant(man, exp)                  # noqa: E731
+        plain = lambda: ref.bfp8_dequant_ref(man, exp)         # noqa: E731
+        return ((lambda: exact(kind, kern(), plain())), kern, plain, None,
+                5.0 * r * c + r * nb, r * c)
+
+    # -- at the path's shapes: correctness, then times per frame ---------------
+    for (kind, arg_shapes), n in sorted(shapes.items()):
+        check, kern, plain, lib, nbytes, ops = case(kind, arg_shapes)
+        check()
+        row = rows[kind]
+        row["ms"] += n * timer(kern)
+        row["plain_ms"] += n * timer(plain)
+        row["library_ms"] = None if lib is None else (
+            row["library_ms"] + n * timer(lib))
+        b, row["bound_by"] = bound_ms(nbytes, ops)
+        row["bound_ms"] += n * b
 
     # -- ragged shapes and edge cases ----------------------------------------
     for m, k, n, f in ((1000, 300, 200, 0.0), (77, 1536, 130, 0.5)):
@@ -231,7 +240,8 @@ def kernel_phase(torch, timer, launches):
           ref.act_relu_ref(specials[None, :]))
     # BFP8 exponent edge cases: block amax at 2^k (1 + j 2^-23), j in
     # -3..3, across the normal range and into the subnormals, plus all-zero
-    # blocks (exp 0) and blocks whose values round half-way
+    # blocks (exp 0), blocks whose values round half-way, and blocks that
+    # hold a NaN or an infinity (exp 0, a NaN's mantissa 0)
     k = torch.arange(-140, 40, device="cuda", dtype=torch.float32)
     j = torch.arange(-3, 4, device="cuda", dtype=torch.float32)
     amax = (torch.exp2(k)[:, None] * (1 + j[None, :] * 2.0**-23)).reshape(-1)
@@ -240,6 +250,10 @@ def kernel_phase(torch, timer, launches):
     x[:, 33] = -amax
     x[::5, 32:] = 0.0
     x[1::7, 1] = amax[1::7] * (2.5 / 64)        # x / scale = 2.5: ties
+    x[2::11, 7] = float("nan")
+    x[3::11, 40] = float("inf")
+    x[4::11, 9], x[4::11, 50] = float("nan"), float("inf")
+    x[5::11, 60] = -float("inf")
     check_encode(x)
     g = randn(4096, 96)
     close("pool", SC.pool(g, 1), ref.pool_ref(g, 1), 1e-5, 1e-6)
@@ -247,60 +261,27 @@ def kernel_phase(torch, timer, launches):
     exact("bfp8_dequant", bfp8_dequant(man, exp),
           ref.bfp8_dequant_ref(man, exp))
     torch.cuda.synchronize()
-
-    # -- times per launch of one frame, summed -------------------------------
-    from repro_torch.kernels.library import reset_launches
-    for kind, shape in launches:
-        row = rows[kind]
-        row["launches"] += 1
-        if kind == "streamed_matmul":
-            m, ks, kd, n = shape
-            x, ws, wd = randn(m, ks + kd), randn(ks, n), randn(kd, n)
-            w = torch.cat([ws, wd])
-            kern = lambda: streamed_matmul(x, ws, wd)          # noqa: E731
-            plain = lambda: ref.streamed_matmul_ref(x, ws, wd)  # noqa: E731
-            lib = lambda: torch.matmul(x, w)                   # noqa: E731
-            b, by = bound_ms(4.0 * (m * (ks + kd) + (ks + kd) * n + m * n),
-                             2.0 * m * (ks + kd) * n)
-        elif kind in ("act_relu", "act_relu_encode"):
-            m, c = shape
-            x = randn(m, c)
-            if kind == "act_relu":
-                kern = lambda: SC.act_relu(x)                  # noqa: E731
-                plain = lambda: ref.act_relu_ref(x)            # noqa: E731
-                lib = lambda: torch.relu(x)                    # noqa: E731
-                b, by = bound_ms(8.0 * m * c, m * c)
-            else:
-                cq = -(-c // 32) * 32
-                kern = lambda: SC.act_relu(x, encode=True)     # noqa: E731
-                plain = lambda: enc_plain(x)                   # noqa: E731
-                lib = None
-                b, by = bound_ms(8.0 * m * c + m * cq + m * cq // 32,
-                                 6.0 * m * cq)
-        elif kind == "pool":
-            m, c, m_out = shape
-            x = randn(m, c)
-            kern = lambda: SC.pool(x, m_out)                   # noqa: E731
-            plain = lambda: ref.pool_ref(x, m_out)             # noqa: E731
-            lib = lambda: x.view(m_out, m // m_out, c).mean(1)  # noqa: E731
-            b, by = bound_ms(4.0 * (m * c + m_out * c), m * c)
-        else:
-            r, c = shape
-            man, exp = randi8(-127, 127, r, c), randi8(-30, 20, r, c // 32)
-            kern = lambda: bfp8_dequant(man, exp)              # noqa: E731
-            plain = lambda: ref.bfp8_dequant_ref(man, exp)     # noqa: E731
-            lib = None
-            b, by = bound_ms(5.0 * r * c + r * c // 32, r * c)
-        row["ms"] += timer(kern)
-        row["plain_ms"] += timer(plain)
-        if lib is None:
-            row["library_ms"] = None
-        else:
-            row["library_ms"] += timer(lib)
-        row["bound_ms"] += b
-        row["bound_by"] = by
     reset_launches()        # the comparisons above are not path launches
     return rows
+
+
+def frame_stats(torch, comp, x) -> tuple[float, int]:
+    """Median host-clock ms of 5 frames, and the peak device memory one
+    frame allocates above what is held before it (weights, input)."""
+    comp.run(x)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    comp.run(x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        comp.run(x)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), peak
 
 
 def main() -> int:
@@ -311,8 +292,6 @@ def main() -> int:
     import repro_torch
     from repro_torch.core import build_unet_exec
     from repro_torch.kernels import library
-    from repro_torch.runtime.executor import (OffchipHop, _hop_shapes,
-                                              analyze_plan)
 
     # -- 1. the card -----------------------------------------------------------
     name_limit = card()
@@ -332,28 +311,12 @@ def main() -> int:
         if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  {line.strip()}")
 
-    # -- the main path's plan (its shapes drive phase 3) ------------------------
+    # -- 3. the main path -------------------------------------------------------
     g = build_unet_exec(**PAPER_UNET)
     t0 = time.perf_counter()
     main = repro_torch.compile(repro_torch.CompileSpec(
         model=g, device="u200", strategy="dse", mode="staged"))
     print(f"compile (DSE + lowering): {time.perf_counter() - t0:.2f} s")
-    launches = path_launches(g, main.plan)
-    expected = {k: sum(1 for n, _ in launches if n == k) for k in TPU_SRC}
-
-    # -- 3. kernels against their plain versions --------------------------------
-    timer = Timer(torch)
-    rows = kernel_phase(torch, timer, launches)
-    for r in rows.values():
-        print(f"kernel {r['name']:16s} launches/frame {r['launches']:2d} "
-              f"max_abs_err {r['max_abs_err']:.3e} "
-              f"(tol {'bit-exact' if r['name'] != 'streamed_matmul' else MATMUL_TOL}"
-              f"{', global pool rtol 1e-5' if r['name'] == 'pool' else ''}) "
-              f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
-              f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
-              f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
-
-    # -- 4. the main path -----------------------------------------------------
     rep = main.report()
     bfp8 = [s for s in main.executor.report.spills
             if s.codec == "bfp8" and s.reason == "evicted"]
@@ -365,19 +328,24 @@ def main() -> int:
         model=g, device="u200", strategy="manual-plan", plan=main.plan,
         mode="staged", kernel_mode="reference"))
     m, c = main.input_shape()
-    n_out = 0
+    shapes = None
     for f in range(FRAMES):
         x = torch.randn((m, c), generator=torch.Generator().manual_seed(f))
+        xd = x.cuda()
+        torch.cuda.synchronize()
         library.reset_launches()
-        y = main.run(x)
+        y = main.run(xd)
         torch.cuda.synchronize()
         counts = library.launches()
-        yr = refc.run(x)
+        if shapes is None:
+            shapes = library.launch_shapes()
+        elif library.launch_shapes() != shapes:
+            raise AssertionError(f"frame {f}: launch shapes changed")
+        if counts != EXPECTED:
+            raise AssertionError(f"frame {f}: launches {counts}, expected "
+                                 f"{EXPECTED}")
+        yr = refc.run(xd)
         torch.cuda.synchronize()
-        if counts != expected:
-            raise AssertionError(f"frame {f}: launches {counts}, the plan "
-                                 f"says {expected}")
-        n_out = y.numel()
         if y.shape != yr.shape or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"frame {f}: bad output {tuple(y.shape)}")
         err = float((y - yr).abs().max())
@@ -390,39 +358,48 @@ def main() -> int:
     print(f"launches per frame: streamed_matmul {counts['streamed_matmul']}, "
           f"act_relu {total_act} ({counts['act_relu_encode']} with encode), "
           f"pool {counts['pool']}, bfp8_dequant {counts['bfp8_dequant']}")
+    for (name, arg_shapes), n in sorted(shapes.items()):
+        print(f"  {name} {arg_shapes} x{n}")
+
+    # -- 4. kernels against their plain versions --------------------------------
+    timer = Timer(torch)
+    rows = kernel_phase(torch, timer, shapes)
     for name, n in counts.items():
         if n == 0:
             raise AssertionError(f"kernel {name} never launched on the path")
         rows[name]["launches"] = n
-
-    def frame_ms(comp):
-        x = torch.randn((m, c), generator=torch.Generator().manual_seed(99))
-        xd = x.cuda()
-        comp.run(xd)
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            comp.run(xd)
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(ts)
-
-    ms_main, ms_ref = frame_ms(main), frame_ms(refc)
-    print(f"ms per frame (median of 5, host clock): kernels {ms_main:.3f}, "
-          f"reference mode {ms_ref:.3f}; output length {n_out}")
+    for r in rows.values():
+        print(f"kernel {r['name']:16s} launches/frame {r['launches']:2d} "
+              f"max_abs_err {r['max_abs_err']:.3e} "
+              f"(tol {'bit-exact' if r['name'] != 'streamed_matmul' else MATMUL_TOL}"
+              f"{', global pool rtol 1e-5' if r['name'] == 'pool' else ''}) "
+              f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+              f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
     kern_sum = sum(r["ms"] for r in rows.values())
-    print(f"sum of the path's kernel times (L2 cold): {kern_sum:.3f} ms")
-    shapes = list(_hop_shapes(analyze_plan(g, main.plan, use_kernels=True)))
-    hop = OffchipHop(shapes)
-    spilled = [torch.zeros(s, dtype=dt, device="cuda") for s, dt in shapes]
-    hop_ms = timer(lambda: [hop(t) for t in spilled])
-    nbytes = sum(t.numel() * t.element_size() for t in spilled)
-    print(f"off-chip hops per frame: {len(spilled)} tensors, {nbytes} bytes "
-          f"each way, {hop_ms:.3f} ms "
-          f"({2 * nbytes / hop_ms / 1e6:.2f} GB/s both ways)")
+    print(f"sum of the path's kernel times (L2 flushed): {kern_sum:.3f} ms")
 
-    # -- 5. results -------------------------------------------------------------
+    # -- 5. time and memory per frame -------------------------------------------
+    # the same plan with every skip kept on the device: no encode, no
+    # off-chip hop, no decode
+    plan = main.plan
+    resident = dataclasses.replace(
+        plan, provenance=dict(plan.provenance),
+        streams=[dataclasses.replace(s, evicted=False, codec="none")
+                 for s in plan.streams])
+    resc = repro_torch.compile(repro_torch.CompileSpec(
+        model=g, device="u200", strategy="manual-plan", plan=resident,
+        mode="staged"))
+    x = torch.randn((m, c), generator=torch.Generator().manual_seed(99))
+    xd = x.cuda()
+    for label, comp in (("kernels, skips evicted", main),
+                        ("kernels, skips resident", resc),
+                        ("reference mode, skips evicted", refc)):
+        ms, peak = frame_stats(torch, comp, xd)
+        print(f"frame ({label}): {ms:.3f} ms (median of 5, host clock), "
+              f"peak device memory above weights and input {peak} bytes")
+
+    # -- 6. results -------------------------------------------------------------
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,8 @@
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 8, THREADS = 256;
+static_assert((BM * BK + BK * BN) * sizeof(float) <= 48 * 1024,
+              "the staged slices exceed a block's static shared memory");
 
 __global__ void __launch_bounds__(THREADS)
 streamed_matmul_kernel(const float* __restrict__ x,

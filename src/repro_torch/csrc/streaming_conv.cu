@@ -8,6 +8,7 @@
 // output.  The designs therefore only aim at full-width, coalesced loads and
 // stores:
 //  * act_relu (plain): four values per thread, 16-byte loads and stores;
+//    the thread at the end of a ragged n takes the n % 4 left one by one;
 //  * act_relu (egress encode): one warp per (row, 32-channel block).  Lane l
 //    owns channel 32*b + l, the block's amax is a butterfly of
 //    __shfl_xor_sync, and the f32 output, the mantissas and the block's
@@ -27,19 +28,16 @@ namespace {
 // through unchanged.
 __device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
 
-__global__ void act_relu_kernel(const float4* __restrict__ x,
-                                float4* __restrict__ y, int64_t n4) {
-  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  float4 v = x[i];
-  y[i] = make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w));
-}
-
-__global__ void act_relu_tail_kernel(const float* __restrict__ x,
-                                     float* __restrict__ y, int64_t begin,
-                                     int64_t n) {
-  int64_t i = begin + blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i < n) y[i] = relu(x[i]);
+__global__ void act_relu_kernel(const float* __restrict__ x,
+                                float* __restrict__ y, int64_t n) {
+  int64_t i = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) * 4;
+  if (i + 4 <= n) {
+    float4 v = *reinterpret_cast<const float4*>(x + i);
+    *reinterpret_cast<float4*>(y + i) =
+        make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w));
+  } else {
+    for (; i < n; ++i) y[i] = relu(x[i]);
+  }
 }
 
 // One warp per (row, block); c_pad = ceil(c / 32) * 32 channels of payload,
@@ -62,7 +60,8 @@ __global__ void act_relu_encode_kernel(const float* __restrict__ x,
   float amax = fabsf(v);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    amax = smof::bfp8_amax_step(amax,
+                                __shfl_xor_sync(0xffffffffu, amax, off));
   int e = smof::bfp8_exponent(amax);
   man[row * nb * smof::kBfp8Block + col] =
       smof::bfp8_mantissa(v, smof::bfp8_scale(e));
@@ -87,14 +86,9 @@ unsigned grid_for(int64_t work, int threads) {
 }  // namespace
 
 extern "C" int smof_act_relu(const void* x, void* y, int64_t n, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int64_t n4 = n / 4;
-  if (n4 > 0)
-    act_relu_kernel<<<grid_for(n4, 256), 256, 0, s>>>((const float4*)x,
-                                                       (float4*)y, n4);
-  if (n > n4 * 4)
-    act_relu_tail_kernel<<<1, 32, 0, s>>>((const float*)x, (float*)y, n4 * 4,
-                                          n);
+  if (n > 0)
+    act_relu_kernel<<<grid_for((n + 3) / 4, 256), 256, 0,
+                      (cudaStream_t)stream>>>((const float*)x, (float*)y, n);
   return (int)cudaGetLastError();
 }
 

@@ -7,14 +7,15 @@ definition of the codec's numerics.  The plain wrappers below, the fused
 egress encode of ``streaming_conv.act_relu`` and the CUDA kernels in
 ``csrc/bfp8.cuh`` all compute exactly this, bit for bit:
 
-* ``exp = ceil(log2(max(amax, 1e-38)))`` for a block with ``amax > 0``,
-  else 0.  It is read exactly from the float's bits (``frexp``): an f32
+* ``exp = ceil(log2(max(amax, 1e-38)))`` for a block with a finite
+  ``amax > 0``, else 0 (a block that holds a NaN has ``amax`` NaN).  It is read exactly from the float's bits (``frexp``): an f32
   ``log2`` misses the integer near powers of two, and two implementations of
   it miss in different places.  The reference package's f32 ``log2`` agrees
   with this except where a block's amax lies within about 2^-16 (relative)
   of a power of two.
 * ``man = clip(round_half_even(x / 2^(exp-6)), -127, 127)``.  The scale is
-  an exact power of two, so the division is exact.
+  an exact power of two, so the division is exact.  A NaN value's
+  mantissa is 0.
 """
 from __future__ import annotations
 
@@ -24,13 +25,14 @@ from .library import check_operand, launch, not_ported
 
 
 def bfp8_exponent(amax: torch.Tensor) -> torch.Tensor:
-    """``ceil(log2(max(amax, 1e-38)))`` where ``amax > 0``, else 0, exactly
-    (int32).  ``frexp`` gives ``a = f * 2^e`` with ``f`` in [0.5, 1); ``a``
+    """``ceil(log2(max(amax, 1e-38)))`` where ``amax`` is finite and > 0,
+    else 0, exactly (int32).  ``frexp`` gives ``a = f * 2^e`` with ``f`` in [0.5, 1); ``a``
     is a power of two exactly when ``f == 0.5``, and then the ceiling is
     ``e - 1``."""
     f, e = torch.frexp(torch.clamp(amax, min=1e-38))
     e = torch.where(f == 0.5, e - 1, e)
-    return torch.where(amax > 0, e, torch.zeros_like(e))
+    return torch.where((amax > 0) & torch.isfinite(amax), e,
+                       torch.zeros_like(e))
 
 
 def bfp8_scale(exp: torch.Tensor) -> torch.Tensor:
@@ -49,7 +51,8 @@ def bfp8_quant_values(x: torch.Tensor, *, block: int):
     R, C = x.shape
     xb = x.reshape(R, C // block, block)
     exp = bfp8_exponent(xb.abs().amax(dim=-1))
-    man = torch.round(xb / bfp8_scale(exp)[..., None]).clamp(-127, 127)
+    q = torch.round(xb / bfp8_scale(exp)[..., None])
+    man = torch.where(torch.isnan(q), 0.0, q).clamp(-127, 127)
     return man.reshape(R, C).to(torch.int8), exp.to(torch.int8)
 
 

@@ -11,10 +11,12 @@ back: a failed build or launch raises.
 Every C entry point enqueues its kernel on the stream it is given (the
 caller's current PyTorch stream), allocates nothing and returns
 ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and only
-then counts the launch in :data:`LAUNCHES`.
+then counts the launch in :data:`LAUNCHES`, and under the shapes of its
+tensors in :data:`LAUNCH_SHAPES`.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
@@ -49,6 +51,9 @@ SIGNATURES = {
 
 #: Launches of each kernel since the last :func:`reset_launches`.
 LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+#: The same launches by ``(name, shapes of its tensor arguments)``: the
+#: shapes a run really gave each kernel.
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +70,15 @@ _LIBRARY: KernelLibrary | None = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def launches() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def launch_shapes() -> dict[tuple, int]:
+    return dict(LAUNCH_SHAPES)
 
 
 def _nvcc() -> str:
@@ -180,6 +190,8 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"{lib.smof_error_string(code).decode()}")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, tuple(tuple(a.shape) for a in args
+                               if isinstance(a, torch.Tensor)))] += 1
 
 
 def not_ported(what: str):

@@ -19,7 +19,6 @@ from .library import check_operand, launch
 TILE = 128                  # alignment of M, N and both K parts
 KERNEL_BM = KERNEL_BN = 128  # the CUDA kernel's output tile
 KERNEL_BK = 8                # its K step
-STATIC_SMEM_LIMIT = 48 * 1024  # statically sized shared memory per block
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -30,7 +29,9 @@ def smem_bytes(bm: int = KERNEL_BM, bn: int = KERNEL_BN,
                bk: int = KERNEL_BK, itemsize: int = 4) -> int:
     """Shared-memory working set of one block of the kernel: the staged
     ``(bm, bk)`` slice of x and ``(bk, bn)`` slice of the weight (the
-    on-chip check that takes the place of the TPU kernel's VMEM claim)."""
+    on-chip working set that takes the place of the TPU kernel's VMEM claim;
+    the kernel's source asserts at compile time that it fits the 48 KB of
+    static shared memory a block may hold)."""
     return (bm * bk + bk * bn) * itemsize
 
 
@@ -52,8 +53,6 @@ def streamed_matmul(x: torch.Tensor, w_static: torch.Tensor,
         return ref.streamed_matmul_ref(x, w_static, w_dyn)
     for name, t in (("x", x), ("w_static", w_static), ("w_dyn", w_dyn)):
         check_operand(f"streamed_matmul {name}", t, torch.float32)
-    if smem_bytes() > STATIC_SMEM_LIMIT:
-        raise ValueError("streamed_matmul tile exceeds static shared memory")
     if M // KERNEL_BM > 65535:
         raise ValueError(f"streamed_matmul: M={M} exceeds the grid's rows")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)

@@ -10,8 +10,10 @@ records the decision vector; this module makes those decisions happen:
   numerics carry the codec's error exactly as hardware would; RLE/Huffman
   are lossless, so their numerical effect is identity and only the traffic
   accounting changes.  On a CUDA device the spill also crosses to pinned
-  host memory and back (:class:`OffchipHop`), so the bytes really leave
-  device memory; on the CPU the hop is identity.
+  host memory when its producer runs and comes back for each consumer
+  (:class:`OffchipHop`); the device copies are dropped in between, so an
+  evicted stream holds no device memory while it waits.  On the CPU the
+  hop is identity.
 * **fragmented weights** (``LayerPlan.weight_static_fraction < 1``)
   dispatch to ``kernels/streamed_matmul.py``, split at the plan's ``1 - m``.
 * **stage boundaries** (``LayerPlan.stage`` changes across an edge) hop
@@ -404,7 +406,8 @@ def apply_vertex_fused(v, ins, params, x, analysis: PlanAnalysis, *,
 
 
 def run_vertices(g: Graph, an: PlanAnalysis, params: dict, x: torch.Tensor,
-                 hop) -> dict[str, torch.Tensor]:
+                 hop: "OffchipHop", *, keep_all: bool = True
+                 ) -> dict[str, torch.Tensor]:
     """The per-vertex execution loop over the whole graph, in topo order.
 
     Payload-routed BFP8 eviction: on the kernel route the producer of a
@@ -412,37 +415,59 @@ def run_vertices(g: Graph, an: PlanAnalysis, params: dict, x: torch.Tensor,
     :func:`_lower_vertex` allows) and every consumer decodes it (fused
     likewise, else via ``bfp8_spill_decode``); on the reference route every
     spilled edge round-trips through ``spill_fn`` — numerically the same
-    composition either way.  Returns every vertex's output.
+    composition either way.
+
+    Every spill leaves when its producer runs (``hop.evict``) and each
+    consumer brings back its own copy (``hop.restore``).  With
+    ``keep_all=False`` a vertex's output is dropped as soon as the last
+    vertex that reads it on the device has run, so a spilled stream holds no
+    device memory between its producer and its consumers; the graph's last
+    vertex is kept.  Returns the outputs still held: with ``keep_all`` every
+    vertex's, for naming the first vertex where two executors part.
     """
+    payload_routed = an.bfp8_edges if an.use_kernels else set()
+    last_read: dict[str, int] = {}      # producer -> index of its last reader
+    for i, name in enumerate(an.topo):
+        for e in g.in_edges(name):
+            if (e.src, name) not in an.spill_fn:
+                last_read[e.src] = i
     values: dict[str, torch.Tensor] = {}
-    payloads: dict[str, tuple] = {}
-    for name in an.topo:
+    host: dict = {}                     # spill key -> off-chip handle
+    for i, name in enumerate(an.topo):
         v = g.vertex(name)
         lv = _lower_vertex(g, name, an)
         ins, payload_in = [], None
         for e in g.in_edges(name):      # predecessor order = operand order
             edge = (e.src, name)
-            if an.use_kernels and edge in an.bfp8_edges:
-                pay = tuple(hop(t) for t in payloads[e.src])
+            if edge in payload_routed:
+                pay = hop.restore(host[e.src])
                 if lv.fuse_in == edge:
                     payload_in = pay
                     ins.append(None)
                 else:
                     ins.append(bfp8_spill_decode(
                         pay, an.out_shape[e.src][1], use_kernels=True))
+            elif edge in an.spill_fn:
+                ins.append(hop.restore(host[edge])[0])
             else:
-                val = values[e.src]
-                fn = an.spill_fn.get(edge)
-                if fn is not None:
-                    val = hop(fn(val))
-                ins.append(val)
+                ins.append(values[e.src])
         y, pay = apply_vertex_fused(v, ins, params, x, an,
                                     payload_in=payload_in,
                                     want_payload=lv.fuse_out)
-        values[name] = y
         if lv.needs_payload:
-            payloads[name] = pay if pay is not None else bfp8_spill_encode(
-                y, use_kernels=True)
+            host[name] = hop.evict(name, pay if pay is not None else
+                                   bfp8_spill_encode(y, use_kernels=True))
+        for s in g.successors(name):
+            edge = (name, s)
+            if edge in an.spill_fn and edge not in payload_routed:
+                host[edge] = hop.evict(edge, (an.spill_fn[edge](y),))
+        values[name] = y
+        # drop this step's references, so only `values` and `host` hold data
+        del ins, payload_in, pay, y
+        if not keep_all:
+            for src in [e.src for e in g.in_edges(name)] + [name]:
+                if last_read.get(src, -1) <= i and src != an.topo[-1]:
+                    values.pop(src, None)
     return values
 
 
@@ -486,41 +511,58 @@ def resolve_kernel_mode(kernel_mode: str, device: torch.device) -> bool:
 
 
 class OffchipHop:
-    """The off-chip crossing of a spilled tensor on a CUDA device: a copy to
-    pinned host memory and back, both enqueued on the current stream.
+    """The off-chip crossing of spilled tensors.
 
-    One pinned buffer per (shape, dtype), allocated when the pipeline is
-    lowered.  Reusing a buffer across hops is safe because every copy is
-    ordered on the one stream and the host never touches the buffers."""
+    ``evict(key, tensors)`` sends one spill off the device when its producer
+    runs and returns its off-chip handle; ``restore(handle)`` brings a copy
+    back to the device for one consumer.  On a CUDA device the handle is a
+    set of pinned host buffers, one set per spill key, allocated when the
+    pipeline is lowered, and both copies are enqueued on the current stream.
+    The producer's device copy may be freed once its eviction is enqueued:
+    the caching allocator hands that memory only to work ordered after the
+    copy.  A frame writes each buffer once and its consumers read it; the
+    next frame's write is ordered after those reads on the same stream, and
+    the host never touches the buffers.  On the CPU a handle is the tensors
+    themselves and both directions are identity."""
 
-    def __init__(self, shapes):
-        self._buffers = {(tuple(s), dt): torch.empty(s, dtype=dt,
-                                                     pin_memory=True)
-                         for s, dt in shapes}
+    def __init__(self, device: torch.device, slots: dict):
+        self.device = device
+        self._buffers = None
+        if device.type == "cuda":
+            self._buffers = {
+                key: tuple(torch.empty(s, dtype=dt, pin_memory=True)
+                           for s, dt in specs)
+                for key, specs in slots.items()}
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        buf = self._buffers[(tuple(x.shape), x.dtype)]
-        buf.copy_(x, non_blocking=True)
-        return torch.empty_like(x).copy_(buf, non_blocking=True)
+    def evict(self, key, tensors: tuple) -> tuple:
+        if self._buffers is None:
+            return tuple(tensors)
+        bufs = self._buffers[key]
+        for buf, t in zip(bufs, tensors, strict=True):
+            buf.copy_(t, non_blocking=True)
+        return bufs
+
+    def restore(self, handle: tuple) -> tuple:
+        if self._buffers is None:
+            return handle
+        return tuple(torch.empty(b.shape, dtype=b.dtype, device=self.device)
+                     .copy_(b, non_blocking=True) for b in handle)
 
 
-def _hop_shapes(an: PlanAnalysis):
-    """(shape, dtype) of every tensor that crosses off-chip in one frame."""
+def _spill_slots(an: PlanAnalysis) -> dict:
+    """(shape, dtype) of every tensor that crosses off-chip in one frame, by
+    spill key: a producer's BFP8 payload on the kernel route (shared by its
+    consumers), else the spilled edge."""
+    slots: dict = {}
     for r in an.spills:
         m, c = an.out_shape[r.src]
         if an.use_kernels and (r.src, r.dst) in an.bfp8_edges:
             c_pad = _round_up(c, BFP8_BLOCK)
-            yield (m, c_pad), torch.int8
-            yield (m, c_pad // BFP8_BLOCK), torch.int8
+            slots[r.src] = [((m, c_pad), torch.int8),
+                            ((m, c_pad // BFP8_BLOCK), torch.int8)]
         else:
-            yield (m, c), torch.float32
-
-
-def _make_offchip_hop(device: torch.device, an: PlanAnalysis
-                      ) -> Callable[[torch.Tensor], torch.Tensor]:
-    if device.type == "cuda":
-        return OffchipHop(_hop_shapes(an))
-    return lambda x: x
+            slots[(r.src, r.dst)] = [((m, c), torch.float32)]
+    return slots
 
 
 def lower_plan(g: Graph, plan: ExecutionPlan | None = None, *,
@@ -541,10 +583,10 @@ def lower_plan(g: Graph, plan: ExecutionPlan | None = None, *,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     an = analyze_plan(g, plan, use_kernels=use_kernels)
-    hop = _make_offchip_hop(device, an)
+    hop = OffchipHop(device, _spill_slots(an))
 
     @torch.no_grad()
-    def forward_values(params: dict, x: torch.Tensor
+    def forward_values(params: dict, x: torch.Tensor, keep_all: bool = True
                        ) -> dict[str, torch.Tensor]:
         if tuple(x.shape) != an.in_shape:
             # every op downstream is shape-agnostic on the position axis, so
@@ -553,10 +595,10 @@ def lower_plan(g: Graph, plan: ExecutionPlan | None = None, *,
             raise ValueError(
                 f"input shape {tuple(x.shape)} does not match the graph's "
                 f"input spec {an.in_shape} for {g.name!r}")
-        return run_vertices(g, an, params, x, hop)
+        return run_vertices(g, an, params, x, hop, keep_all=keep_all)
 
     def forward(params: dict, x: torch.Tensor) -> torch.Tensor:
-        return forward_values(params, x)[an.topo[-1]]
+        return forward_values(params, x, keep_all=False)[an.topo[-1]]
 
     return LoweredPipeline(fn=forward,
                            params=init_params(g, seed=seed, device=device),

@@ -54,6 +54,21 @@ def test_act_relu_bit_exact(gen, m, c):
     assert torch.equal(man, pman) and torch.equal(exp, pexp)
 
 
+def test_act_relu_encode_non_finite_blocks(gen):
+    """Blocks that hold a NaN or an infinity encode as the plain version
+    does: exponent 0, a NaN's mantissa 0, an infinity clipped."""
+    x = torch.randn(6, 96, generator=gen, device="cuda")
+    x[0, 3] = x[2, 9] = float("nan")
+    x[1, 40] = x[2, 70] = float("inf")
+    x[3, 64] = -float("inf")
+    x[4, 5], x[4, 6] = float("nan"), -float("nan")
+    y, (man, exp) = SC.act_relu(x, encode=True)
+    pman, pexp = bfp8_quant_values(ref.act_relu_ref(x), block=32)
+    assert torch.equal(_bits(y), _bits(ref.act_relu_ref(x)))
+    assert torch.equal(man, pman) and torch.equal(exp, pexp)
+    assert exp[0, 0] == 0 and man[0, 3] == 0 and man[1, 40] == 127
+
+
 @pytest.mark.parametrize("m,c,m_out", [(64, 40, 32), (300, 96, 150),
                                        (4096, 64, 1)])
 def test_pool(gen, m, c, m_out):

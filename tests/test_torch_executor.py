@@ -11,6 +11,7 @@ against the reference package's ``lower_plan`` with the same weights
   leaves the reference.
 """
 import dataclasses
+import weakref
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ import repro_torch                                          # noqa: E402
 from repro_torch.core import DSEConfig as TDSEConfig        # noqa: E402
 from repro_torch.core import builders as tbuilders          # noqa: E402
 from repro_torch.core.resources import Device as TDevice    # noqa: E402
+from repro_torch.runtime import executor as tex             # noqa: E402
 from repro_torch.runtime.executor import (init_params,      # noqa: E402
                                           params_from_numpy,
                                           reference_pipeline)
@@ -174,3 +176,42 @@ def test_dense_reference_pipeline_and_params():
     assert not torch.equal(init_params(g, seed=4)["conv_2"], again["conv_2"])
     with pytest.raises(ValueError, match="input shape"):
         lp(torch.zeros(3, 3))
+
+
+class _WatchingHop:
+    """An off-chip hop that keeps its own copy of each spill and notes, when
+    a consumer brings one back, whether the tensor evicted is still held."""
+
+    def __init__(self):
+        self.held_at_restore = []
+
+    def evict(self, key, tensors):
+        return ([t.clone() for t in tensors],
+                [weakref.ref(t) for t in tensors])
+
+    def restore(self, handle):
+        copies, refs = handle
+        self.held_at_restore.append(any(r() is not None for r in refs))
+        return tuple(copies)
+
+
+@pytest.mark.parametrize("codecs", [("none",), ("none", "bfp8")])
+def test_forward_holds_no_spilled_stream_while_it_waits(codecs):
+    """On the forward path a producer's output is dropped once its last
+    on-device reader has run, so an evicted stream is held off the device
+    only; ``keep_all`` (run_intermediates) keeps every output."""
+    g = tbuilders.build_unet_exec(**SLICE_UNET)
+    c = repro_torch.compile(repro_torch.CompileSpec(
+        model=g, device=TDevice(**_TINY), dse=TDSEConfig(**_dse(codecs)),
+        torch_device="cpu"))
+    an = tex.analyze_plan(g, c.plan, use_kernels=True)
+    assert an.spills
+    x = torch.from_numpy(_frame(c.input_shape(), seed=4))
+    hop = _WatchingHop()
+    out = tex.run_vertices(g, an, c.executor.params, x, hop, keep_all=False)
+    assert list(out) == [an.topo[-1]]
+    assert hop.held_at_restore and not any(hop.held_at_restore)
+    every = tex.run_vertices(g, an, c.executor.params, x, _WatchingHop())
+    assert list(every) == an.topo
+    assert torch.equal(out[an.topo[-1]], every[an.topo[-1]])
+    assert torch.equal(c.run(x), out[an.topo[-1]])

@@ -210,6 +210,27 @@ def test_quant_and_dequant_are_exact():
     np.testing.assert_array_equal(back, want)
 
 
+def test_quant_of_non_finite_blocks():
+    """A block that holds a NaN or an infinity gets exponent 0, so scale
+    2^-6; a NaN's mantissa is 0 and an infinity clips to +-127.  The CUDA
+    encode is held to the same on the card (test_torch_cuda.py)."""
+    x = np.full((4, 64), 0.01, np.float32)
+    x[0, 3] = np.nan
+    x[1, 40] = np.inf
+    x[2, 9], x[2, 50] = np.nan, -np.inf
+    man, exp = bfp8_quant(_t(x))
+    e = _exact_ceil_log2(0.01)
+    assert exp.tolist() == [[0, e], [e, 0], [0, 0], [e, e]]
+    finite = {0: round(0.01 * 64), e: round(0.01 / math.ldexp(1.0, e - 6))}
+    want = np.empty_like(x, dtype=np.int8)
+    for r in range(4):
+        for b in range(2):
+            want[r, 32 * b:32 * b + 32] = finite[int(exp[r, b])]
+    want[0, 3] = want[2, 9] = 0
+    want[1, 40], want[2, 50] = 127, -127
+    np.testing.assert_array_equal(man.numpy(), want)
+
+
 def test_quant_matches_reference_away_from_powers_of_two():
     x = _rand(9, 256, 256, scale=5.0)
     man, exp = bfp8_quant_values(_t(x), block=32)
