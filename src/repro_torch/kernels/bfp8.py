@@ -4,8 +4,9 @@ consecutive channels, ``(8 + 8/block)`` bits per value.
 
 :func:`bfp8_quant_values` / :func:`bfp8_dequant_values` are the one
 definition of the codec's numerics.  The plain wrappers below, the fused
-egress encode of ``streaming_conv.act_relu`` and the CUDA kernels in
-``csrc/bfp8.cuh`` all compute exactly this, bit for bit:
+egress encodes of ``streaming_conv.act_relu`` and ``streaming_conv.pool``
+and the CUDA kernels built on ``csrc/bfp8.cuh`` all compute exactly this,
+bit for bit:
 
 * ``exp = ceil(log2(max(amax, 1e-38)))`` for a block with a finite
   ``amax > 0``, else 0 (a block that holds a NaN has ``amax`` NaN).  It is read exactly from the float's bits (``frexp``): an f32
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .library import check_operand, launch, not_ported
+from .library import check_operand, launch
 
 
 def bfp8_exponent(amax: torch.Tensor) -> torch.Tensor:
@@ -66,15 +67,26 @@ def bfp8_dequant_values(man: torch.Tensor, exp: torch.Tensor, *, block: int,
 
 
 def bfp8_quant(x: torch.Tensor, *, block: int = 32):
-    """x: (R, C), C % block == 0 -> (mantissa int8 (R, C), exponent int8
-    (R, C // block)).  The standalone encode has no CUDA kernel yet: on the
-    main path every evicted stream's producer encodes inside its own
-    kernel (``streaming_conv.act_relu(encode=True)``)."""
-    if x.is_cuda:
-        not_ported("bfp8_quant (src/repro/kernels/bfp8.py _quant_kernel)")
+    """x: (R, C) f32, C % block == 0 -> (mantissa int8 (R, C), exponent int8
+    (R, C // block)).  The standalone encode of an evicted stream whose
+    producer cannot emit the payload from its own launch: the executor's
+    ``_lower_vertex`` fuses the encode only into an act, a pool, a dwconv or
+    a conv whose weight is not fragmented, so the output of an ``add`` (or
+    another op without a kernel) or of a fragmented conv is encoded here.
+    A CUDA tensor goes through the ``bfp8_quant`` kernel, a CPU one through
+    the plain version."""
     if x.shape[1] % block:
         raise ValueError(f"bfp8_quant needs C % {block} == 0, got {x.shape}")
-    return bfp8_quant_values(x, block=block)
+    if not x.is_cuda:
+        return bfp8_quant_values(x, block=block)
+    if block != 32:
+        raise ValueError("the bfp8_quant kernel takes block=32")
+    check_operand("bfp8_quant x", x, torch.float32, align=4)
+    R, C = x.shape
+    man = torch.empty((R, C), dtype=torch.int8, device=x.device)
+    exp = torch.empty((R, C // block), dtype=torch.int8, device=x.device)
+    launch("bfp8_quant", x, man, exp, R, C)
+    return man, exp
 
 
 def bfp8_dequant(man: torch.Tensor, exp: torch.Tensor, *, block: int = 32,

@@ -45,8 +45,12 @@ SIGNATURES = {
     "streamed_matmul": "ppppiiii",
     "act_relu": "ppi",
     "act_relu_encode": "ppppii",
-    "pool": "ppiii",
+    "pool": "pppiii",
     "bfp8_dequant": "pppii",
+    "conv2d": "pppiii",
+    "dwconv": "pppiii",
+    "bfp8_quant": "pppii",
+    "pool_encode": "ppppiii",
 }
 
 #: Launches of each kernel since the last :func:`reset_launches`.

@@ -8,13 +8,17 @@ the result is ``(y, (man, exp))``, the payload's channel axis padded to
 the codec block with zeros, bitwise what ``bfp8_spill_encode`` gives).
 
 On the CPU every variant runs its plain version.  On a CUDA tensor a
-wrapper launches its kernel (``csrc/streaming_conv.cu``) or raises:
+wrapper launches its kernel or raises:
 
-* ``act_relu`` plain and with egress encode — kernels;
-* ``pool`` plain — kernel;
-* ``conv2d``, ``dwconv``, and the ingress-decode variants of ``act_relu``
-  and ``pool`` and the egress variant of ``pool`` — no kernel yet
-  (ROADMAP.md, Queue 2).  The staged main path does not reach them.
+* ``conv2d`` plain — kernel (``csrc/conv2d.cu``);
+* ``dwconv`` plain — kernel (``csrc/dwconv.cu``);
+* ``pool`` plain and with the egress encode — kernels
+  (``csrc/streaming_conv.cu``);
+* ``act_relu`` plain and with the egress encode — kernels (same file);
+* the ingress-decode variants of all four ops, and the egress variants of
+  ``conv2d`` and ``dwconv`` — no kernel yet (ROADMAP.md, Queue 2).  No
+  plan of the staged main path (the paper-width UNet, X3D-M at depth 2)
+  reaches them.
 """
 from __future__ import annotations
 
@@ -27,6 +31,9 @@ from .library import check_operand, launch, not_ported
 from .streamed_matmul import _round_up
 
 BFP8_BLOCK = 32
+CONV2D_BN = 32            # the conv2d kernel's output columns per block
+POOL_SERIAL_MAX_K = 8     # pool sums up to this many rows in one thread
+POOL_CHUNK = 256          # rows per block of a pool tree pass
 _SRC = "src/repro/kernels/streaming_conv.py"
 
 
@@ -58,18 +65,51 @@ def _on_cuda(x, payload) -> bool:
 
 def conv2d(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
     """1x1 conv ``y = x @ w`` (conv/matmul/deconv), fusion flags as above."""
-    if _on_cuda(x, payload):
-        not_ported(f"conv2d ({_SRC} _conv_kernel)")
-    return _plain(lambda h: ref.conv2d_ref(h, w), x, w.shape[0], payload,
-                  encode, block)
+    if not _on_cuda(x, payload):
+        return _plain(lambda h: ref.conv2d_ref(h, w), x, w.shape[0], payload,
+                      encode, block)
+    if payload is not None or encode:
+        not_ported(f"conv2d with the fused codec ({_SRC} _conv_dec_kernel, "
+                   f"_conv_enc_kernel, _conv_dec_enc_kernel)")
+    check_operand("conv2d x", x, torch.float32, align=4)
+    check_operand("conv2d w", w, torch.float32, align=4)
+    (m, k), (k2, n) = x.shape, w.shape
+    if k != k2:
+        raise ValueError(f"conv2d shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if n > 65535 * CONV2D_BN:
+        raise ValueError(f"conv2d: n={n} exceeds the grid's columns")
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    launch("conv2d", x, w, y, m, k, n)
+    return y
 
 
 def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
     """Depthwise temporal conv (w: (taps, c), 'same' padding)."""
-    if _on_cuda(x, payload):
-        not_ported(f"dwconv ({_SRC} _dwconv_kernel)")
-    return _plain(lambda h: ref.dwconv_ref(h, w), x, w.shape[1], payload,
-                  encode, block)
+    if not _on_cuda(x, payload):
+        return _plain(lambda h: ref.dwconv_ref(h, w), x, w.shape[1], payload,
+                      encode, block)
+    if payload is not None or encode:
+        not_ported(f"dwconv with the fused codec ({_SRC} _dwconv_dec_kernel, "
+                   f"_dwconv_enc_kernel, _dwconv_dec_enc_kernel)")
+    check_operand("dwconv x", x, torch.float32, align=4)
+    check_operand("dwconv w", w, torch.float32, align=4)
+    (m, c), (taps, c2) = x.shape, w.shape
+    if c != c2 or taps < 1:
+        raise ValueError(f"dwconv shapes {tuple(x.shape)}, {tuple(w.shape)}")
+    y = torch.empty_like(x)
+    launch("dwconv", x, w, y, m, c, taps)
+    return y
+
+
+def pool_scratch_size(m_out: int, k: int, c: int) -> int:
+    """f32 values of partial sums the pool kernel needs: none for the
+    serial path (k <= POOL_SERIAL_MAX_K) or a single tree pass, else one
+    buffer per tree pass, ping-ponged (``smof_pool`` in
+    ``csrc/streaming_conv.cu`` lays them out the same way)."""
+    chunks = -(-k // POOL_CHUNK)
+    if k <= POOL_SERIAL_MAX_K or chunks == 1:
+        return 0
+    return m_out * (chunks + -(-chunks // POOL_CHUNK)) * c
 
 
 def pool(x, m_out: int, *, c: int | None = None, payload=None, encode=False,
@@ -78,15 +118,28 @@ def pool(x, m_out: int, *, c: int | None = None, payload=None, encode=False,
     if not _on_cuda(x, payload):
         return _plain(lambda h: ref.pool_ref(h, m_out), x, c, payload,
                       encode, block)
-    if payload is not None or encode:
-        not_ported(f"pool with the fused codec ({_SRC} _pool_dec_kernel, "
-                   f"_pool_enc_kernel, _pool_dec_enc_kernel)")
+    if payload is not None:
+        not_ported(f"pool with the ingress decode ({_SRC} _pool_dec_kernel, "
+                   f"_pool_dec_enc_kernel)")
     check_operand("pool x", x, torch.float32, align=4)
     m, c = x.shape
     if m_out <= 0 or m % m_out:
         raise ValueError(f"pool needs m_out | m, got {m} -> {m_out}")
+    k = m // m_out
     y = torch.empty((m_out, c), dtype=torch.float32, device=x.device)
-    launch("pool", x, y, m_out, m // m_out, c)
+    if encode:
+        if block != BFP8_BLOCK:
+            raise ValueError(f"the pool encode kernel takes block="
+                             f"{BFP8_BLOCK}, got {block}")
+        nb = _round_up(c, block) // block
+        man = torch.empty((m_out, nb * block), dtype=torch.int8,
+                          device=x.device)
+        exp = torch.empty((m_out, nb), dtype=torch.int8, device=x.device)
+        launch("pool_encode", x, y, man, exp, m_out, k, c)
+        return y, (man, exp)
+    scratch = torch.empty(pool_scratch_size(m_out, k, c), dtype=torch.float32,
+                          device=x.device)
+    launch("pool", x, y, scratch, m_out, k, c)
     return y
 
 

@@ -12,7 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import DSEConfig, build_unet_exec     # noqa: E402
+from repro_torch.core import (DSEConfig, build_unet_exec,  # noqa: E402
+                              build_x3d_exec)
 from repro_torch.core.resources import Device               # noqa: E402
 from repro_torch.kernels import ref                         # noqa: E402
 from repro_torch.kernels import streaming_conv as SC        # noqa: E402
@@ -80,6 +81,75 @@ def test_pool(gen, m, c, m_out):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("m,c,m_out", [(262144, 48, 1), (131072, 96, 1),
+                                       (65536, 192, 1), (32768, 384, 1),
+                                       (3 * 70001, 40, 3), (1000, 24, 1)])
+def test_global_pool_within_its_tolerance(gen, m, c, m_out):
+    """The tree reduction sums in another order than the plain mean: per
+    channel |kernel - plain| <= 1e-5 * mean |x| (the first four are the
+    SE global pools of X3D-M; x has both signs, as dwconv output has)."""
+    x = torch.randn(m, c, generator=gen, device="cuda") + 0.1
+    got, want = SC.pool(x, m_out), ref.pool_ref(x, m_out)
+    lim = 1e-5 * x.abs().reshape(m_out, m // m_out, c).mean(1)
+    assert bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("m,c", [(64, 24), (300, 96), (2, 24)])
+def test_pool_encode_bit_exact(gen, m, c):
+    x = torch.randn(2 * m, c, generator=gen, device="cuda") * 3
+    x[0, 0] = float("nan")
+    x[5 % (2 * m), 1] = float("inf")
+    y, (man, exp) = SC.pool(x, m, encode=True)
+    want = ref.pool_ref(x, m)
+    pman, pexp = bfp8_quant_values(
+        torch.nn.functional.pad(want, (0, (-c) % 32)), block=32)
+    nan = torch.isnan(want)             # a NaN's payload bits may differ
+    assert torch.equal(torch.isnan(y), nan)
+    assert torch.equal(_bits(y)[~nan], _bits(want)[~nan])
+    assert torch.equal(man, pman) and torch.equal(exp, pexp)
+
+
+@pytest.mark.parametrize("r,c", [(4096, 32), (300, 64), (77, 192)])
+def test_bfp8_quant_bit_exact(gen, r, c):
+    x = torch.randn(r, c, generator=gen, device="cuda") * 5
+    x[::7] *= 2.0 ** -130                       # subnormal blocks
+    x[1::9, :32] = 0.0
+    x[2, 3] = float("nan")
+    x[3, c - 1] = float("inf")
+    x[4, 5], x[4, 6] = -float("inf"), -0.0
+    man, exp = bfp8_quant(x)
+    pman, pexp = bfp8_quant_values(x, block=32)
+    assert torch.equal(man, pman) and torch.equal(exp, pexp)
+
+
+@pytest.mark.parametrize("m,c,taps", [(1, 24, 3), (2, 48, 3), (1000, 96, 3),
+                                      (4097, 384, 3), (300, 24, 5),
+                                      (77, 40, 2)])
+def test_dwconv_bit_exact(gen, m, c, taps):
+    """Halo rows at both ends of the tile and of x, and +-0.0 inputs: the
+    kernel rounds each product and sum as the plain tap sum does."""
+    x = torch.randn(m, c, generator=gen, device="cuda")
+    w = torch.randn(taps, c, generator=gen, device="cuda")
+    x[0, :4] = -0.0
+    x[-1, 4:8] = 0.0
+    w[:, 0] = -0.0
+    w[0, 1] = -1.0
+    got, want = SC.dwconv(x, w), ref.dwconv_ref(x, w)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 32, 48), (1, 384, 32), (1, 48, 32),
+                                   (32768, 216, 32), (77, 45, 130),
+                                   (300, 17, 5)])
+def test_conv2d(gen, m, k, n):
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+    got = SC.conv2d(x, w)
+    assert got.shape == (m, n)
+    torch.testing.assert_close(got, ref.conv2d_ref(x, w), rtol=2e-4,
+                               atol=2e-4)
+
+
 def test_bfp8_dequant_bit_exact(gen):
     man = torch.randint(-128, 128, (300, 96), generator=gen, device="cuda",
                         dtype=torch.int8)
@@ -103,10 +173,14 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(gen):
     x = torch.randn(256, 256, generator=gen, device="cuda")
     with pytest.raises(ValueError):
         streamed_matmul(x.t(), x[:128], x[128:])          # not contiguous
-    with pytest.raises(NotImplementedError):
-        bfp8_quant(x)
-    with pytest.raises(NotImplementedError):
-        SC.conv2d(x, x)
+    with pytest.raises(ValueError):
+        SC.conv2d(x.t(), x)                               # not contiguous
+    with pytest.raises(ValueError):
+        bfp8_quant(x[:, :40])                             # C % 32 != 0
+    with pytest.raises(ValueError):
+        bfp8_quant(x.to(torch.float64))
+    with pytest.raises(ValueError):
+        SC.dwconv(x, x[:3, :128])                         # channels differ
 
 
 def test_staged_executor_on_the_card(gen):
@@ -130,12 +204,53 @@ def test_staged_executor_on_the_card(gen):
     assert float((y - yr).abs().max()) <= 2e-2 * float(yr.abs().max())
 
 
-def test_unported_kernel_raises_on_the_card(gen):
-    """An un-fragmented conv needs the conv2d kernel, which is not ported:
-    the card refuses rather than run its plain version."""
+def test_x3d_frame_on_the_card(gen):
+    """A small X3D whose plan evicts 4 edges through BFP8 runs through the
+    conv2d, dwconv, pool encode and standalone quant kernels and stays on
+    the reference route."""
     import repro_torch
-    c = repro_torch.compile(repro_torch.CompileSpec(
-        model=build_unet_exec(positions=256, base=64, levels=3),
-        device="zcu102", torch_device="cuda"))
-    with pytest.raises(NotImplementedError, match="conv2d"):
-        c.run(torch.randn(c.input_shape(), generator=gen, device="cuda"))
+    g = build_x3d_exec(positions=64, cin=3, widths=(24, 48), expansion=2,
+                       depth=2)
+    spec = dict(model=g, device=TINY, dse=DSE, torch_device="cuda")
+    main = repro_torch.compile(repro_torch.CompileSpec(**spec))
+    refc = repro_torch.compile(repro_torch.CompileSpec(
+        **spec, strategy="manual-plan", plan=main.plan,
+        kernel_mode="reference"))
+    x = torch.randn(main.input_shape(), generator=gen, device="cuda")
+    reset_launches()
+    y = main.run(x)
+    counts = launches()
+    yr = refc.run(x)
+    torch.cuda.synchronize()
+    assert counts["conv2d"] == 4 and counts["dwconv"] == 5
+    assert counts["pool_encode"] == 1 and counts["bfp8_quant"] == 2
+    assert counts["bfp8_dequant"] == 4 and counts["pool"] == 3
+    assert float((y - yr).abs().max()) <= 2e-2 * float(yr.abs().max())
+
+
+def _payload(m, c):
+    cq = -(-c // 32) * 32
+    return (torch.zeros(m, cq, dtype=torch.int8, device="cuda"),
+            torch.zeros(m, cq // 32, dtype=torch.int8, device="cuda"))
+
+
+@pytest.mark.parametrize("variant", ["conv2d ingress", "conv2d egress",
+                                     "dwconv ingress", "dwconv egress",
+                                     "pool ingress", "act_relu ingress"])
+def test_unported_kernel_raises_on_the_card(gen, variant):
+    """The fused codec variants no plan of the main path reaches have no
+    kernel: the card refuses rather than run their plain versions."""
+    x = torch.randn(64, 40, generator=gen, device="cuda")
+    op, kind = variant.split()
+    kw = (dict(payload=_payload(64, 40)) if kind == "ingress"
+          else dict(encode=True))
+    xin = None if kind == "ingress" else x
+    with pytest.raises(NotImplementedError, match=op):
+        if op == "conv2d":
+            SC.conv2d(xin, x[:40, :24].contiguous(), **kw)
+        elif op == "dwconv":
+            SC.dwconv(xin, x[:3].contiguous(), **kw)
+        elif op == "pool":
+            SC.pool(xin, 32, c=40, **kw)
+        else:
+            SC.act_relu(xin, c=40, **kw)
