@@ -9,13 +9,19 @@ and prints no result line):
 1. the card: name and power limit from ``nvidia-smi``; no CUDA device is a
    failure;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``;
-3. the main path, one model after the other, each through
-   ``repro_torch.compile`` (DSE on the u200 sheet, staged executor): the
-   paper-width UNet (widths 64-1024, 368x480 input), then X3D-M at its
-   published stage widths (24-192, 16 frames of 128x128).  A few seeded
-   frames each, with the kernel launches counted from 0 around every frame
-   and held against the path's own table, and the output held against the
-   same plan in ``kernel_mode="reference"`` on the card;
+3. the main paths, one after the other, each through
+   ``repro_torch.compile`` on the u200 sheet.  Staged (DSE, one frame at a
+   time): the paper-width UNet (widths 64-1024, 368x480 input), then X3D-M
+   at its published stage widths (24-192, 16 frames of 128x128); a few
+   seeded frames each, with the kernel launches counted from 0 around every
+   frame and held against the path's own table, and the output held
+   against the same plan in ``kernel_mode="reference"`` on the card.
+   Pipelined (the 1F1B streamer over 8 microbatches): the YOLO head at
+   YOLOv8n's neck widths (64-256, P3 = 160x160) on its DSE plan and on a
+   hand-cut 3-stage plan; seeded streams, with the launches counted from 0
+   around every stream and held against ticks x the plan's table per tick,
+   every microbatch held bit for bit against the staged executor on the
+   same plan, and within tolerance against reference mode;
 4. hold each kernel against its plain PyTorch version on the card, at every
    shape either path launched it with in phase 3 plus ragged shapes and
    the edge cases (the BFP8 exponent's, 'same'-padding rows and +-0.0 for
@@ -23,7 +29,9 @@ and prints no result line):
    yardstick (CUDA events, L2 flushed before every launch);
 5. each path's frame time and peak device memory, with its spills evicted
    as planned and with the same plan's spills kept on the device, and the
-   device's busy time and idle share in one profiled frame;
+   device's busy time and idle share in one profiled frame (for the YOLO
+   head: ms per microbatch pipelined and staged, peak memory of one stream,
+   the 3-stage plan's measured stage latencies, one profiled stream);
 6. one JSON line of per-kernel numbers, then the result line.
 
 Imports nothing of JAX and nothing of the ``repro`` package.
@@ -91,6 +99,40 @@ PATHS = (
           "bfp8_dequant": 6, "streamed_matmul": 5}, 6),
 )
 
+
+@dataclasses.dataclass(frozen=True)
+class StreamPath:
+    """A pipelined path: ``launches`` per tick (every stage runs at every
+    tick, bubbles included, so a stream launches ticks x the table)."""
+    name: str
+    builder: str
+    kwargs: dict
+    plan: str               # "dse" or "three-stage" (hand_cut_plan)
+    microbatches: int
+    ticks: int
+    launches: dict          # per tick, kernels not named launch 0 times
+    bfp8_edges: int
+    crossings: int          # stage-crossing edges (shift registers)
+
+
+# YOLOv8n's neck widths at the 1280 setting's P3 (160x160 positions)
+YOLO = dict(positions=160 * 160, widths=(64, 128, 256), head=64)
+STREAM_PATHS = (
+    # the DSE plan: one stage, conv_24 and conv_27 BFP8-evicted and encoded
+    # by their own conv2d launch; 4 fragmented convs with K > 128 (conv_8,
+    # K = 128, is a plain dot), 6 relus, 4 pools, 2 decodes at the output
+    StreamPath("yolo", "build_yolo_head_exec", YOLO, "dse", 8, 8,
+               {"conv2d": 6, "conv2d_encode": 2, "streamed_matmul": 4,
+                "act_relu": 6, "pool": 4, "bfp8_dequant": 2}, 2, 0),
+    # the 3-stage plan: 6 BFP8 edges (3 decoded from the crossing shift
+    # registers at the tick), 3 raw crossings, nothing fragmented
+    StreamPath("yolo-3stage", "build_yolo_head_exec", YOLO, "three-stage",
+               8, 10,
+               {"conv2d": 10, "conv2d_encode": 3, "act_relu": 3,
+                "act_relu_encode": 3, "pool": 4, "bfp8_dequant": 6}, 6, 6),
+)
+STREAMS = 2
+
 TPU_SRC = {
     "streamed_matmul": "src/repro/kernels/streamed_matmul.py:31",
     "act_relu": "src/repro/kernels/streaming_conv.py:409",
@@ -101,6 +143,7 @@ TPU_SRC = {
     "dwconv": "src/repro/kernels/streaming_conv.py:200",
     "bfp8_quant": "src/repro/kernels/bfp8.py:51",
     "pool_encode": "src/repro/kernels/streaming_conv.py:330",
+    "conv2d_encode": "src/repro/kernels/streaming_conv.py:91",
 }
 CUDA_SRC = {
     "streamed_matmul": "src/repro_torch/csrc/streamed_matmul.cu",
@@ -112,6 +155,7 @@ CUDA_SRC = {
     "dwconv": "src/repro_torch/csrc/dwconv.cu",
     "bfp8_quant": "src/repro_torch/csrc/bfp8.cu",
     "pool_encode": "src/repro_torch/csrc/streaming_conv.cu",
+    "conv2d_encode": "src/repro_torch/csrc/conv2d.cu",
 }
 
 
@@ -162,9 +206,10 @@ def kernel_phase(torch, timer, path_shapes):
     """Hold every kernel against its plain version at each ``(name, tensor
     shapes)`` a path launched, and time kernel, plain version and
     yardstick.  ``path_shapes`` maps each path to its launch shapes and
-    their counts per frame; a kernel's times and bounds are summed over one
-    frame of each path (and kept per path under ``by_path``).  Returns
-    per-kernel rows."""
+    their counts per frame (a staged path) or per stream (a pipelined
+    path); a kernel's times and bounds are summed over one frame or stream
+    of each path (and kept per path under ``by_path``).  Returns per-kernel
+    rows."""
     from repro_torch.kernels import ref, streaming_conv as SC
     from repro_torch.kernels.bfp8 import (bfp8_dequant, bfp8_quant,
                                           bfp8_quant_values)
@@ -254,6 +299,18 @@ def kernel_phase(torch, timer, path_shapes):
     def check_dwconv(x, w):
         exact("dwconv", SC.dwconv(x, w), ref.dwconv_ref(x, w))
 
+    def check_conv_encode(x, w):
+        """y bit for bit the plain conv2d kernel's and within MATMUL_TOL
+        of its plain version; the payload bit for bit the plain encode of
+        that y."""
+        y, (man, exp) = SC.conv2d(x, w, encode=True)
+        exact("conv2d_encode", y, SC.conv2d(x, w))
+        _, (pman, pexp) = enc_plain(lambda h: h, y)
+        exact("conv2d_encode", man, pman)
+        exact("conv2d_encode", exp, pexp)
+        close("conv2d_encode", y, ref.conv2d_ref(x, w), MATMUL_TOL,
+              MATMUL_TOL)
+
     def case(kind, arg_shapes):
         """Inputs at one launch's shapes: (check, kernel, plain, yardstick
         or None, bytes moved, operations)."""
@@ -277,6 +334,14 @@ def kernel_phase(torch, timer, path_shapes):
                                    MATMUL_TOL)),
                     kern, plain, lambda: torch.matmul(x, w),
                     4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
+        if kind == "conv2d_encode":
+            (m, k), (_, n), _, (_, cq), (_, nb) = arg_shapes
+            x, w = randn(m, k), randn(k, n) / math.sqrt(k)
+            return ((lambda: check_conv_encode(x, w)),
+                    lambda: SC.conv2d(x, w, encode=True),
+                    lambda: enc_plain(lambda h: ref.conv2d_ref(h, w), x),
+                    None, 4.0 * (m * k + k * n + m * n) + m * (cq + nb),
+                    2.0 * m * k * n + 6.0 * m * cq)
         if kind == "dwconv":
             (m, c), (taps, _), _ = arg_shapes
             x, w = randn(m, c), randn(taps, c)
@@ -341,7 +406,9 @@ def kernel_phase(torch, timer, path_shapes):
         return ((lambda: exact(kind, kern(), plain())), kern, plain, None,
                 5.0 * r * c + r * nb, r * c)
 
-    # -- at the paths' shapes: correctness, then times per frame ---------------
+    # -- at the paths' shapes: correctness, then times per frame or stream ----
+    # a kernel's bound_by: what bounds most of its summed bound time
+    bound_parts = collections.defaultdict(collections.Counter)
     union = collections.Counter()
     for shapes in path_shapes.values():
         union.update(shapes)
@@ -354,7 +421,7 @@ def kernel_phase(torch, timer, path_shapes):
         b, bound_by = bound_ms(nbytes, ops)
         print(f"  {kind} {arg_shapes}: ms {t_kern:.4f} plain {t_plain:.4f} "
               f"library {'-' if t_lib is None else f'{t_lib:.4f}'} bound "
-              f"{b:.4f} ({bound_by}), per frame x{union[key]}")
+              f"{b:.4f} ({bound_by}), on the paths x{union[key]}")
         row = rows[kind]
         for pname, shapes in path_shapes.items():
             n = shapes.get(key, 0)
@@ -365,7 +432,9 @@ def kernel_phase(torch, timer, path_shapes):
             row["library_ms"] = None if t_lib is None else (
                 row["library_ms"] + n * t_lib)
             row["bound_ms"] += n * b
-            row["bound_by"] = bound_by
+            bound_parts[kind][bound_by] += n * b
+            row["bound_by"] = max(bound_parts[kind],
+                                  key=bound_parts[kind].get)
             p = row["by_path"].setdefault(pname, dict(
                 launches=0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                 library_ms=None if t_lib is None else 0.0))
@@ -386,6 +455,7 @@ def kernel_phase(torch, timer, path_shapes):
         x, w = randn(m, k), randn(k, n) / math.sqrt(k)
         close("conv2d", SC.conv2d(x, w), ref.conv2d_ref(x, w), MATMUL_TOL,
               MATMUL_TOL)
+        check_conv_encode(x, w)
     for m, c in ((77, 45), (3, 1), (129, 96)):
         x = randn(m, c)
         exact("act_relu", SC.act_relu(x), ref.act_relu_ref(x))
@@ -433,6 +503,11 @@ def kernel_phase(torch, timer, path_shapes):
     check_encode("pool_encode", lambda h: SC.pool(h, x.shape[0], encode=True),
                  lambda h: ref.pool_ref(h, x.shape[0]),
                  x.repeat_interleave(2, dim=0), nan_bits=False)
+    # the conv encode's epilogue on the same blocks: x @ I is x exactly
+    # (every other product is +-0), so the finite rows reach it unchanged
+    # through the product, in a ragged last row tile
+    fin = x[torch.isfinite(x).all(1)][:1000]
+    check_conv_encode(fin, torch.eye(64, device="cuda"))
     for m, c, m_out in ((4096, 96, 1), (3 * 70001, 40, 3)):
         g = randn(m, c)
         pool_close("pool", SC.pool(g, m_out), g, m_out)
@@ -527,6 +602,198 @@ def run_path(torch, repro_torch, library, path: Path):
     return main, refc, counts, shapes
 
 
+def bit_equal(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def run_stream_path(torch, repro_torch, library, path: StreamPath):
+    """Phase 3 for a pipelined path: compile, then STREAMS seeded streams
+    of ``path.microbatches``, each with its launches counted from 0, every
+    microbatch held bit for bit against the staged executor on the same
+    plan and within FRAME_TOL against reference mode.  Returns (compiled,
+    staged, reference-mode compiled, launches per stream, launch shapes
+    per stream)."""
+    from repro_torch.core import builders, hand_cut_plan
+    g = getattr(builders, path.builder)(**path.kwargs)
+    B = path.microbatches
+    spec = dict(model=g, device="u200", mode="pipelined", microbatches=B)
+    if path.plan == "dse":
+        spec["strategy"] = "dse"
+    else:
+        spec.update(strategy="manual-plan", plan=hand_cut_plan(g))
+    t0 = time.perf_counter()
+    main = repro_torch.compile(repro_torch.CompileSpec(**spec))
+    print(f"[{path.name}] compile ({path.plan} plan + lowering): "
+          f"{time.perf_counter() - t0:.2f} s")
+    sx = main.executor
+    print(f"[{path.name}] stream report: "
+          f"{json.dumps(main.report()['traffic'])}")
+    bfp8 = [r for r in sx.report.spills if r.codec == "bfp8"]
+    print(f"[{path.name}] bfp8-evicted edges: "
+          f"{[(r.src, r.dst) for r in bfp8]}, "
+          f"{sum(r.offchip_bits for r in bfp8) // 8} bytes each way; "
+          f"crossings {sx._crossing}; off-chip "
+          f"{sum(r.offchip_bits for r in sx.report.spills) // 8} bytes "
+          f"per microbatch each way")
+    if len(bfp8) != path.bfp8_edges or len(sx._crossing) != path.crossings:
+        raise AssertionError(f"[{path.name}] expected {path.bfp8_edges} "
+                             f"BFP8 edges and {path.crossings} crossings")
+    if sx.report.ticks != path.ticks:
+        raise AssertionError(f"[{path.name}] {sx.report.ticks} ticks, "
+                             f"expected {path.ticks}")
+    plan_spec = dict(model=g, device="u200", strategy="manual-plan",
+                     plan=main.plan)
+    staged = repro_torch.compile(repro_torch.CompileSpec(**plan_spec))
+    refc = repro_torch.compile(repro_torch.CompileSpec(
+        **plan_spec, mode="pipelined", microbatches=B,
+        kernel_mode="reference"))
+    staged.executor.params = refc.executor.params = sx.params
+    expected = dict.fromkeys(library.SIGNATURES, 0) | {
+        k: path.ticks * n for k, n in path.launches.items()}
+    m, c = main.input_shape()
+    shapes = None
+    for st in range(STREAMS):
+        xs = torch.randn((B, m, c),
+                         generator=torch.Generator().manual_seed(100 + st))
+        xd = xs.cuda()
+        torch.cuda.synchronize()
+        library.reset_launches()
+        ys = main.run(xd)
+        torch.cuda.synchronize()
+        counts = library.launches()
+        if shapes is None:
+            shapes = library.launch_shapes()
+        elif library.launch_shapes() != shapes:
+            raise AssertionError(f"[{path.name}] stream {st}: launch "
+                                 f"shapes changed")
+        if counts != expected:
+            raise AssertionError(f"[{path.name}] stream {st}: launches "
+                                 f"{counts}, expected {expected}")
+        if ys.shape[0] != B or not bool(torch.isfinite(ys).all()):
+            raise AssertionError(f"[{path.name}] stream {st}: bad output "
+                                 f"{tuple(ys.shape)}")
+        yr = refc.run(xd)
+        torch.cuda.synchronize()
+        errs = []
+        for b in range(B):
+            if not bit_equal(torch, ys[b], staged.run(xd[b])):
+                raise AssertionError(f"[{path.name}] stream {st}, "
+                                     f"microbatch {b}: pipelined and "
+                                     f"staged part")
+            err = float((ys[b] - yr[b]).abs().max())
+            lim = FRAME_TOL * float(yr[b].abs().max())
+            errs.append(err / lim)
+            if err > lim:
+                raise AssertionError(f"[{path.name}] stream {st}, "
+                                     f"microbatch {b}: leaves reference")
+        print(f"[{path.name}] stream {st}: output {tuple(ys.shape)}, every "
+              f"microbatch bit-equal to the staged executor; max|y - ref| "
+              f"at most {max(errs):.3e} of its tolerance ({FRAME_TOL} x "
+              f"max|ref|)")
+    print(f"[{path.name}] launches per stream ({path.ticks} ticks): "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    for (name, arg_shapes), n in sorted(shapes.items()):
+        print(f"  {name} {arg_shapes} x{n}")
+    return main, staged, refc, counts, shapes
+
+
+def profile_device(torch, label: str, fn, ms: float) -> None:
+    """``fn`` once under ``torch.profiler``: the device-side events'
+    busy time against ``ms``, the median unprofiled time of the same work
+    (the profiler itself slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the device-side events (kernels, copies): a host op's own device
+    # time repeats its kernels'
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if busy == 0:
+        print(f"{label}: the profiler saw no device time; device busy and "
+              f"idle share not measured")
+        return
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"{label}: device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / ms:.3f} of {ms:.3f} ms ({wall:.3f} ms under the "
+          f"profiler); by device time: " + "; ".join(
+              f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
+              f"x{e.count}" for e in top))
+
+
+def profile_host(torch, label: str, fn, top: int = 8) -> None:
+    """``fn`` once under ``cProfile``, synchronised at the end: the host
+    functions with the most time of their own (Python and the C calls it
+    makes; a call that waits for the card shows its wait here)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    print(f"{label}: host {st.total_tt * 1e3:.3f} ms under cProfile; most "
+          f"time of their own: " + "; ".join(
+              f"{pstats.func_std_string(f)[-60:]} {tt * 1e3:.3f} ms x{nc}"
+              for f, (_, nc, tt, _, _) in rows))
+
+
+def stream_phase(torch, repro_torch, path: StreamPath, main, staged, refc):
+    """Phase 5 for a pipelined path: ms per microbatch, pipelined (spills
+    evicted, spills resident, reference mode) and staged; peak device
+    memory of one stream; the measured stage latencies; one profiled
+    stream (DSE plan)."""
+    from repro_torch.runtime.streamer import measured_stage_latencies
+    plan = main.plan
+    resident = dataclasses.replace(
+        plan, provenance=dict(plan.provenance),
+        streams=[dataclasses.replace(s, evicted=False, codec="none")
+                 for s in plan.streams])
+    resc = repro_torch.compile(repro_torch.CompileSpec(
+        model=main.graph, device="u200", strategy="manual-plan",
+        plan=resident, mode="pipelined", microbatches=path.microbatches))
+    resc.executor.params = main.executor.params
+    B = path.microbatches
+    m, c = main.input_shape()
+    xs = torch.randn((B, m, c),
+                     generator=torch.Generator().manual_seed(99)).cuda()
+    per_mb = {}
+    for label, comp in (("pipelined, spills evicted", main),
+                        ("pipelined, spills resident", resc),
+                        ("pipelined, reference mode", refc)):
+        ms, peak = frame_stats(torch, comp, xs)
+        per_mb[label] = ms / B
+        print(f"[{path.name}] {label}: {ms / B:.3f} ms per microbatch "
+              f"({ms:.3f} ms per stream of {B}, median of 5, host clock), "
+              f"peak device memory of one stream above weights and input "
+              f"{peak} bytes")
+    ms, peak = frame_stats(torch, staged, xs[0])
+    print(f"[{path.name}] staged, spills evicted: {ms:.3f} ms per "
+          f"microbatch (median of 5, host clock), peak device memory of one "
+          f"frame {peak} bytes")
+    lat = measured_stage_latencies(main.executor, xs[0], repeats=5,
+                                   warmup=2)
+    print(f"[{path.name}] measured stage latencies (CUDA events, median of "
+          f"5): {[round(t * 1e3, 4) for t in lat]} ms; Eq. 5 sum "
+          f"{sum(lat) * 1e3:.4f} ms, Eq. 6 max {max(lat) * 1e3:.4f} ms")
+    if path.plan == "dse":
+        profile_device(torch, f"[{path.name}] profile of one evicted stream",
+                       lambda: main.run(xs),
+                       per_mb["pipelined, spills evicted"] * B)
+        for label, comp in (("evicted", main), ("resident", resc)):
+            profile_host(torch, f"[{path.name}] host profile of one "
+                         f"{label} stream", lambda c=comp: c.run(xs))
+
+
 def memory_phase(torch, repro_torch, path: Path, main, refc):
     """Phase 5 for one path: frame time and peak memory with the spills
     evicted, with the same plan's spills resident (no encode, no off-chip
@@ -551,35 +818,9 @@ def memory_phase(torch, repro_torch, path: Path, main, refc):
         print(f"[{path.name}] frame ({label}): {frame_ms[label]:.3f} ms "
               f"(median of 5, host clock), peak device memory above "
               f"weights and input {peak} bytes")
-    # where the evicted frame's time goes on the device: torch.profiler's
-    # device time (kernels and copies, one stream) against the median
-    # frame above (the profiler itself slows the host)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        main.run(xd)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # the device-side events (kernels, copies): a host op's own device
-    # time repeats its kernels'
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    if busy == 0:
-        print(f"[{path.name}] profile: the profiler saw no device time; "
-              f"device busy and idle share not measured")
-        return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    ms = frame_ms["kernels, spills evicted"]
-    print(f"[{path.name}] profile of one evicted frame: device busy "
-          f"{busy:.3f} ms, idle share {1 - busy / ms:.3f} of the "
-          f"{ms:.3f} ms frame ({wall:.3f} ms under the profiler); by "
-          f"device time: " + "; ".join(
-              f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
-              f"x{e.count}" for e in top))
+    # where the evicted frame's time goes on the device
+    profile_device(torch, f"[{path.name}] profile of one evicted frame",
+                   lambda: main.run(xd), frame_ms["kernels, spills evicted"])
 
 
 def main() -> int:
@@ -609,37 +850,46 @@ def main() -> int:
         if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"  {line.strip()}")
 
-    # -- 3. the main path, one model after the other --------------------------
+    # -- 3. the main paths, one after the other -------------------------------
     runs = {p.name: run_path(torch, repro_torch, library, p) for p in PATHS}
+    streams = {p.name: run_stream_path(torch, repro_torch, library, p)
+               for p in STREAM_PATHS}
+    # launches and launch shapes per frame (staged) or per stream
+    counts = {n: r[-2] for n, r in (runs | streams).items()}
+    shapes = {n: r[-1] for n, r in (runs | streams).items()}
 
     # -- 4. kernels against their plain versions --------------------------------
     timer = Timer(torch)
-    rows = kernel_phase(torch, timer,
-                        {name: r[3] for name, r in runs.items()})
+    rows = kernel_phase(torch, timer, shapes)
     for name, row in rows.items():
-        row["launches"] = sum(r[2][name] for r in runs.values())
+        row["launches"] = sum(c[name] for c in counts.values())
         if row["launches"] == 0:
             raise AssertionError(f"kernel {name} never launched on a path")
     for r in rows.values():
         tol = {"streamed_matmul": MATMUL_TOL, "conv2d": MATMUL_TOL,
-                     "pool": f"bit-exact at k=2, {POOL_TOL} x mean|x| "
-                             f"above"}.get(r["name"], "bit-exact")
+               "conv2d_encode": f"bit-exact vs the conv2d kernel and the "
+                                f"codec, {MATMUL_TOL} vs plain",
+               "pool": f"bit-exact at k=2, {POOL_TOL} x mean|x| "
+                       f"above"}.get(r["name"], "bit-exact")
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"kernel {r['name']:16s} launches/frame {r['launches']:2d} "
+        print(f"kernel {r['name']:16s} launches {r['launches']:3d} "
               f"max_abs_err {r['max_abs_err']:.3e} (tol {tol}) "
               f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {lib} "
               f"bound {r['bound_ms']:.4f} ({r['bound_by']}) "
               f"by path {json.dumps(r['by_path'])}")
-    for pname in runs:
+    for pname in counts:
         kern_sum = sum(r["by_path"].get(pname, {}).get("ms", 0.0)
                        for r in rows.values())
         print(f"[{pname}] sum of the path's kernel times (L2 flushed): "
               f"{kern_sum:.3f} ms")
 
-    # -- 5. time and memory per frame -------------------------------------------
+    # -- 5. time and memory per frame or microbatch ----------------------------
     for p in PATHS:
         main_c, refc, _, _ = runs[p.name]
         memory_phase(torch, repro_torch, p, main_c, refc)
+    for p in STREAM_PATHS:
+        main_c, staged, refc, _, _ = streams[p.name]
+        stream_phase(torch, repro_torch, p, main_c, staged, refc)
     print(f"phases 2-5: {time.perf_counter() - t_start:.1f} s")
 
     # -- 6. results -------------------------------------------------------------

@@ -11,6 +11,11 @@ runnable streaming design with the off-chip eviction decisions baked in:
     y = compiled.run(x)                    # one (m, c) frame -> (L,)
     print(compiled.report())               # traffic + plan provenance
 
+    stream = repro_torch.compile(repro_torch.CompileSpec(
+        model="yolo_head_exec", device="u200", mode="pipelined",
+        microbatches=8))
+    ys = stream.run(xs)                    # a (8, m, c) stream -> (8, L)
+
 Spec knobs
 ----------
 ``device``       the DSE target sheet (``core.resources.ALL_DEVICES``), as
@@ -20,9 +25,17 @@ Spec knobs
                  on the CPU), ``cuda`` (``auto`` that refuses the CPU) or
                  ``reference`` (plain bodies only).
 ``strategy``     ``dse`` (Algorithm 1) or ``manual-plan``.
-``mode``         ``reference`` (dense baseline) or ``staged`` (the
-                 sequential executor, Eq. 5).
-``microbatches`` recorded in the plan, as the reference package does.
+``mode``         ``reference`` (dense baseline), ``staged`` (the
+                 sequential executor, Eq. 5) or ``pipelined`` (the 1F1B
+                 streamer over a microbatch stream, Eq. 6).
+``microbatches`` recorded in the plan; the pipelined stream depth B.
+``placement``    kept for parity with the reference façade: it chooses
+                 nothing yet.  ``auto`` and ``interleave`` both run every
+                 stage on one GPU; ``shard_map`` (one stage per GPU) raises
+                 until ROADMAP.md Queue 1 item 10 ports it.
+``channel``      opt-in off-chip channel model (``repro_torch.memory``):
+                 the pipelined report then carries the contended Eq. 5/6
+                 bounds and the prefetch deadline accounting.
 ``seed``         fixes the per-vertex weights.
 """
 from __future__ import annotations
@@ -37,8 +50,11 @@ from .core.dse import DSEConfig, run_dse
 from .core.graph import Graph
 from .core.plan import ExecutionPlan, PLAN_SCHEMA_VERSION, plan_from_dse
 from .core.resources import Device, get_device
+from .memory import ChannelConfig
 from .runtime.executor import (KERNEL_MODES, LoweredPipeline, lower_plan,
                                reference_pipeline)
+from .runtime.streamer import (PLACEMENTS, StreamingExecutor,
+                               lower_plan_pipelined)
 
 MODES = ("reference", "staged", "pipelined")
 STRATEGIES = ("dse", "autotune", "manual-plan")
@@ -60,13 +76,18 @@ class CompileSpec:
     model: str | Graph
     device: str | Device = "u200"
     strategy: str = "dse"              # dse | manual-plan
-    mode: str = "staged"               # reference | staged
+    mode: str = "staged"               # reference | staged | pipelined
     kernel_mode: str = "auto"          # auto | cuda | reference
-    microbatches: int = 8
+    microbatches: int = 8              # pipelined stream depth B
     seed: int = 0
     plan: ExecutionPlan | None = None  # strategy="manual-plan" input
     dse: DSEConfig | None = None       # strategy="dse" knobs
     torch_device: str = "cuda"
+    placement: str = "auto"            # parity only: one GPU for now
+    #: opt-in off-chip channel model (``repro_torch.memory``): arbitration
+    #: policy + optional gbps override; pipelined lowerings then carry the
+    #: contended Eq. 5/6 bounds and prefetch deadline accounting.
+    channel: ChannelConfig | None = None
 
     def validate(self) -> None:
         if self.mode not in MODES:
@@ -75,10 +96,13 @@ class CompileSpec:
         if self.strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {self.strategy!r}; pick one "
                              f"of {STRATEGIES}")
-        if self.mode == "pipelined":
+        if self.placement not in PLACEMENTS:
+            raise ValueError(f"unknown placement {self.placement!r}; pick "
+                             f"one of {PLACEMENTS}")
+        if self.mode == "pipelined" and self.placement == "shard_map":
             raise NotImplementedError(
-                'mode="pipelined" (the 1F1B streamer) is not ported yet; '
-                "see ROADMAP.md, Queue 1")
+                'placement="shard_map" (one stage per GPU) is not ported '
+                "yet; see ROADMAP.md, Queue 1, item 10")
         if self.strategy == "autotune":
             raise NotImplementedError(
                 'strategy="autotune" is not ported yet; see ROADMAP.md, '
@@ -146,9 +170,19 @@ def compile(spec: CompileSpec) -> "Compiled":
     if spec.mode == "reference":
         executor = reference_pipeline(g, seed=spec.seed,
                                       device=spec.torch_device)
-    else:
+    elif spec.mode == "staged":
         executor = lower_plan(g, plan, kernel_mode=spec.kernel_mode,
                               seed=spec.seed, device=spec.torch_device)
+    else:                                     # "pipelined"
+        try:
+            dev = _resolve_device(spec)
+        except (KeyError, ValueError):
+            dev = None
+        executor = lower_plan_pipelined(
+            g, plan, microbatches=spec.microbatches,
+            kernel_mode=spec.kernel_mode, seed=spec.seed,
+            placement=spec.placement, channel=spec.channel,
+            channel_device=dev, device=spec.torch_device)
     return Compiled(spec=spec, graph=g, device=_device_name(spec, plan),
                     plan=plan, executor=executor)
 
@@ -160,7 +194,7 @@ class Compiled:
     graph: Graph
     device: str
     plan: ExecutionPlan | None
-    executor: LoweredPipeline
+    executor: LoweredPipeline | StreamingExecutor
 
     @property
     def model(self) -> str:
@@ -177,10 +211,17 @@ class Compiled:
         return self.spec.strategy
 
     def run(self, x) -> torch.Tensor:
-        """One ``(m, c)`` frame (tensor or array) -> the flat output."""
+        """Staged / reference: one ``(m, c)`` frame (tensor or array) ->
+        the flat ``(L,)`` output.  Pipelined: a ``(B, m, c)`` stream ->
+        ``(B, L)``, or one ``(m, c)`` frame, broadcast through the stream
+        (every slot computes the same frame) -> ``(L,)``."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
-        return self.executor(x.to(self.executor.device))
+        x = x.to(self.executor.device)
+        if self.mode == "pipelined" and x.dim() == 2:
+            B = self.executor.microbatches
+            return self.executor(x.expand((B,) + tuple(x.shape)))[0]
+        return self.executor(x)
 
     def input_shape(self) -> tuple[int, int]:
         return exec_input_shape(self.graph)

@@ -19,7 +19,8 @@ from .fragmentation import (apply_fragmentation, candidate_fragmentations,
 from .partition import (fits, initial_partition, latency_s, merge,
                         Partitioning, subgraph_cost, throughput_fps)
 from .dse import DSEConfig, DSEResult, pack_onchip, run_dse
-from .plan import ExecutionPlan, LayerPlan, plan_from_dse, StreamPlan
+from .plan import (ExecutionPlan, hand_cut_plan, LayerPlan, plan_from_dse,
+                   StreamPlan)
 from .builders import (build_unet, build_unet3d, build_unet_exec,
                        build_x3d_exec, build_x3d_m, build_yolo_head_exec,
                        build_yolov8n, exec_input_shape, get_model,

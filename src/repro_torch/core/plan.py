@@ -228,3 +228,26 @@ def plan_from_dse(model: str, device: str, res: DSEResult,
         est_throughput_fps=res.throughput_fps, est_latency_s=res.latency_s,
         topo_order=topo,
     )
+
+
+def hand_cut_plan(g, n_stages: int = 3, *, evict_codec: str | None = "bfp8",
+                  depth_thresh: float = 4096.0,
+                  device: str = "u200") -> ExecutionPlan:
+    """A plan cut by hand, as the reference package's streamer tests cut
+    theirs: the topological order split into ``n_stages`` equal parts, and
+    with ``evict_codec`` every edge deeper than ``depth_thresh`` words
+    evicted through it.  Cut a graph the DSE has not searched: the search
+    leaves its folding on the vertices, which changes the buffer depths."""
+    g.compute_buffer_depths()
+    topo = g.topo()
+    stage = {n: min(i * n_stages // len(topo), n_stages - 1)
+             for i, n in enumerate(topo)}
+    streams = []
+    for e in g.edges():
+        evict = evict_codec is not None and e.buffer_depth > depth_thresh
+        streams.append(StreamPlan(e.src, e.dst, evicted=evict,
+                                  codec=evict_codec if evict else "none"))
+    return ExecutionPlan(
+        model=g.name, device=device, n_stages=n_stages,
+        layers={n: LayerPlan(name=n, stage=stage[n]) for n in topo},
+        streams=streams, topo_order=topo)

@@ -4,9 +4,9 @@ consecutive channels, ``(8 + 8/block)`` bits per value.
 
 :func:`bfp8_quant_values` / :func:`bfp8_dequant_values` are the one
 definition of the codec's numerics.  The plain wrappers below, the fused
-egress encodes of ``streaming_conv.act_relu`` and ``streaming_conv.pool``
-and the CUDA kernels built on ``csrc/bfp8.cuh`` all compute exactly this,
-bit for bit:
+egress encodes of ``streaming_conv.act_relu``, ``streaming_conv.pool`` and
+``streaming_conv.conv2d`` and the CUDA kernels built on ``csrc/bfp8.cuh``
+all compute exactly this, bit for bit:
 
 * ``exp = ceil(log2(max(amax, 1e-38)))`` for a block with a finite
   ``amax > 0``, else 0 (a block that holds a NaN has ``amax`` NaN).  It is read exactly from the float's bits (``frexp``): an f32

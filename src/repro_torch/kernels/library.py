@@ -51,6 +51,7 @@ SIGNATURES = {
     "dwconv": "pppiii",
     "bfp8_quant": "pppii",
     "pool_encode": "ppppiii",
+    "conv2d_encode": "pppppiii",
 }
 
 #: Launches of each kernel since the last :func:`reset_launches`.

@@ -10,15 +10,16 @@ the codec block with zeros, bitwise what ``bfp8_spill_encode`` gives).
 On the CPU every variant runs its plain version.  On a CUDA tensor a
 wrapper launches its kernel or raises:
 
-* ``conv2d`` plain — kernel (``csrc/conv2d.cu``);
+* ``conv2d`` plain and with the egress encode — kernels
+  (``csrc/conv2d.cu``);
 * ``dwconv`` plain — kernel (``csrc/dwconv.cu``);
 * ``pool`` plain and with the egress encode — kernels
   (``csrc/streaming_conv.cu``);
 * ``act_relu`` plain and with the egress encode — kernels (same file);
-* the ingress-decode variants of all four ops, and the egress variants of
-  ``conv2d`` and ``dwconv`` — no kernel yet (ROADMAP.md, Queue 2).  No
-  plan of the staged main path (the paper-width UNet, X3D-M at depth 2)
-  reaches them.
+* the ingress-decode variants of all four ops, and the egress variant of
+  ``dwconv`` — no kernel yet (ROADMAP.md, Queue 2).  No plan of the main
+  paths (the paper-width UNet and X3D-M at depth 2, staged; the YOLO head,
+  pipelined) reaches them.
 """
 from __future__ import annotations
 
@@ -68,9 +69,9 @@ def conv2d(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
     if not _on_cuda(x, payload):
         return _plain(lambda h: ref.conv2d_ref(h, w), x, w.shape[0], payload,
                       encode, block)
-    if payload is not None or encode:
-        not_ported(f"conv2d with the fused codec ({_SRC} _conv_dec_kernel, "
-                   f"_conv_enc_kernel, _conv_dec_enc_kernel)")
+    if payload is not None:
+        not_ported(f"conv2d with the ingress decode ({_SRC} "
+                   f"_conv_dec_kernel, _conv_dec_enc_kernel)")
     check_operand("conv2d x", x, torch.float32, align=4)
     check_operand("conv2d w", w, torch.float32, align=4)
     (m, k), (k2, n) = x.shape, w.shape
@@ -79,8 +80,17 @@ def conv2d(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
     if n > 65535 * CONV2D_BN:
         raise ValueError(f"conv2d: n={n} exceeds the grid's columns")
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    launch("conv2d", x, w, y, m, k, n)
-    return y
+    if not encode:
+        launch("conv2d", x, w, y, m, k, n)
+        return y
+    if block != BFP8_BLOCK:
+        raise ValueError(f"the conv2d encode kernel takes block="
+                         f"{BFP8_BLOCK}, got {block}")
+    nb = _round_up(n, block) // block
+    man = torch.empty((m, nb * block), dtype=torch.int8, device=x.device)
+    exp = torch.empty((m, nb), dtype=torch.int8, device=x.device)
+    launch("conv2d_encode", x, w, y, man, exp, m, k, n)
+    return y, (man, exp)
 
 
 def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):

@@ -203,6 +203,10 @@ class PlanAnalysis:
     #: kernel route encodes once per producer / decodes per consumer
     bfp8_edges: set = dataclasses.field(default_factory=set)
 
+    @property
+    def n_stages(self) -> int:
+        return max(self.stage_of.values(), default=0) + 1
+
     def report(self) -> SpillReport:
         return SpillReport(spills=list(self.spills),
                            streamed_weight_bits=self.streamed_weight_bits,
@@ -405,10 +409,17 @@ def apply_vertex_fused(v, ins, params, x, analysis: PlanAnalysis, *,
     return out if want_payload else (out, None)
 
 
-def run_vertices(g: Graph, an: PlanAnalysis, params: dict, x: torch.Tensor,
-                 hop: "OffchipHop", *, keep_all: bool = True
-                 ) -> dict[str, torch.Tensor]:
-    """The per-vertex execution loop over the whole graph, in topo order.
+def run_vertices(g: Graph, an: PlanAnalysis, params: dict,
+                 x: torch.Tensor | None, hop: "OffchipHop", *,
+                 names: list[str] | None = None, external=None,
+                 keep_all: bool = True) -> tuple[dict, dict]:
+    """The per-vertex execution loop both executors run, in topo order.
+
+    ``names`` is the topo-ordered subset to run (the whole graph by
+    default); ``external(edge)`` resolves in-edges whose producer lies
+    outside it (the pipelined streamer's decoded crossing reads).  An
+    out-edge whose consumer lies outside ``names`` is a crossing: the
+    caller hands it on, so nothing here spills it.
 
     Payload-routed BFP8 eviction: on the kernel route the producer of a
     BFP8-evicted edge encodes the spill once (fused into its kernel when
@@ -422,24 +433,36 @@ def run_vertices(g: Graph, an: PlanAnalysis, params: dict, x: torch.Tensor,
     ``keep_all=False`` a vertex's output is dropped as soon as the last
     vertex that reads it on the device has run, so a spilled stream holds no
     device memory between its producer and its consumers; the graph's last
-    vertex is kept.  Returns the outputs still held: with ``keep_all`` every
-    vertex's, for naming the first vertex where two executors part.
+    vertex is kept, and so is an output that a crossing edge carries raw,
+    until the caller has read it.  Returns ``(values, payloads)``: the
+    outputs still held (with ``keep_all`` every vertex's, for naming the
+    first vertex where two executors part) and, by producer, the BFP8
+    payloads that a crossing edge carries on the kernel route.
     """
+    names = an.topo if names is None else names
+    internal = set(names)
     payload_routed = an.bfp8_edges if an.use_kernels else set()
     last_read: dict[str, int] = {}      # producer -> index of its last reader
-    for i, name in enumerate(an.topo):
+    for i, name in enumerate(names):
         for e in g.in_edges(name):
-            if (e.src, name) not in an.spill_fn:
+            if e.src in internal and (e.src, name) not in an.spill_fn:
                 last_read[e.src] = i
+    for name in names:
+        if any(s not in internal and (name, s) not in payload_routed
+               for s in g.successors(name)):
+            last_read[name] = len(names)            # read by the caller
     values: dict[str, torch.Tensor] = {}
+    payloads: dict[str, tuple] = {}     # producer -> crossing BFP8 payload
     host: dict = {}                     # spill key -> off-chip handle
-    for i, name in enumerate(an.topo):
+    for i, name in enumerate(names):
         v = g.vertex(name)
         lv = _lower_vertex(g, name, an)
         ins, payload_in = [], None
         for e in g.in_edges(name):      # predecessor order = operand order
             edge = (e.src, name)
-            if edge in payload_routed:
+            if e.src not in internal:
+                ins.append(external(edge))
+            elif edge in payload_routed:
                 pay = hop.restore(host[e.src])
                 if lv.fuse_in == edge:
                     payload_in = pay
@@ -455,20 +478,28 @@ def run_vertices(g: Graph, an: PlanAnalysis, params: dict, x: torch.Tensor,
                                     payload_in=payload_in,
                                     want_payload=lv.fuse_out)
         if lv.needs_payload:
-            host[name] = hop.evict(name, pay if pay is not None else
-                                   bfp8_spill_encode(y, use_kernels=True))
+            if pay is None:
+                pay = bfp8_spill_encode(y, use_kernels=True)
+            routed = [s for s in g.successors(name)
+                      if (name, s) in payload_routed]
+            if any(s in internal for s in routed):
+                host[name] = hop.evict(name, pay)
+            if any(s not in internal for s in routed):
+                payloads[name] = pay
         for s in g.successors(name):
             edge = (name, s)
-            if edge in an.spill_fn and edge not in payload_routed:
+            if (s in internal and edge in an.spill_fn
+                    and edge not in payload_routed):
                 host[edge] = hop.evict(edge, (an.spill_fn[edge](y),))
         values[name] = y
-        # drop this step's references, so only `values` and `host` hold data
+        # drop this step's references, so only `values`, `host` and
+        # `payloads` hold data
         del ins, payload_in, pay, y
         if not keep_all:
             for src in [e.src for e in g.in_edges(name)] + [name]:
                 if last_read.get(src, -1) <= i and src != an.topo[-1]:
                     values.pop(src, None)
-    return values
+    return values, payloads
 
 
 # =============================================================================
@@ -595,7 +626,7 @@ def lower_plan(g: Graph, plan: ExecutionPlan | None = None, *,
             raise ValueError(
                 f"input shape {tuple(x.shape)} does not match the graph's "
                 f"input spec {an.in_shape} for {g.name!r}")
-        return run_vertices(g, an, params, x, hop, keep_all=keep_all)
+        return run_vertices(g, an, params, x, hop, keep_all=keep_all)[0]
 
     def forward(params: dict, x: torch.Tensor) -> torch.Tensor:
         return forward_values(params, x, keep_all=False)[an.topo[-1]]

@@ -150,6 +150,23 @@ def test_conv2d(gen, m, k, n):
                                atol=2e-4)
 
 
+@pytest.mark.parametrize("m,k,n", [(25600, 64, 64), (12800, 384, 128),
+                                   (77, 45, 130), (300, 17, 5), (1, 1, 1)])
+def test_conv2d_encode_bit_exact(gen, m, k, n):
+    """The fused y is the plain conv2d kernel's bit for bit, the payload
+    bfp8_quant of that y padded to the block; rows past m and columns past
+    n are not written beyond the payload's zero padding."""
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+    y, (man, exp) = SC.conv2d(x, w, encode=True)
+    assert torch.equal(_bits(y), _bits(SC.conv2d(x, w)))
+    pman, pexp = bfp8_quant_values(
+        torch.nn.functional.pad(y, (0, (-n) % 32)), block=32)
+    assert torch.equal(man, pman) and torch.equal(exp, pexp)
+    torch.testing.assert_close(y, ref.conv2d_ref(x, w), rtol=2e-4,
+                               atol=2e-4)
+
+
 def test_bfp8_dequant_bit_exact(gen):
     man = torch.randint(-128, 128, (300, 96), generator=gen, device="cuda",
                         dtype=torch.int8)
@@ -234,7 +251,7 @@ def _payload(m, c):
             torch.zeros(m, cq // 32, dtype=torch.int8, device="cuda"))
 
 
-@pytest.mark.parametrize("variant", ["conv2d ingress", "conv2d egress",
+@pytest.mark.parametrize("variant", ["conv2d ingress", "conv2d both",
                                      "dwconv ingress", "dwconv egress",
                                      "pool ingress", "act_relu ingress"])
 def test_unported_kernel_raises_on_the_card(gen, variant):
@@ -242,9 +259,12 @@ def test_unported_kernel_raises_on_the_card(gen, variant):
     kernel: the card refuses rather than run their plain versions."""
     x = torch.randn(64, 40, generator=gen, device="cuda")
     op, kind = variant.split()
-    kw = (dict(payload=_payload(64, 40)) if kind == "ingress"
-          else dict(encode=True))
-    xin = None if kind == "ingress" else x
+    kw = {}
+    if kind in ("ingress", "both"):
+        kw["payload"] = _payload(64, 40)
+    if kind in ("egress", "both"):
+        kw["encode"] = True
+    xin = None if "payload" in kw else x
     with pytest.raises(NotImplementedError, match=op):
         if op == "conv2d":
             SC.conv2d(xin, x[:40, :24].contiguous(), **kw)
@@ -254,3 +274,49 @@ def test_unported_kernel_raises_on_the_card(gen, variant):
             SC.pool(xin, 32, c=40, **kw)
         else:
             SC.act_relu(xin, c=40, **kw)
+
+
+def test_pipelined_stream_on_the_card(gen):
+    """A small YOLO head under a 3-stage plan that evicts its skips through
+    BFP8, pipelined: every microbatch equals the staged executor on the
+    same plan bit for bit, and the conv2d egress encode ran."""
+    import repro_torch
+    from repro_torch.core import build_yolo_head_exec, hand_cut_plan
+    g = build_yolo_head_exec(positions=256, widths=(32, 64, 128), head=32)
+    plan = hand_cut_plan(g, depth_thresh=512.0)
+    spec = dict(model=g, strategy="manual-plan", plan=plan,
+                torch_device="cuda")
+    pipe = repro_torch.compile(repro_torch.CompileSpec(
+        **spec, mode="pipelined", microbatches=4))
+    staged = repro_torch.compile(repro_torch.CompileSpec(**spec))
+    staged.executor.params = pipe.executor.params
+    xs = torch.randn((4,) + pipe.input_shape(), generator=gen,
+                     device="cuda")
+    reset_launches()
+    ys = pipe.run(xs)
+    counts = launches()
+    torch.cuda.synchronize()
+    assert counts["conv2d_encode"] > 0
+    for b in range(4):
+        assert torch.equal(_bits(ys[b]), _bits(staged.run(xs[b])))
+
+
+def test_raw_and_bfp8_crossings_of_one_producer_on_the_card(gen):
+    """The small UNet cut into seven stages of three vertices: act_3 and
+    act_6 each cross raw to the next stage and BFP8-evicted to a later one.
+    Each crossing's off-chip hop carries its own form, and every
+    microbatch equals the staged executor bit for bit."""
+    import repro_torch
+    from repro_torch.core import build_unet_exec, hand_cut_plan
+    g = build_unet_exec()
+    spec = dict(model=g, strategy="manual-plan", torch_device="cuda",
+                plan=hand_cut_plan(g, 7))
+    pipe = repro_torch.compile(repro_torch.CompileSpec(
+        **spec, mode="pipelined", microbatches=4))
+    staged = repro_torch.compile(repro_torch.CompileSpec(**spec))
+    staged.executor.params = pipe.executor.params
+    xs = torch.randn((4,) + pipe.input_shape(), generator=gen,
+                     device="cuda")
+    ys = pipe.run(xs)
+    for b in range(4):
+        assert torch.equal(_bits(ys[b]), _bits(staged.run(xs[b])))

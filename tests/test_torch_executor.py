@@ -208,10 +208,11 @@ def test_forward_holds_no_spilled_stream_while_it_waits(codecs):
     assert an.spills
     x = torch.from_numpy(_frame(c.input_shape(), seed=4))
     hop = _WatchingHop()
-    out = tex.run_vertices(g, an, c.executor.params, x, hop, keep_all=False)
-    assert list(out) == [an.topo[-1]]
+    out, pays = tex.run_vertices(g, an, c.executor.params, x, hop,
+                                 keep_all=False)
+    assert list(out) == [an.topo[-1]] and pays == {}
     assert hop.held_at_restore and not any(hop.held_at_restore)
-    every = tex.run_vertices(g, an, c.executor.params, x, _WatchingHop())
+    every, _ = tex.run_vertices(g, an, c.executor.params, x, _WatchingHop())
     assert list(every) == an.topo
     assert torch.equal(out[an.topo[-1]], every[an.topo[-1]])
     assert torch.equal(c.run(x), out[an.topo[-1]])

@@ -102,6 +102,28 @@ def test_import_leaves_jax_and_repro_out():
     assert n_modules >= 20          # core, kernels, runtime, api
 
 
+@pytest.mark.parametrize("module", ["repro_torch.runtime.streamer",
+                                    "repro_torch.memory", "repro_torch.obs"])
+def test_streamer_packages_leave_jax_and_repro_out(module):
+    """The pipelined streamer and its copies of the reference's memory and
+    obs layers, each imported first in a fresh interpreter, with its
+    submodules."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        mod = importlib.import_module({module!r})
+        for m in pkgutil.walk_packages(mod.__path__, {module!r} + "."):
+            importlib.import_module(m.name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -200,12 +222,13 @@ def test_main_path_launches_four_kernels(paper_unet_plans):
 # =============================================================================
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(mode="pipelined"), NotImplementedError),
+    (dict(mode="pipelined", placement="shard_map"), NotImplementedError),
     (dict(strategy="autotune"), NotImplementedError),
     (dict(kernel_mode="pallas"), ValueError),
     (dict(mode="bogus"), ValueError),
     (dict(strategy="manual-plan"), ValueError),
     (dict(kernel_mode="cuda", torch_device="cpu"), ValueError),
+    (dict(mode="pipelined", placement="ring"), ValueError),
 ])
 def test_compile_spec_refuses(kw, err):
     with pytest.raises(err):
