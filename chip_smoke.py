@@ -9,13 +9,19 @@ and prints no result line):
 1. the card: name and power limit from ``nvidia-smi``; no CUDA device is a
    failure;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``;
-3. the main paths, one after the other, each through
-   ``repro_torch.compile`` on the u200 sheet.  Staged (DSE, one frame at a
+3. the main paths, one after the other, on the u200 sheet.  Staged (one
+   frame at a
    time): the paper-width UNet (widths 64-1024, 368x480 input), then X3D-M
-   at its published stage widths (24-192, 16 frames of 128x128); a few
-   seeded frames each, with the kernel launches counted from 0 around every
-   frame and held against the path's own table, and the output held
-   against the same plan in ``kernel_mode="reference"`` on the card.
+   at its published stage widths (24-192, 16 frames of 128x128), both on
+   their DSE plans; then X3D-M on three hand-cut one-stage plans that
+   BFP8-evict every edge deeper than 4096, 96 and 0 words (the skips only,
+   then the mid-depth streams, then every stream), each compiled on the
+   CPU, written with ``Compiled.save`` and run from ``Compiled.load`` on
+   the card (the saved-artifact entry point); a few seeded frames each,
+   with the kernel launches counted from 0 around every frame and held
+   against the path's own table, and the output held against the same plan
+   in ``kernel_mode="reference"`` on the card (naming the first vertex
+   where the two part, if they do).
    Pipelined (the 1F1B streamer over 8 microbatches): the YOLO head at
    YOLOv8n's neck widths (64-256, P3 = 160x160) on its DSE plan and on a
    hand-cut 3-stage plan; seeded streams, with the launches counted from 0
@@ -23,15 +29,19 @@ and prints no result line):
    every microbatch held bit for bit against the staged executor on the
    same plan, and within tolerance against reference mode;
 4. hold each kernel against its plain PyTorch version on the card, at every
-   shape either path launched it with in phase 3 plus ragged shapes and
-   the edge cases (the BFP8 exponent's, 'same'-padding rows and +-0.0 for
-   dwconv), and time kernel, plain version and one PyTorch call as a
-   yardstick (CUDA events, L2 flushed before every launch);
-5. each path's frame time and peak device memory, with its spills evicted
-   as planned and with the same plan's spills kept on the device, and the
-   device's busy time and idle share in one profiled frame (for the YOLO
-   head: ms per microbatch pipelined and staged, peak memory of one stream,
-   the 3-stage plan's measured stage latencies, one profiled stream);
+   shape a path launched it with in phase 3 plus ragged shapes (c = 3, 24,
+   40 for the codec variants, payloads with random padding bytes) and the
+   edge cases (the BFP8 exponent's, 'same'-padding rows and +-0.0 for
+   dwconv); a codec variant's y also bit for bit the un-fused kernel's on
+   the decode kernel's output, its payload the codec's of that y; and time
+   kernel, plain version and one PyTorch call as a yardstick (CUDA events,
+   L2 flushed before every launch);
+5. each staged path's frame time and peak device memory, with its spills
+   evicted as planned and with the same plan's spills kept on the device,
+   its frame time in reference mode, and the device's busy time and idle
+   share in one profiled frame (for the YOLO head: ms per microbatch
+   pipelined and staged, peak memory of one stream, the 3-stage plan's
+   measured stage latencies, one profiled stream);
 6. one JSON line of per-kernel numbers, then the result line.
 
 Imports nothing of JAX and nothing of the ``repro`` package.
@@ -40,12 +50,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import json
 import math
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -77,6 +89,15 @@ class Path:
     kwargs: dict
     launches: dict          # per frame, kernels not named launch 0 times
     bfp8_edges: int
+    #: None for the DSE plan; else the hand-cut plan
+    #: ``hand_cut_plan(g, 1, depth_thresh=...)``, saved with
+    #: ``Compiled.save`` and run from ``Compiled.load``
+    depth_thresh: float | None = None
+
+
+# X3D-M's stage widths (build_x3d_m), 16 frames of 128 x 128 after the stem
+X3D_M = dict(positions=16 * 128 * 128, cin=3, widths=(24, 48, 96, 192),
+             expansion=2, depth=2)
 
 
 PATHS = (
@@ -91,12 +112,31 @@ PATHS = (
     # 4 standalone encodes (add_14 and three fragmented stage-end convs),
     # the feature-bank skip encoded by its pool, 9 pools (4 global), 13
     # relus (1 encodes), 6 decodes, 5 fragmented layers with K > 128
-    Path("x3d", "build_x3d_exec",
-         dict(positions=16 * 128 * 128, cin=3, widths=(24, 48, 96, 192),
-              expansion=2, depth=2),
+    Path("x3d", "build_x3d_exec", X3D_M,
          {"conv2d": 9, "dwconv": 9, "bfp8_quant": 4, "pool_encode": 1,
           "pool": 9, "act_relu": 12, "act_relu_encode": 1,
           "bfp8_dequant": 6, "streamed_matmul": 5}, 6),
+    # the hand-cut plans, nothing fragmented: the 10 edges deeper than 4096
+    # words (the skips; 3 encoded by a conv, 4 by a dwconv, 1 each by a
+    # relu, a pool and the standalone quant)
+    Path("x3d-evict-deep", "build_x3d_exec", X3D_M,
+         {"conv2d": 23, "conv2d_encode": 3, "dwconv": 5, "dwconv_encode": 4,
+          "pool": 9, "pool_encode": 1, "act_relu": 12, "act_relu_encode": 1,
+          "bfp8_quant": 1, "bfp8_dequant": 10}, 10, 4096.0),
+    # ... and the streams at 128 and 64 words: single-input consumers
+    # decode inside their own launch
+    Path("x3d-evict-mid", "build_x3d_exec", X3D_M,
+         {"conv2d": 18, "conv2d_decode": 5, "conv2d_decode_encode": 3,
+          "dwconv": 1, "dwconv_decode": 4, "dwconv_decode_encode": 4,
+          "pool": 5, "pool_encode": 1, "pool_decode": 4, "act_relu": 4,
+          "act_relu_encode": 9, "bfp8_quant": 11, "bfp8_dequant": 11},
+         31, 96.0),
+    # every stream: every op with one input decodes and encodes in one
+    # launch, the SE global pools among them (k up to 262144)
+    Path("x3d-evict-all", "build_x3d_exec", X3D_M,
+         {"conv2d_decode_encode": 26, "dwconv_decode_encode": 9,
+          "pool_decode_encode": 10, "act_relu_decode_encode": 13,
+          "bfp8_quant": 11, "bfp8_dequant": 21}, 79, 0.0),
 )
 
 
@@ -144,6 +184,14 @@ TPU_SRC = {
     "bfp8_quant": "src/repro/kernels/bfp8.py:51",
     "pool_encode": "src/repro/kernels/streaming_conv.py:330",
     "conv2d_encode": "src/repro/kernels/streaming_conv.py:91",
+    "conv2d_decode": "src/repro/kernels/streaming_conv.py:86",
+    "conv2d_decode_encode": "src/repro/kernels/streaming_conv.py:97",
+    "dwconv_encode": "src/repro/kernels/streaming_conv.py:217",
+    "dwconv_decode": "src/repro/kernels/streaming_conv.py:209",
+    "dwconv_decode_encode": "src/repro/kernels/streaming_conv.py:229",
+    "pool_decode": "src/repro/kernels/streaming_conv.py:325",
+    "pool_decode_encode": "src/repro/kernels/streaming_conv.py:339",
+    "act_relu_decode_encode": "src/repro/kernels/streaming_conv.py:426",
 }
 CUDA_SRC = {
     "streamed_matmul": "src/repro_torch/csrc/streamed_matmul.cu",
@@ -156,6 +204,14 @@ CUDA_SRC = {
     "bfp8_quant": "src/repro_torch/csrc/bfp8.cu",
     "pool_encode": "src/repro_torch/csrc/streaming_conv.cu",
     "conv2d_encode": "src/repro_torch/csrc/conv2d.cu",
+    "conv2d_decode": "src/repro_torch/csrc/conv2d.cu",
+    "conv2d_decode_encode": "src/repro_torch/csrc/conv2d.cu",
+    "dwconv_encode": "src/repro_torch/csrc/dwconv.cu",
+    "dwconv_decode": "src/repro_torch/csrc/dwconv.cu",
+    "dwconv_decode_encode": "src/repro_torch/csrc/dwconv.cu",
+    "pool_decode": "src/repro_torch/csrc/streaming_conv.cu",
+    "pool_decode_encode": "src/repro_torch/csrc/streaming_conv.cu",
+    "act_relu_decode_encode": "src/repro_torch/csrc/streaming_conv.cu",
 }
 
 
@@ -264,7 +320,8 @@ def kernel_phase(torch, timer, path_shapes):
             raise AssertionError(f"{name}: not bit-exact")
 
     def pool_close(name, got, x, m_out):
-        """The global pool: within POOL_TOL * mean |x| of each channel."""
+        """The global pool: within POOL_TOL * mean |x| of each channel of
+        the plain mean of ``x``."""
         m, c = x.shape
         want = ref.pool_ref(x, m_out)
         err = (got.double() - want.double()).abs()
@@ -275,21 +332,6 @@ def kernel_phase(torch, timer, path_shapes):
             raise AssertionError(f"{name}: global pool outside "
                                  f"{POOL_TOL} x mean|x|")
 
-    def enc_plain(op, x):
-        y = op(x)
-        yq = F.pad(y, (0, (-y.shape[1]) % 32))
-        return y, bfp8_quant_values(yq, block=32)
-
-    def check_encode(name, kern, op, x, nan_bits=True):
-        y, (man, exp) = kern(x)
-        py, (pman, pexp) = enc_plain(op, x)
-        exact(name, y, py, nan_bits)
-        exact(name, man, pman)
-        exact(name, exp, pexp)
-
-    def relu_encode(x):
-        return SC.act_relu(x, encode=True)
-
     def check_pool(x, m_out):
         if x.shape[0] // m_out == 2:
             exact("pool", SC.pool(x, m_out), ref.pool_ref(x, m_out))
@@ -299,21 +341,117 @@ def kernel_phase(torch, timer, path_shapes):
     def check_dwconv(x, w):
         exact("dwconv", SC.dwconv(x, w), ref.dwconv_ref(x, w))
 
-    def check_conv_encode(x, w):
-        """y bit for bit the plain conv2d kernel's and within MATMUL_TOL
-        of its plain version; the payload bit for bit the plain encode of
-        that y."""
-        y, (man, exp) = SC.conv2d(x, w, encode=True)
-        exact("conv2d_encode", y, SC.conv2d(x, w))
-        _, (pman, pexp) = enc_plain(lambda h: h, y)
-        exact("conv2d_encode", man, pman)
-        exact("conv2d_encode", exp, pexp)
-        close("conv2d_encode", y, ref.conv2d_ref(x, w), MATMUL_TOL,
-              MATMUL_TOL)
+    # -- the fused-codec variants ----------------------------------------------
+    def payload_of(m, c):
+        """The codec's payload of a random (m, c) stripe, with random bytes
+        in its padding channels: the kernels and the plain versions read
+        only the first c."""
+        man, exp = bfp8_quant_values(F.pad(randn(m, c) * 2, (0, (-c) % 32)),
+                                     block=32)
+        if c % 32:
+            man[:, c:] = randi8(-127, 127, m, man.shape[1] - c)
+        return man, exp
+
+    def variant(kind, c, m_out=None, w=None):
+        """(kernel, plain version, the un-fused kernel or None) of a codec
+        variant; the first two take (x, payload)."""
+        op = kind.split("_decode")[0].removesuffix("_encode")
+        enc = kind.endswith("_encode")
+        if op == "conv2d":
+            def body(h):
+                return ref.conv2d_ref(h, w)
+            fn = functools.partial(SC.conv2d, w=w)
+            unfused = lambda h: SC.conv2d(h, w)                 # noqa: E731
+        elif op == "dwconv":
+            def body(h):
+                return ref.dwconv_ref(h, w)
+            fn = functools.partial(SC.dwconv, w=w)
+            unfused = lambda h: SC.dwconv(h, w)                 # noqa: E731
+        elif op == "pool":
+            def body(h):
+                return ref.pool_ref(h, m_out)
+            fn = functools.partial(SC.pool, m_out=m_out, c=c)
+            unfused = lambda h: SC.pool(h, m_out)               # noqa: E731
+        else:
+            body, unfused = ref.act_relu_ref, None
+            fn = functools.partial(SC.act_relu, c=c)
+
+        def kern(x, pay):
+            return fn(x, payload=pay, encode=enc)
+
+        def plain(x, pay):
+            return SC._plain(body, x, c, pay, enc, 32)
+        return kern, plain, unfused
+
+    def check_variant(kind, x, pay, c, m_out=None, w=None, nan_bits=True):
+        """y bit for bit the un-fused kernel's on the input (the standalone
+        decode kernel's output, for a decoding variant) and the payload bit
+        for bit the codec's of that y; y within MATMUL_TOL (conv2d) or
+        POOL_TOL (pool, k > 2) of the plain version, else bit for bit (act
+        variants: y and payload bit for bit the plain version's)."""
+        kern, plain, unfused = variant(kind, c, m_out, w)
+        enc = kind.endswith("_encode")
+        got, want = kern(x, pay), plain(x, pay)
+        (y, ypay), (py, ppay) = ((got, want) if enc
+                                 else ((got, None), (want, None)))
+        if unfused is None:
+            exact(kind, y, py, nan_bits)
+        else:
+            xin = x if pay is None else bfp8_dequant(*pay)[:, :c].contiguous()
+            exact(kind, y, unfused(xin), nan_bits)
+            if enc:
+                ppay = bfp8_quant_values(F.pad(y, (0, (-y.shape[1]) % 32)),
+                                         block=32)
+            if kind.startswith("conv2d"):
+                close(kind, y, py, MATMUL_TOL, MATMUL_TOL)
+            elif kind.startswith("pool") and xin.shape[0] // m_out > 2:
+                pool_close(kind, y, xin, m_out)
+            else:
+                exact(kind, y, py, nan_bits)
+        if enc:
+            exact(kind, ypay[0], ppay[0])
+            exact(kind, ypay[1], ppay[1])
+
+    def codec_case(kind, arg_shapes):
+        """A codec variant at one launch's shapes: the input (x, or its
+        payload) and y give m, c and m_out, the weight its shape."""
+        dec = "_decode" in kind
+        ins, rest = arg_shapes[:1 + dec], arg_shapes[1 + dec:]
+        m = ins[0][0]
+        weighted = kind.startswith(("conv2d", "dwconv"))
+        wshape = rest[0] if weighted else None
+        m_out, c_out = rest[1] if weighted else rest[0]
+        c = wshape[0] if kind.startswith("conv2d") else c_out
+        w = None
+        if kind.startswith("conv2d"):
+            w = randn(*wshape) / math.sqrt(c)
+            ops = 2.0 * m * c * c_out
+        elif weighted:
+            w = randn(*wshape)
+            ops = 2.0 * wshape[0] * m * c
+        else:
+            ops = float(m * c)
+        pay = payload_of(m, c) if dec else None
+        x = None if dec else randn(m, c)
+        kern, plain, _ = variant(kind, c, m_out, w)
+        cq, nq = 32 * -(-c // 32), 32 * -(-c_out // 32)
+        nbytes = ((m * (cq + cq // 32) if dec else 4.0 * m * c)
+                  + (4.0 * w.numel() if w is not None else 0.0)
+                  + 4.0 * m_out * c_out)
+        if kind.endswith("_encode"):
+            nbytes += m_out * (nq + nq // 32)
+            ops += 6.0 * m_out * nq
+        if dec:
+            ops += m * c
+        return ((lambda: check_variant(kind, x, pay, c, m_out, w)),
+                lambda: kern(x, pay), lambda: plain(x, pay), None, nbytes,
+                ops)
 
     def case(kind, arg_shapes):
         """Inputs at one launch's shapes: (check, kernel, plain, yardstick
         or None, bytes moved, operations)."""
+        if kind.endswith("_encode") or "_decode" in kind:
+            return codec_case(kind, arg_shapes)
         if kind == "streamed_matmul":
             (m, k), (ks, n), (kd, _), _ = arg_shapes
             x = randn(m, k)
@@ -334,14 +472,6 @@ def kernel_phase(torch, timer, path_shapes):
                                    MATMUL_TOL)),
                     kern, plain, lambda: torch.matmul(x, w),
                     4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
-        if kind == "conv2d_encode":
-            (m, k), (_, n), _, (_, cq), (_, nb) = arg_shapes
-            x, w = randn(m, k), randn(k, n) / math.sqrt(k)
-            return ((lambda: check_conv_encode(x, w)),
-                    lambda: SC.conv2d(x, w, encode=True),
-                    lambda: enc_plain(lambda h: ref.conv2d_ref(h, w), x),
-                    None, 4.0 * (m * k + k * n + m * n) + m * (cq + nb),
-                    2.0 * m * k * n + 6.0 * m * cq)
         if kind == "dwconv":
             (m, c), (taps, _), _ = arg_shapes
             x, w = randn(m, c), randn(taps, c)
@@ -358,14 +488,6 @@ def kernel_phase(torch, timer, path_shapes):
             plain = lambda: ref.act_relu_ref(x)                # noqa: E731
             return ((lambda: exact(kind, kern(), plain())), kern, plain,
                     lambda: torch.relu(x), 8.0 * m * c, m * c)
-        if kind == "act_relu_encode":
-            (m, c), _, (_, cq), (_, nb) = arg_shapes
-            x = randn(m, c)
-            return ((lambda: check_encode(kind, relu_encode,
-                                          ref.act_relu_ref, x)),
-                    lambda: relu_encode(x),
-                    lambda: enc_plain(ref.act_relu_ref, x), None,
-                    8.0 * m * c + m * cq + m * nb, 6.0 * m * cq)
         if kind == "pool":
             (m, c), (m_out, _), _ = arg_shapes
             x = randn(m, c)
@@ -374,19 +496,6 @@ def kernel_phase(torch, timer, path_shapes):
             return ((lambda: check_pool(x, m_out)), kern, plain,
                     lambda: x.view(m_out, m // m_out, c).mean(1),
                     4.0 * (m * c + m_out * c), m * c)
-        if kind == "pool_encode":
-            (m, c), (m_out, _), (_, cq), (_, nb) = arg_shapes
-            x = randn(m, c)
-
-            def op(h):
-                return ref.pool_ref(h, m_out)
-
-            def kern(h=x):
-                return SC.pool(h, m_out, encode=True)
-            return ((lambda: check_encode(kind, kern, op, x)),
-                    kern, lambda: enc_plain(op, x), None,
-                    4.0 * (m * c + m_out * c) + m_out * (cq + nb),
-                    m * c + 6.0 * m_out * cq)
         if kind == "bfp8_quant":
             (r, c), _, (_, nb) = arg_shapes
             x = randn(r, c) * 4
@@ -455,13 +564,36 @@ def kernel_phase(torch, timer, path_shapes):
         x, w = randn(m, k), randn(k, n) / math.sqrt(k)
         close("conv2d", SC.conv2d(x, w), ref.conv2d_ref(x, w), MATMUL_TOL,
               MATMUL_TOL)
-        check_conv_encode(x, w)
+        check_variant("conv2d_encode", x, None, k, w=w)
     for m, c in ((77, 45), (3, 1), (129, 96)):
         x = randn(m, c)
         exact("act_relu", SC.act_relu(x), ref.act_relu_ref(x))
-        check_encode("act_relu_encode", relu_encode, ref.act_relu_ref, x)
-        check_encode("pool_encode", lambda h: SC.pool(h, m, encode=True),
-                     lambda h: ref.pool_ref(h, m), randn(2 * m, c))
+        check_variant("act_relu_encode", x, None, c)
+        check_variant("pool_encode", randn(2 * m, c), None, c, m)
+    # every variant at c = 3, 24 and 40 (a payload's padding channels
+    # hold random bytes), rows not a multiple of any tile: m = 77 and
+    # 4099, and for pool k = 2 and k = m (the global pool)
+    for c in (3, 24, 40):
+        for m in (77, 4099):
+            for kind in ("conv2d_decode", "conv2d_decode_encode"):
+                check_variant(kind, None, payload_of(m, c), c,
+                              w=randn(c, 130) / math.sqrt(c))
+            for kind in ("dwconv_encode", "dwconv_decode",
+                         "dwconv_decode_encode"):
+                for taps in (3, 5):
+                    dec = "_decode" in kind
+                    check_variant(kind, None if dec else randn(m, c),
+                                  payload_of(m, c) if dec else None, c,
+                                  w=randn(taps, c))
+            check_variant("act_relu_decode_encode", None, payload_of(m, c), c)
+            for m_out in (m, 1):
+                for kind in ("pool_decode", "pool_decode_encode",
+                             "pool_encode"):
+                    k = 2 if m_out == m else 2 * m
+                    dec = "_decode" in kind
+                    check_variant(kind, None if dec else randn(k * m_out, c),
+                                  payload_of(k * m_out, c) if dec else None,
+                                  c, m_out)
     specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -1.0],
                             device="cuda")
     exact("act_relu", SC.act_relu(specials[None, :]),
@@ -477,6 +609,7 @@ def kernel_phase(torch, timer, path_shapes):
         x[m // 2, 8:12] = -0.0
         w[:, 0] = -0.0
         check_dwconv(x, w)
+        check_variant("dwconv_encode", x, None, c, w=w)
     # BFP8 exponent edge cases: block amax at 2^k (1 + j 2^-23), j in
     # -3..3, across the normal range and into the subnormals, plus all-zero
     # blocks (exp 0), blocks whose values round half-way, and blocks that
@@ -495,19 +628,25 @@ def kernel_phase(torch, timer, path_shapes):
     x[3::11, 40] = float("inf")
     x[4::11, 9], x[4::11, 50] = float("nan"), float("inf")
     x[5::11, 60] = -float("inf")
-    check_encode("act_relu_encode", relu_encode, ref.act_relu_ref, x)
+    check_variant("act_relu_encode", x, None, 64)
     man, exp = bfp8_quant(x)
     pman, pexp = bfp8_quant_values(x, block=32)
     exact("bfp8_quant", man, pman)
     exact("bfp8_quant", exp, pexp)
-    check_encode("pool_encode", lambda h: SC.pool(h, x.shape[0], encode=True),
-                 lambda h: ref.pool_ref(h, x.shape[0]),
-                 x.repeat_interleave(2, dim=0), nan_bits=False)
+    check_variant("pool_encode", x.repeat_interleave(2, dim=0), None, 64,
+                  x.shape[0], nan_bits=False)
+    # the same blocks as payloads: the decode of every exponent from the
+    # subnormals up, through relu's decode -> encode and a k = 2 pool's
+    check_variant("act_relu_decode_encode", None, (man, exp), 64)
+    check_variant("pool_decode_encode", None,
+                  (man.repeat_interleave(2, dim=0),
+                   exp.repeat_interleave(2, dim=0)), 64, x.shape[0])
     # the conv encode's epilogue on the same blocks: x @ I is x exactly
     # (every other product is +-0), so the finite rows reach it unchanged
     # through the product, in a ragged last row tile
     fin = x[torch.isfinite(x).all(1)][:1000]
-    check_conv_encode(fin, torch.eye(64, device="cuda"))
+    check_variant("conv2d_encode", fin, None, 64,
+                  w=torch.eye(64, device="cuda"))
     for m, c, m_out in ((4096, 96, 1), (3 * 70001, 40, 3)):
         g = randn(m, c)
         pool_close("pool", SC.pool(g, m_out), g, m_out)
@@ -538,6 +677,38 @@ def frame_stats(torch, comp, x) -> tuple[float, int]:
     return statistics.median(ts), peak
 
 
+def first_divergence(torch, main, refc, x) -> str:
+    """The first vertex, in topological order, where the two compiled
+    designs' outputs part by more than FRAME_TOL x max |reference|."""
+    got = main.executor.run_intermediates(x)
+    want = refc.executor.run_intermediates(x)
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max()) if w.numel() else 0.0
+        lim = FRAME_TOL * float(w.abs().max()) if w.numel() else 0.0
+        if err > lim:
+            return (f"{name} ({main.graph.vertex(name).kind}, max|y - "
+                    f"ref| {err:.3e} > {lim:.3e})")
+    return "no vertex"
+
+
+def compile_path(repro_torch, path: Path, g):
+    """The path's compiled design on the card: the DSE plan through
+    ``compile``, or the hand-cut plan compiled on the CPU, written with
+    ``Compiled.save`` and read back with ``Compiled.load``."""
+    if path.depth_thresh is None:
+        return repro_torch.compile(repro_torch.CompileSpec(
+            model=g, device="u200", strategy="dse", mode="staged"))
+    from repro_torch.core import hand_cut_plan
+    saved = repro_torch.compile(repro_torch.CompileSpec(
+        model=g, device="u200", strategy="manual-plan", mode="staged",
+        plan=hand_cut_plan(g, 1, depth_thresh=path.depth_thresh),
+        torch_device="cpu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        art = saved.save(pathlib.Path(tmp) / f"{path.name}.smof.json")
+        print(f"[{path.name}] artifact: {art.stat().st_size} bytes")
+        return repro_torch.Compiled.load(art)
+
+
 def run_path(torch, repro_torch, library, path: Path):
     """Phase 3 for one path: compile, then FRAMES seeded frames, each with
     its launches counted from 0 and its output held against reference
@@ -546,23 +717,27 @@ def run_path(torch, repro_torch, library, path: Path):
     from repro_torch.core import builders
     g = getattr(builders, path.builder)(**path.kwargs)
     t0 = time.perf_counter()
-    main = repro_torch.compile(repro_torch.CompileSpec(
-        model=g, device="u200", strategy="dse", mode="staged"))
-    print(f"[{path.name}] compile (DSE + lowering): "
-          f"{time.perf_counter() - t0:.2f} s")
+    main = compile_path(repro_torch, path, g)
+    kind = "DSE" if path.depth_thresh is None else "hand-cut"
+    print(f"[{path.name}] compile ({kind} plan + lowering): "
+          f"{time.perf_counter() - t0:.2f} s; kernel_mode "
+          f"{main.spec.kernel_mode} on {main.executor.device}")
+    if main.executor.device.type != "cuda":
+        raise AssertionError(f"[{path.name}] not on the card")
     rep = main.report()
     bfp8 = [s for s in main.executor.report.spills
             if s.codec == "bfp8" and s.reason == "evicted"]
     print(f"[{path.name}] spill report: {json.dumps(rep['traffic'])}")
-    print(f"[{path.name}] bfp8-evicted edges: "
+    print(f"[{path.name}] bfp8-evicted edges ({len(bfp8)}): "
           f"{[(s.src, s.dst) for s in bfp8]}, "
           f"{sum(s.offchip_bits for s in bfp8) // 8} bytes each way")
     if len(bfp8) != path.bfp8_edges:
         raise AssertionError(f"[{path.name}] expected {path.bfp8_edges} "
                              f"BFP8-evicted edges, got {len(bfp8)}")
     refc = repro_torch.compile(repro_torch.CompileSpec(
-        model=g, device="u200", strategy="manual-plan", plan=main.plan,
-        mode="staged", kernel_mode="reference"))
+        model=main.graph, device="u200", strategy="manual-plan",
+        plan=main.plan, mode="staged", kernel_mode="reference"))
+    refc.executor.params = main.executor.params
     expected = dict.fromkeys(library.SIGNATURES, 0) | path.launches
     m, c = main.input_shape()
     shapes = None
@@ -593,8 +768,10 @@ def run_path(torch, repro_torch, library, path: Path):
               f"max|y - ref| {err:.3e} (tol {FRAME_TOL} x max|ref| = "
               f"{FRAME_TOL * scale:.3e})")
         if err > FRAME_TOL * scale:
-            raise AssertionError(f"[{path.name}] frame {f}: main path leaves "
-                                 f"reference")
+            raise AssertionError(
+                f"[{path.name}] frame {f}: main path leaves reference; "
+                f"first diverging vertex: "
+                f"{first_divergence(torch, main, refc, xd)}")
     print(f"[{path.name}] launches per frame: "
           f"{ {k: n for k, n in counts.items() if n} }")
     for (name, arg_shapes), n in sorted(shapes.items()):
@@ -807,6 +984,7 @@ def memory_phase(torch, repro_torch, path: Path, main, refc):
     resc = repro_torch.compile(repro_torch.CompileSpec(
         model=main.graph, device="u200", strategy="manual-plan",
         plan=resident, mode="staged"))
+    resc.executor.params = main.executor.params
     m, c = main.input_shape()
     x = torch.randn((m, c), generator=torch.Generator().manual_seed(99))
     xd = x.cuda()
@@ -866,13 +1044,20 @@ def main() -> int:
         if row["launches"] == 0:
             raise AssertionError(f"kernel {name} never launched on a path")
     for r in rows.values():
-        tol = {"streamed_matmul": MATMUL_TOL, "conv2d": MATMUL_TOL,
-               "conv2d_encode": f"bit-exact vs the conv2d kernel and the "
-                                f"codec, {MATMUL_TOL} vs plain",
-               "pool": f"bit-exact at k=2, {POOL_TOL} x mean|x| "
-                       f"above"}.get(r["name"], "bit-exact")
+        name = r["name"]
+        if name in ("streamed_matmul", "conv2d"):
+            tol = MATMUL_TOL
+        elif name.startswith("conv2d"):
+            tol = (f"bit-exact vs the conv2d kernel on the decode kernel's "
+                   f"output and the codec, {MATMUL_TOL} vs plain")
+        elif name.startswith("pool"):
+            tol = (f"bit-exact vs the pool kernel on the decode kernel's "
+                   f"output and the codec; vs plain bit-exact at k=2, "
+                   f"{POOL_TOL} x mean|x| above")
+        else:
+            tol = "bit-exact"
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"kernel {r['name']:16s} launches {r['launches']:3d} "
+        print(f"kernel {name:22s} launches {r['launches']:3d} "
               f"max_abs_err {r['max_abs_err']:.3e} (tol {tol}) "
               f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {lib} "
               f"bound {r['bound_ms']:.4f} ({r['bound_by']}) "

@@ -16,6 +16,13 @@ runnable streaming design with the off-chip eviction decisions baked in:
         microbatches=8))
     ys = stream.run(xs)                    # a (8, m, c) stream -> (8, L)
 
+    compiled.save("unet.smof.json")        # the versioned plan artifact
+    again = repro_torch.Compiled.load("unet.smof.json")   # on the card
+    again.run(x)                           # bit-identical (seeded weights)
+
+The artifact is the reference package's (``ARTIFACT_KIND``, schema 1, the
+same keys), so each package loads the other's: see :meth:`Compiled.save`.
+
 Spec knobs
 ----------
 ``device``       the DSE target sheet (``core.resources.ALL_DEVICES``), as
@@ -29,10 +36,11 @@ Spec knobs
                  sequential executor, Eq. 5) or ``pipelined`` (the 1F1B
                  streamer over a microbatch stream, Eq. 6).
 ``microbatches`` recorded in the plan; the pipelined stream depth B.
-``placement``    kept for parity with the reference façade: it chooses
-                 nothing yet.  ``auto`` and ``interleave`` both run every
-                 stage on one GPU; ``shard_map`` (one stage per GPU) raises
-                 until ROADMAP.md Queue 1 item 10 ports it.
+``placement``    chooses nothing yet: it exists so that artifacts and the
+                 reference façade stay in step until ROADMAP.md Queue 1,
+                 item 10 ports the multi-GPU placement.  ``auto`` and
+                 ``interleave`` both run every stage on one GPU;
+                 ``shard_map`` (one stage per GPU) raises.
 ``channel``      opt-in off-chip channel model (``repro_torch.memory``):
                  the pipelined report then carries the contended Eq. 5/6
                  bounds and the prefetch deadline accounting.
@@ -41,6 +49,8 @@ Spec knobs
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 
 import numpy as np
 import torch
@@ -58,6 +68,20 @@ from .runtime.streamer import (PLACEMENTS, StreamingExecutor,
 
 MODES = ("reference", "staged", "pipelined")
 STRATEGIES = ("dse", "autotune", "manual-plan")
+
+ARTIFACT_KIND = "smof-compiled"
+ARTIFACT_SCHEMA_VERSION = 1
+# kernel_mode in an artifact: the reference package's names.  Its "pallas"
+# (the kernel route, in interpret mode off the TPU) is the port's "cuda" on
+# the card and its "auto" on the CPU, where the kernel route runs the
+# kernels' plain versions.
+_ARTIFACT_KERNEL_MODE = {"auto": "auto", "cuda": "pallas",
+                         "reference": "reference"}
+# obs in an artifact: the reference's default observability config, which
+# asks for no telemetry.  The port has no telemetry yet, so it writes this
+# and refuses to load any other (ROADMAP.md, Queue 1, item 5).
+_DEFAULT_OBS = dict(enabled=False, trace_path=None, slo=None,
+                    flight_capacity=0, flight_path=None)
 
 # The default executable-path DSE configuration: eviction + fragmentation
 # friendly settings at 16-bit stream words (the reference package's).
@@ -83,7 +107,7 @@ class CompileSpec:
     plan: ExecutionPlan | None = None  # strategy="manual-plan" input
     dse: DSEConfig | None = None       # strategy="dse" knobs
     torch_device: str = "cuda"
-    placement: str = "auto"            # parity only: one GPU for now
+    placement: str = "auto"            # chooses nothing yet (see above)
     #: opt-in off-chip channel model (``repro_torch.memory``): arbitration
     #: policy + optional gbps override; pipelined lowerings then carry the
     #: contended Eq. 5/6 bounds and prefetch deadline accounting.
@@ -242,3 +266,84 @@ class Compiled:
         if self.plan is not None:
             out["provenance"] = dict(self.plan.provenance)
         return out
+
+    # -- persistence ----------------------------------------------------------
+    def save(self, path) -> pathlib.Path:
+        """Write the versioned compile artifact (JSON) with the reference
+        package's keys: the plan with its provenance, the graph structure
+        (so a custom-built graph reloads without the model registry), and
+        every spec knob :meth:`load` needs to re-lower it.  ``kernel_mode``
+        is written in the reference's names (the port's ``"cuda"`` as
+        ``"pallas"``) and ``interpret`` as null, so the reference package
+        loads the artifact too."""
+        path = pathlib.Path(path)
+        B = (self.executor.microbatches if self.mode == "pipelined"
+             else self.spec.microbatches)
+        payload = {
+            "artifact": ARTIFACT_KIND,
+            "artifact_schema_version": ARTIFACT_SCHEMA_VERSION,
+            "plan_schema_version": (self.plan.schema_version if self.plan
+                                    else PLAN_SCHEMA_VERSION),
+            "model": self.model,
+            "device": self.device,
+            "mode": self.mode,
+            "strategy": self.strategy,   # decision origin: save/load-stable
+            "kernel_mode": _ARTIFACT_KERNEL_MODE[self.spec.kernel_mode],
+            "interpret": None,
+            "microbatches": B,
+            "seed": self.spec.seed,
+            "placement": self.spec.placement,
+            "obs": dict(_DEFAULT_OBS),
+            "channel": (self.spec.channel.to_dict()
+                        if self.spec.channel is not None else None),
+            "graph": self.graph.to_json_dict(),
+            "plan": (json.loads(self.plan.to_json())
+                     if self.plan is not None else None),
+        }
+        path.write_text(json.dumps(payload, indent=1))
+        return path
+
+    @staticmethod
+    def load(path, *, torch_device: str = "cuda") -> "Compiled":
+        """Reconstruct a saved artifact (this package's or the reference
+        package's) and lower it on ``torch_device``.
+
+        The artifact bakes the searched decisions in, so loading never
+        re-runs the DSE (``strategy`` becomes ``"manual-plan"``) and
+        rebuilds the graph from the embedded structural dump.  The weights
+        come from the stored seed through this package's ``init_params``,
+        so a reload is bit-identical to the compile that saved it; they are
+        not the reference package's ``jax.random`` weights (carry those
+        over with ``runtime.executor.params_from_numpy``)."""
+        d = json.loads(pathlib.Path(path).read_text())
+        if d.get("artifact") != ARTIFACT_KIND:
+            raise ValueError(f"{path}: not a {ARTIFACT_KIND} artifact")
+        if d.get("artifact_schema_version", 0) > ARTIFACT_SCHEMA_VERSION:
+            raise ValueError(
+                f"{path}: artifact schema v{d['artifact_schema_version']} is "
+                f"newer than this toolflow (v{ARTIFACT_SCHEMA_VERSION})")
+        obs = {**_DEFAULT_OBS, **(d.get("obs") or {})}
+        if {k: obs[k] for k in _DEFAULT_OBS} != _DEFAULT_OBS:
+            raise NotImplementedError(
+                f"{path}: telemetry (obs={d['obs']}) is not ported yet: "
+                f"Compiled.trace, metrics and serve wait for ROADMAP.md, "
+                f"Queue 1, item 5")
+        kernel_mode = d["kernel_mode"]
+        if kernel_mode == "pallas":
+            kernel_mode = ("cuda" if torch.device(torch_device).type == "cuda"
+                           else "auto")
+        if kernel_mode not in KERNEL_MODES:
+            raise ValueError(f"{path}: unknown kernel_mode {kernel_mode!r}")
+        plan = (ExecutionPlan.from_json(json.dumps(d["plan"]))
+                if d.get("plan") is not None else None)
+        model = (Graph.from_json_dict(d["graph"]) if d.get("graph")
+                 else d["model"])
+        spec = CompileSpec(
+            model=model, device=d["device"], strategy="manual-plan",
+            mode=d["mode"], kernel_mode=kernel_mode,
+            microbatches=d["microbatches"], seed=d["seed"],
+            placement=d.get("placement", "auto"), plan=plan,
+            channel=(ChannelConfig.from_dict(d["channel"])
+                     if d.get("channel") else None),
+            torch_device=torch_device)
+        return compile(spec)

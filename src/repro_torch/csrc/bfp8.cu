@@ -30,16 +30,10 @@ __global__ void bfp8_quant_kernel(const float* __restrict__ x,
                                   int8_t* __restrict__ exp, int64_t warps) {
   int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
   if (warp >= warps) return;  // whole warps leave together
-  int64_t i = warp * smof::kBfp8Block + (threadIdx.x & 31);
-  float v = x[i];  // warp w holds the flat values [32w, 32w + 32)
-  float amax = fabsf(v);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = smof::bfp8_amax_step(amax,
-                                __shfl_xor_sync(0xffffffffu, amax, off));
-  int e = smof::bfp8_exponent(amax);
-  man[i] = smof::bfp8_mantissa(v, smof::bfp8_scale(e));
-  if ((threadIdx.x & 31) == 0) exp[warp] = static_cast<int8_t>(e);
+  int lane = threadIdx.x & 31;
+  // warp w holds the flat values [32w, 32w + 32)
+  smof::bfp8_encode_warp(x[warp * smof::kBfp8Block + lane],
+                         man + warp * smof::kBfp8Block, exp + warp, lane);
 }
 
 __global__ void bfp8_dequant_kernel(const char4* __restrict__ man,
@@ -50,10 +44,10 @@ __global__ void bfp8_dequant_kernel(const char4* __restrict__ man,
   if (i >= n4) return;
   int64_t flat = i * 4;
   int64_t row = flat / c, col = flat - row * c;
-  float s = smof::bfp8_scale(exp[row * (c / smof::kBfp8Block) +
-                                 col / smof::kBfp8Block]);
+  int8_t e = exp[row * (c / smof::kBfp8Block) + col / smof::kBfp8Block];
   char4 m = man[i];
-  y[i] = make_float4(m.x * s, m.y * s, m.z * s, m.w * s);
+  y[i] = make_float4(smof::bfp8_decode(m.x, e), smof::bfp8_decode(m.y, e),
+                     smof::bfp8_decode(m.z, e), smof::bfp8_decode(m.w, e));
 }
 
 }  // namespace

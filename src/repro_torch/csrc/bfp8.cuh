@@ -10,7 +10,8 @@
 //         approximate log2;
 //   man = clip(rint(x / 2^(exp-6)), -127, 127), rint rounding half to
 //         even (never roundf, which rounds half away from zero); a NaN
-//         value's mantissa is 0.
+//         value's mantissa is 0;
+//   and back: x = man * 2^(exp-6), one IEEE multiply (bfp8_decode).
 // The build uses no --use_fast_math: subnormals are kept and the division
 // is IEEE, so x / 2^(exp-6) is exact.
 #pragma once
@@ -46,6 +47,61 @@ __device__ __forceinline__ int8_t bfp8_mantissa(float x, float scale) {
   if (isnan(q)) return 0;
   q = fminf(fmaxf(q, -127.0f), 127.0f);
   return static_cast<int8_t>(static_cast<int>(q));
+}
+
+// The payload of one 32-channel block held by a warp: lane l holds channel
+// 32*b + l of the block's value v (0 in the channels past c, as the spill's
+// channel padding quantises zeros).  The block's amax is a butterfly of
+// __shfl_xor_sync, lane l writes man_block[l] and lane 0 the exponent.
+// Every lane of the warp must call it.
+__device__ __forceinline__ void bfp8_encode_warp(float v, int8_t* man_block,
+                                                 int8_t* exp_at, int lane) {
+  float amax = fabsf(v);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = bfp8_amax_step(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  int e = bfp8_exponent(amax);
+  man_block[lane] = bfp8_mantissa(v, bfp8_scale(e));
+  if (lane == 0) *exp_at = static_cast<int8_t>(e);
+}
+
+// One payload element back to f32, man * 2^(exp-6): the standalone
+// bfp8_dequant kernel and every fused ingress decode call this, so fused and
+// unfused decodes give the same bits.  __fmul_rn keeps nvcc from contracting
+// the product into an FMA with the caller's next addition (a pool's sum).
+__device__ __forceinline__ float bfp8_decode(int8_t man, int8_t exp) {
+  return __fmul_rn(static_cast<float>(man), bfp8_scale(exp));
+}
+
+// A kernel's (rows, c) input: an f32 stripe (x, row stride c) or, with
+// kDecode, its BFP8 spill payload (man (rows, nb * 32), exp (rows, nb),
+// nb = ceil(c / 32)) decoded on load.  Only channels below c are read, so
+// the payload's padding channels never enter the op.
+template <bool kDecode>
+struct Stripe {
+  const float* x;
+  const int8_t* man;
+  const int8_t* exp;
+  int64_t c, nb;
+
+  __device__ __forceinline__ float at(int64_t row, int64_t ch) const {
+    if constexpr (kDecode)
+      return bfp8_decode(man[row * nb * kBfp8Block + ch],
+                         exp[row * nb + ch / kBfp8Block]);
+    else
+      return x[row * c + ch];
+  }
+};
+
+inline Stripe<false> f32_stripe(const void* x, int64_t c) {
+  return {static_cast<const float*>(x), nullptr, nullptr, c, 0};
+}
+
+inline Stripe<true> payload_stripe(const void* man, const void* exp,
+                                   int64_t c) {
+  return {nullptr, static_cast<const int8_t*>(man),
+          static_cast<const int8_t*>(exp), c,
+          (c + kBfp8Block - 1) / kBfp8Block};
 }
 
 }  // namespace smof

@@ -33,6 +33,18 @@
 // 0.21 GFLOP, bound by bytes (4.4 us at 3.35 TB/s); at the 3-stage plan's
 // conv_12, (12800, 384) @ (384, 128), 28.1 MB for 1.26 GFLOP, bound by
 // operations (18.8 us at 67 TFLOP/s f32).
+//
+// conv2d_decode and conv2d_decode_encode replace _conv_dec_kernel and
+// _conv_dec_enc_kernel (same file): the input edge arrives as its BFP8
+// spill payload (row stride ceil(k / 32) * 32 bytes, one exponent per 32
+// columns), and the A tile is staged from it, each value decoded on load
+// with bfp8_decode (bfp8.cuh), the standalone decode's arithmetic; only the
+// first k decoded columns enter the product.  kDecode is a second template
+// parameter over the same product loop, so y is bit for bit the plain
+// kernel's y on the bfp8_dequant kernel's output.  The decode reads 1 +
+// 1/32 bytes per input value where the plain kernel reads 4.  On X3D-M's
+// hand-cut plans K runs from 3 (the stem, whose input edge is evicted) to
+// 384 and m from 1 (the squeeze-excitation convs) to 262144.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -45,11 +57,12 @@ constexpr int BM = 128, BN = 32, BK = 16, THREADS = 256;
 
 static_assert(BN == smof::kBfp8Block, "one tile column block = one block");
 
-// kEncode: also write the payload man (m, nb * 32) and exp (m, nb), with
-// nb = gridDim.y = ceil(n / 32).
-template <bool kEncode>
+// x: the (m, k) input, or with kDecode its BFP8 payload decoded as the A
+// tile is staged.  kEncode: also write the payload man (m, nb * 32) and exp
+// (m, nb), with nb = gridDim.y = ceil(n / 32).
+template <bool kDecode, bool kEncode>
 __global__ void __launch_bounds__(THREADS)
-conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
+conv2d_kernel(smof::Stripe<kDecode> x, const float* __restrict__ w,
               float* __restrict__ y, int8_t* __restrict__ man,
               int8_t* __restrict__ exp, int64_t m, int64_t k, int64_t n) {
   __shared__ __align__(16) float xs[BK][BM + 4];
@@ -71,7 +84,7 @@ conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int j = 0; j < BM * BK / THREADS; ++j) {
       const int r = (tid >> 4) + j * (THREADS / BK);
       const int64_t gr = row0 + r, gk = k0 + xk;
-      xs[xk][r] = (gr < m && gk < k) ? x[gr * k + gk] : 0.0f;
+      xs[xk][r] = (gr < m && gk < k) ? x.at(gr, gk) : 0.0f;
     }
 #pragma unroll
     for (int j = 0; j < BK * BN / THREADS; ++j) {
@@ -145,26 +158,45 @@ dim3 conv2d_grid(int64_t m, int64_t n) {
   return dim3((unsigned)((m + BM - 1) / BM), (unsigned)((n + BN - 1) / BN));
 }
 
-}  // namespace
-
-extern "C" int smof_conv2d(const void* x, const void* w, void* y, int64_t m,
-                           int64_t k, int64_t n, void* stream) {
+template <bool kDecode, bool kEncode>
+int run_conv2d(smof::Stripe<kDecode> x, const void* w, void* y, void* man,
+               void* exp, int64_t m, int64_t n, void* stream) {
   if (m > 0 && n > 0)
-    conv2d_kernel<false><<<conv2d_grid(m, n), THREADS, 0,
-                           (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)w, (float*)y, nullptr, nullptr, m, k,
-        n);
+    conv2d_kernel<kDecode, kEncode><<<conv2d_grid(m, n), THREADS, 0,
+                                      (cudaStream_t)stream>>>(
+        x, (const float*)w, (float*)y, (int8_t*)man, (int8_t*)exp, m, x.c, n);
   return (int)cudaGetLastError();
 }
 
-// man: (m, ceil(n / 32) * 32) int8, exp: (m, ceil(n / 32)) int8.
+}  // namespace
+
+// x: (m, k); w: (k, n); y: (m, n).  With the encode, man: (m, ceil(n / 32)
+// * 32) and exp: (m, ceil(n / 32)); with the decode, xman: (m, ceil(k / 32)
+// * 32) and xexp: (m, ceil(k / 32)) in place of x.
+extern "C" int smof_conv2d(const void* x, const void* w, void* y, int64_t m,
+                           int64_t k, int64_t n, void* stream) {
+  return run_conv2d<false, false>(smof::f32_stripe(x, k), w, y, nullptr,
+                                  nullptr, m, n, stream);
+}
+
 extern "C" int smof_conv2d_encode(const void* x, const void* w, void* y,
                                   void* man, void* exp, int64_t m, int64_t k,
                                   int64_t n, void* stream) {
-  if (m > 0 && n > 0)
-    conv2d_kernel<true><<<conv2d_grid(m, n), THREADS, 0,
-                          (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)w, (float*)y, (int8_t*)man,
-        (int8_t*)exp, m, k, n);
-  return (int)cudaGetLastError();
+  return run_conv2d<false, true>(smof::f32_stripe(x, k), w, y, man, exp, m,
+                                 n, stream);
+}
+
+extern "C" int smof_conv2d_decode(const void* xman, const void* xexp,
+                                  const void* w, void* y, int64_t m,
+                                  int64_t k, int64_t n, void* stream) {
+  return run_conv2d<true, false>(smof::payload_stripe(xman, xexp, k), w, y,
+                                 nullptr, nullptr, m, n, stream);
+}
+
+extern "C" int smof_conv2d_decode_encode(const void* xman, const void* xexp,
+                                         const void* w, void* y, void* man,
+                                         void* exp, int64_t m, int64_t k,
+                                         int64_t n, void* stream) {
+  return run_conv2d<true, true>(smof::payload_stripe(xman, xexp, k), w, y,
+                                man, exp, m, n, stream);
 }

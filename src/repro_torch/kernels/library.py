@@ -50,8 +50,16 @@ SIGNATURES = {
     "conv2d": "pppiii",
     "dwconv": "pppiii",
     "bfp8_quant": "pppii",
-    "pool_encode": "ppppiii",
+    "pool_encode": "pppppiii",
     "conv2d_encode": "pppppiii",
+    "conv2d_decode": "ppppiii",
+    "conv2d_decode_encode": "ppppppiii",
+    "dwconv_encode": "pppppiii",
+    "dwconv_decode": "ppppiii",
+    "dwconv_decode_encode": "ppppppiii",
+    "pool_decode": "ppppiii",
+    "pool_decode_encode": "ppppppiii",
+    "act_relu_decode_encode": "pppppii",
 }
 
 #: Launches of each kernel since the last :func:`reset_launches`.
@@ -204,4 +212,4 @@ def not_ported(what: str):
     rather than run its plain version on the card."""
     raise NotImplementedError(
         f"{what} has no CUDA kernel yet (ROADMAP.md, Queue 2); on the card "
-        f"only the kernels of the staged main path are ported")
+        f"only the kernels that a path of the port runs are ported")

@@ -7,19 +7,14 @@ exp)`` in place of ``x`` asks for the BFP8 ingress decode inside the op,
 the result is ``(y, (man, exp))``, the payload's channel axis padded to
 the codec block with zeros, bitwise what ``bfp8_spill_encode`` gives).
 
-On the CPU every variant runs its plain version.  On a CUDA tensor a
-wrapper launches its kernel or raises:
-
-* ``conv2d`` plain and with the egress encode — kernels
-  (``csrc/conv2d.cu``);
-* ``dwconv`` plain — kernel (``csrc/dwconv.cu``);
-* ``pool`` plain and with the egress encode — kernels
-  (``csrc/streaming_conv.cu``);
-* ``act_relu`` plain and with the egress encode — kernels (same file);
-* the ingress-decode variants of all four ops, and the egress variant of
-  ``dwconv`` — no kernel yet (ROADMAP.md, Queue 2).  No plan of the main
-  paths (the paper-width UNet and X3D-M at depth 2, staged; the YOLO head,
-  pipelined) reaches them.
+On the CPU every variant runs its plain version (decode -> op -> encode).
+On a CUDA tensor a wrapper launches its kernel or raises.  Every variant of
+``conv2d`` (``csrc/conv2d.cu``), ``dwconv`` (``csrc/dwconv.cu``) and
+``pool`` (``csrc/streaming_conv.cu``) has a kernel, named ``<op>``,
+``<op>_encode``, ``<op>_decode`` and ``<op>_decode_encode``; ``act_relu``
+has ``act_relu``, ``act_relu_encode`` and ``act_relu_decode_encode`` (same
+file).  The decode alone of ``act_relu`` (``_act_dec_kernel``) has none
+yet (ROADMAP.md, Queue 2): no path of the port reaches it.
 """
 from __future__ import annotations
 
@@ -64,33 +59,69 @@ def _on_cuda(x, payload) -> bool:
     return (payload[0] if payload is not None else x).is_cuda
 
 
+def _kernel_name(op: str, payload, encode: bool) -> str:
+    return (op + ("_decode" if payload is not None else "")
+            + ("_encode" if encode else ""))
+
+
+def _check_codec_block(name: str, payload, encode: bool, block: int) -> None:
+    if (payload is not None or encode) and block != BFP8_BLOCK:
+        raise ValueError(f"the {name} codec kernels take block={BFP8_BLOCK}, "
+                         f"got {block}")
+
+
+def _payload_operands(name: str, payload, c: int) -> tuple:
+    """An ingress payload as a kernel reads it: int8 mantissas (m, ceil(c /
+    32) * 32) and exponents (m, ceil(c / 32)), contiguous on the card."""
+    man, exp = payload
+    check_operand(f"{name} man", man, torch.int8, align=1)
+    check_operand(f"{name} exp", exp, torch.int8, align=1)
+    nb = _round_up(c, BFP8_BLOCK) // BFP8_BLOCK
+    if man.shape[1] != nb * BFP8_BLOCK or tuple(exp.shape) != (man.shape[0],
+                                                               nb):
+        raise ValueError(f"{name}: payload shapes {tuple(man.shape)} / "
+                         f"{tuple(exp.shape)} do not carry {c} channels")
+    return man, exp
+
+
+def _empty_payload(m: int, c: int, device) -> tuple:
+    nb = _round_up(c, BFP8_BLOCK) // BFP8_BLOCK
+    return (torch.empty((m, nb * BFP8_BLOCK), dtype=torch.int8, device=device),
+            torch.empty((m, nb), dtype=torch.int8, device=device))
+
+
+def _input_operands(name: str, x, payload, c: int) -> tuple:
+    """The kernel's input tensors (``x``, or the payload's two) and its rows
+    m; refuses what the kernels cannot take."""
+    if payload is None:
+        check_operand(f"{name} x", x, torch.float32, align=4)
+        if x.dim() != 2 or x.shape[1] != c:
+            raise ValueError(f"{name}: x {tuple(x.shape)} does not have {c} "
+                             f"channels")
+        return (x,), x.shape[0]
+    src = _payload_operands(name, payload, c)
+    return src, src[0].shape[0]
+
+
 def conv2d(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
     """1x1 conv ``y = x @ w`` (conv/matmul/deconv), fusion flags as above."""
     if not _on_cuda(x, payload):
         return _plain(lambda h: ref.conv2d_ref(h, w), x, w.shape[0], payload,
                       encode, block)
-    if payload is not None:
-        not_ported(f"conv2d with the ingress decode ({_SRC} "
-                   f"_conv_dec_kernel, _conv_dec_enc_kernel)")
-    check_operand("conv2d x", x, torch.float32, align=4)
+    _check_codec_block("conv2d", payload, encode, block)
     check_operand("conv2d w", w, torch.float32, align=4)
-    (m, k), (k2, n) = x.shape, w.shape
-    if k != k2:
-        raise ValueError(f"conv2d shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    k, n = w.shape
     if n > 65535 * CONV2D_BN:
         raise ValueError(f"conv2d: n={n} exceeds the grid's columns")
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    src, m = _input_operands("conv2d", x, payload, k)
+    y = torch.empty((m, n), dtype=torch.float32, device=w.device)
+    name = _kernel_name("conv2d", payload, encode)
     if not encode:
-        launch("conv2d", x, w, y, m, k, n)
+        launch(name, *src, w, y, m, k, n)
         return y
-    if block != BFP8_BLOCK:
-        raise ValueError(f"the conv2d encode kernel takes block="
-                         f"{BFP8_BLOCK}, got {block}")
-    nb = _round_up(n, block) // block
-    man = torch.empty((m, nb * block), dtype=torch.int8, device=x.device)
-    exp = torch.empty((m, nb), dtype=torch.int8, device=x.device)
-    launch("conv2d_encode", x, w, y, man, exp, m, k, n)
-    return y, (man, exp)
+    out = _empty_payload(m, n, w.device)
+    launch(name, *src, w, y, *out, m, k, n)
+    return y, out
 
 
 def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
@@ -98,23 +129,26 @@ def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
     if not _on_cuda(x, payload):
         return _plain(lambda h: ref.dwconv_ref(h, w), x, w.shape[1], payload,
                       encode, block)
-    if payload is not None or encode:
-        not_ported(f"dwconv with the fused codec ({_SRC} _dwconv_dec_kernel, "
-                   f"_dwconv_enc_kernel, _dwconv_dec_enc_kernel)")
-    check_operand("dwconv x", x, torch.float32, align=4)
+    _check_codec_block("dwconv", payload, encode, block)
     check_operand("dwconv w", w, torch.float32, align=4)
-    (m, c), (taps, c2) = x.shape, w.shape
-    if c != c2 or taps < 1:
-        raise ValueError(f"dwconv shapes {tuple(x.shape)}, {tuple(w.shape)}")
-    y = torch.empty_like(x)
-    launch("dwconv", x, w, y, m, c, taps)
-    return y
+    taps, c = w.shape
+    if taps < 1:
+        raise ValueError(f"dwconv: w {tuple(w.shape)} has no taps")
+    src, m = _input_operands("dwconv", x, payload, c)
+    y = torch.empty((m, c), dtype=torch.float32, device=w.device)
+    name = _kernel_name("dwconv", payload, encode)
+    if not encode:
+        launch(name, *src, w, y, m, c, taps)
+        return y
+    out = _empty_payload(m, c, w.device)
+    launch(name, *src, w, y, *out, m, c, taps)
+    return y, out
 
 
 def pool_scratch_size(m_out: int, k: int, c: int) -> int:
-    """f32 values of partial sums the pool kernel needs: none for the
+    """f32 values of partial sums the pool kernels need: none for the
     serial path (k <= POOL_SERIAL_MAX_K) or a single tree pass, else one
-    buffer per tree pass, ping-ponged (``smof_pool`` in
+    buffer per tree pass, ping-ponged (``run_pool`` in
     ``csrc/streaming_conv.cu`` lays them out the same way)."""
     chunks = -(-k // POOL_CHUNK)
     if k <= POOL_SERIAL_MAX_K or chunks == 1:
@@ -124,59 +158,57 @@ def pool_scratch_size(m_out: int, k: int, c: int) -> int:
 
 def pool(x, m_out: int, *, c: int | None = None, payload=None, encode=False,
          block: int = BFP8_BLOCK):
-    """Mean over k = m / m_out consecutive rows (m -> m_out)."""
+    """Mean over k = m / m_out consecutive rows (m -> m_out); with
+    ``payload``, ``c`` names the channels it carries."""
     if not _on_cuda(x, payload):
         return _plain(lambda h: ref.pool_ref(h, m_out), x, c, payload,
                       encode, block)
-    if payload is not None:
-        not_ported(f"pool with the ingress decode ({_SRC} _pool_dec_kernel, "
-                   f"_pool_dec_enc_kernel)")
-    check_operand("pool x", x, torch.float32, align=4)
-    m, c = x.shape
+    _check_codec_block("pool", payload, encode, block)
+    if payload is None:
+        c = x.shape[1]
+    elif c is None:
+        raise ValueError("pool with the ingress decode needs c")
+    src, m = _input_operands("pool", x, payload, c)
     if m_out <= 0 or m % m_out:
         raise ValueError(f"pool needs m_out | m, got {m} -> {m_out}")
     k = m // m_out
-    y = torch.empty((m_out, c), dtype=torch.float32, device=x.device)
-    if encode:
-        if block != BFP8_BLOCK:
-            raise ValueError(f"the pool encode kernel takes block="
-                             f"{BFP8_BLOCK}, got {block}")
-        nb = _round_up(c, block) // block
-        man = torch.empty((m_out, nb * block), dtype=torch.int8,
-                          device=x.device)
-        exp = torch.empty((m_out, nb), dtype=torch.int8, device=x.device)
-        launch("pool_encode", x, y, man, exp, m_out, k, c)
-        return y, (man, exp)
+    device = src[0].device
+    y = torch.empty((m_out, c), dtype=torch.float32, device=device)
     scratch = torch.empty(pool_scratch_size(m_out, k, c), dtype=torch.float32,
-                          device=x.device)
-    launch("pool", x, y, scratch, m_out, k, c)
-    return y
+                          device=device)
+    name = _kernel_name("pool", payload, encode)
+    if not encode:
+        launch(name, *src, y, scratch, m_out, k, c)
+        return y
+    out = _empty_payload(m_out, c, device)
+    launch(name, *src, y, *out, scratch, m_out, k, c)
+    return y, out
 
 
 def act_relu(x, *, c: int | None = None, payload=None, encode=False,
              block: int = BFP8_BLOCK):
-    """relu, with the egress encode fused when ``encode=True``."""
+    """relu, with the codec fused as above (the decode only with the
+    encode, on the card)."""
     if not _on_cuda(x, payload):
         return _plain(ref.act_relu_ref, x, c, payload, encode, block)
-    if payload is not None:
-        not_ported(f"act_relu with ingress decode ({_SRC} _act_dec_kernel, "
-                   f"_act_dec_enc_kernel)")
-    m, c = x.shape
+    if payload is not None and not encode:
+        not_ported(f"act_relu with the ingress decode alone ({_SRC} "
+                   f"_act_dec_kernel)")
+    if payload is None:
+        c = x.shape[1]
+    elif c is None:
+        raise ValueError("act_relu with the ingress decode needs c")
     if not encode:
         check_operand("act_relu x", x, torch.float32)
         y = torch.empty_like(x)
-        launch("act_relu", x, y, m * c)
+        launch("act_relu", x, y, x.numel())
         return y
-    if block != BFP8_BLOCK:
-        raise ValueError(f"the act_relu encode kernel takes block="
-                         f"{BFP8_BLOCK}, got {block}")
-    check_operand("act_relu x", x, torch.float32, align=4)
-    y = torch.empty_like(x)
-    nb = _round_up(c, block) // block
-    man = torch.empty((m, nb * block), dtype=torch.int8, device=x.device)
-    exp = torch.empty((m, nb), dtype=torch.int8, device=x.device)
-    launch("act_relu_encode", x, y, man, exp, m, c)
-    return y, (man, exp)
+    _check_codec_block("act_relu", payload, encode, block)
+    src, m = _input_operands("act_relu", x, payload, c)
+    y = torch.empty((m, c), dtype=torch.float32, device=src[0].device)
+    out = _empty_payload(m, c, src[0].device)
+    launch(_kernel_name("act_relu", payload, encode), *src, y, *out, m, c)
+    return y, out
 
 
 __all__ = ["conv2d", "dwconv", "pool", "act_relu"]

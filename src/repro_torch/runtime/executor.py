@@ -477,6 +477,9 @@ def run_vertices(g: Graph, an: PlanAnalysis, params: dict,
         y, pay = apply_vertex_fused(v, ins, params, x, an,
                                     payload_in=payload_in,
                                     want_payload=lv.fuse_out)
+        # the inputs' restored and decoded copies end with the op, before
+        # the output's encode allocates
+        del ins, payload_in
         if lv.needs_payload:
             if pay is None:
                 pay = bfp8_spill_encode(y, use_kernels=True)
@@ -494,7 +497,7 @@ def run_vertices(g: Graph, an: PlanAnalysis, params: dict,
         values[name] = y
         # drop this step's references, so only `values`, `host` and
         # `payloads` hold data
-        del ins, payload_in, pay, y
+        del pay, y
         if not keep_all:
             for src in [e.src for e in g.in_edges(name)] + [name]:
                 if last_read.get(src, -1) <= i and src != an.topo[-1]:

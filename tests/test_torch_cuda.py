@@ -245,35 +245,136 @@ def test_x3d_frame_on_the_card(gen):
     assert float((y - yr).abs().max()) <= 2e-2 * float(yr.abs().max())
 
 
-def _payload(m, c):
-    cq = -(-c // 32) * 32
-    return (torch.zeros(m, cq, dtype=torch.int8, device="cuda"),
-            torch.zeros(m, cq // 32, dtype=torch.int8, device="cuda"))
+def _codec(y):
+    """The codec's payload of y, its channels padded to the block."""
+    return bfp8_quant_values(
+        torch.nn.functional.pad(y, (0, (-y.shape[1]) % 32)), block=32)
 
 
-@pytest.mark.parametrize("variant", ["conv2d ingress", "conv2d both",
-                                     "dwconv ingress", "dwconv egress",
-                                     "pool ingress", "act_relu ingress"])
+def _codec_payload(gen, m, c):
+    """The payload of a random (m, c) stripe, with random bytes in its
+    padding channels: kernels and plain versions read only the first c."""
+    man, exp = _codec(torch.randn(m, c, generator=gen, device="cuda") * 2)
+    if c % 32:
+        man[:, c:] = torch.randint(-127, 128, (m, man.shape[1] - c),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int8)
+    return man, exp
+
+
+def _split(got, encode):
+    return got if encode else (got, None)
+
+
+def _assert_payload(got, want):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,k,n", [(262144, 3, 24), (77, 40, 130),
+                                   (1, 384, 32), (4099, 24, 48)])
+@pytest.mark.parametrize("encode", [False, True])
+def test_conv2d_decode_variants(gen, m, k, n, encode):
+    """y is the conv2d kernel's on the decode kernel's output bit for bit,
+    the payload the codec's of that y, and y within 2e-4 of the plain
+    version."""
+    pay = _codec_payload(gen, m, k)
+    w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+    y, ypay = _split(SC.conv2d(None, w, payload=pay, encode=encode), encode)
+    xd = bfp8_dequant(*pay)[:, :k].contiguous()
+    assert torch.equal(_bits(y), _bits(SC.conv2d(xd, w)))
+    if encode:
+        _assert_payload(ypay, _codec(y))
+    torch.testing.assert_close(y, ref.conv2d_ref(xd, w), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("m,c,taps", [(1, 24, 3), (77, 40, 3),
+                                      (4099, 48, 3), (300, 3, 5)])
+@pytest.mark.parametrize("variant", ["encode", "decode", "decode_encode"])
+def test_dwconv_codec_variants_bit_exact(gen, m, c, taps, variant):
+    """y and payload bit for bit the plain decode -> dwconv -> encode, at
+    c = 48 too, where a warp of the plain kernel spans two rows."""
+    dec, enc = "decode" in variant, variant.endswith("encode")
+    pay = _codec_payload(gen, m, c) if dec else None
+    x = None if dec else torch.randn(m, c, generator=gen, device="cuda")
+    w = torch.randn(taps, c, generator=gen, device="cuda")
+    got = _split(SC.dwconv(x, w, payload=pay, encode=enc), enc)
+    want = _split(SC._plain(lambda h: ref.dwconv_ref(h, w), x, c, pay, enc,
+                            32), enc)
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    if enc:
+        _assert_payload(got[1], want[1])
+
+
+@pytest.mark.parametrize("m_out,k,c", [(128, 2, 40), (1, 262144, 48),
+                                       (1, 8198, 24), (3, 70001, 3)])
+@pytest.mark.parametrize("variant", ["encode", "decode", "decode_encode"])
+def test_pool_codec_variants(gen, m_out, k, c, variant):
+    """y is the pool kernel's on the (decoded) input bit for bit at every
+    k, the payload the codec's of that y; against the plain mean y is bit
+    for bit at k = 2 and within 1e-5 x mean |x| per channel above."""
+    dec, enc = "decode" in variant, variant.endswith("encode")
+    pay = _codec_payload(gen, m_out * k, c) if dec else None
+    x = (bfp8_dequant(*pay)[:, :c].contiguous() if dec else
+         torch.randn(m_out * k, c, generator=gen, device="cuda") + 0.1)
+    y, ypay = _split(SC.pool(None if dec else x, m_out, c=c, payload=pay,
+                             encode=enc), enc)
+    assert torch.equal(_bits(y), _bits(SC.pool(x, m_out)))
+    if enc:
+        _assert_payload(ypay, _codec(y))
+    want = ref.pool_ref(x, m_out)
+    if k == 2:
+        assert torch.equal(_bits(y), _bits(want))
+    else:
+        lim = 1e-5 * x.abs().reshape(m_out, k, c).mean(1)
+        assert bool(((y - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("m,c", [(77, 3), (300, 40), (4096, 96)])
+def test_act_relu_decode_encode_bit_exact(gen, m, c):
+    pay = _codec_payload(gen, m, c)
+    y, ypay = SC.act_relu(None, c=c, payload=pay, encode=True)
+    wy, wpay = SC._plain(ref.act_relu_ref, None, c, pay, True, 32)
+    assert torch.equal(_bits(y), _bits(wy))
+    _assert_payload(ypay, wpay)
+
+
+@pytest.mark.parametrize("variant", ["act_relu ingress"])
 def test_unported_kernel_raises_on_the_card(gen, variant):
-    """The fused codec variants no plan of the main path reaches have no
-    kernel: the card refuses rather than run their plain versions."""
-    x = torch.randn(64, 40, generator=gen, device="cuda")
-    op, kind = variant.split()
-    kw = {}
-    if kind in ("ingress", "both"):
-        kw["payload"] = _payload(64, 40)
-    if kind in ("egress", "both"):
-        kw["encode"] = True
-    xin = None if "payload" in kw else x
+    """The one fused codec variant no path reaches has no kernel: the card
+    refuses rather than run its plain version."""
+    op, _ = variant.split()
     with pytest.raises(NotImplementedError, match=op):
-        if op == "conv2d":
-            SC.conv2d(xin, x[:40, :24].contiguous(), **kw)
-        elif op == "dwconv":
-            SC.dwconv(xin, x[:3].contiguous(), **kw)
-        elif op == "pool":
-            SC.pool(xin, 32, c=40, **kw)
-        else:
-            SC.act_relu(xin, c=40, **kw)
+        SC.act_relu(None, c=40, payload=_codec_payload(gen, 64, 40))
+
+
+@pytest.mark.parametrize("thresh", [512.0, 64.0, 0.0])
+def test_hand_cut_x3d_from_an_artifact_on_the_card(gen, tmp_path, thresh):
+    """The small X3D under a hand-cut one-stage plan, compiled on the CPU,
+    saved, and loaded on the card: it runs through the codec kernels and
+    stays within tolerance of reference mode."""
+    import repro_torch
+    from repro_torch.core import hand_cut_plan
+    g = build_x3d_exec(positions=64, cin=3, widths=(24, 48), expansion=2,
+                       depth=2)
+    saved = repro_torch.compile(repro_torch.CompileSpec(
+        model=g, strategy="manual-plan", torch_device="cpu",
+        plan=hand_cut_plan(g, 1, depth_thresh=thresh)))
+    main = repro_torch.Compiled.load(saved.save(tmp_path / "x3d.smof.json"))
+    refc = repro_torch.compile(repro_torch.CompileSpec(
+        model=main.graph, strategy="manual-plan", plan=main.plan,
+        kernel_mode="reference"))
+    refc.executor.params = main.executor.params
+    x = torch.randn(main.input_shape(), generator=gen, device="cuda")
+    reset_launches()
+    y = main.run(x)
+    counts = launches()
+    yr = refc.run(x)
+    torch.cuda.synchronize()
+    fused = {k: n for k, n in counts.items() if "decode" in k or k in (
+        "conv2d_encode", "dwconv_encode")}
+    assert sum(fused.values()) > 0
+    assert float((y - yr).abs().max()) <= 2e-2 * float(yr.abs().max())
 
 
 def test_pipelined_stream_on_the_card(gen):

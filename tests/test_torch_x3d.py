@@ -37,6 +37,7 @@ from repro.runtime.executor import lower_plan as jlower_plan  # noqa: E402
 import repro_torch                                          # noqa: E402
 from repro_torch.core import DSEConfig as TDSEConfig        # noqa: E402
 from repro_torch.core import builders as tbuilders          # noqa: E402
+from repro_torch.core import hand_cut_plan                  # noqa: E402
 from repro_torch.core.dse import run_dse as trun_dse        # noqa: E402
 from repro_torch.core.plan import plan_from_dse as tplan_from_dse  # noqa: E402
 from repro_torch.core.resources import Device as TDevice    # noqa: E402
@@ -79,31 +80,32 @@ def _rand(seed, *shape, scale=1.0):
 def launch_table(g, plan) -> dict[str, int]:
     """Launches per frame of each kernel on the kernel route, read from the
     lowering (``analyze_plan`` / ``_lower_vertex``) without running it:
-    ``plain_dot`` is the ``torch.matmul`` of a fragmented layer whose K pads
-    to 128 or less."""
+    a vertex that decodes its input edge or encodes its output inside its
+    own launch counts under ``<kernel>_decode``, ``<kernel>_encode`` or
+    ``<kernel>_decode_encode``; ``plain_dot`` is the ``torch.matmul`` of a
+    fragmented layer whose K pads to 128 or less."""
     an = tex.analyze_plan(g, plan, use_kernels=True)
     counts = collections.Counter()
     for name in an.topo:
         v, lv = g.vertex(name), tex._lower_vertex(g, name, an)
-        assert lv.fuse_in is None
+        fused = (("_decode" if lv.fuse_in else "")
+                 + ("_encode" if lv.fuse_out else ""))
         counts["bfp8_dequant"] += sum(
-            (e.src, name) in an.bfp8_edges for e in g.in_edges(name))
+            (e.src, name) in an.bfp8_edges and (e.src, name) != lv.fuse_in
+            for e in g.in_edges(name))
         if lv.needs_payload and not lv.fuse_out:
             counts["bfp8_quant"] += 1
         if v.kind in tex.WEIGHT_KINDS:
-            assert not lv.fuse_out
             if an.frac[name] == 1.0:
-                counts["conv2d"] += 1
+                counts["conv2d" + fused] += 1
             else:
+                assert not fused
                 counts["streamed_matmul" if v.meta["exec"]["cin"] > 128
                        else "plain_dot"] += 1
-        elif v.kind == "dwconv":
-            assert not lv.fuse_out
-            counts["dwconv"] += 1
+        elif v.kind in ("dwconv", "pool"):
+            counts[v.kind + fused] += 1
         elif v.kind == "act":
-            counts["act_relu_encode" if lv.fuse_out else "act_relu"] += 1
-        elif v.kind == "pool":
-            counts["pool_encode" if lv.fuse_out else "pool"] += 1
+            counts["act_relu" + fused] += 1
         else:
             assert v.kind in ("input", "add", "mul", "concat", "output")
     return dict(counts)
@@ -223,6 +225,48 @@ def test_x3d_m_launches_nine_kernels(x3d_m_plans):
                       and an.out_shape[n][0] == 1)
     assert global_k == [32768, 65536, 131072, 262144]
     assert an.out_shape[an.topo[-1]] == (32768, 32)
+
+
+# X3D-M at its published stage widths under three hand-cut one-stage plans:
+# every edge deeper than 4096, 96 and 0 words BFP8-evicted, nothing
+# fragmented (chip_smoke.py's x3d-evict-deep, -mid and -all, which it runs
+# from a saved artifact)
+HAND_CUT = {
+    4096.0: ({"conv2d": 23, "conv2d_encode": 3, "dwconv": 5,
+              "dwconv_encode": 4, "pool": 9, "pool_encode": 1,
+              "act_relu": 12, "act_relu_encode": 1, "bfp8_quant": 1,
+              "bfp8_dequant": 10}, 10, 96_239_616),
+    96.0: ({"conv2d": 18, "conv2d_decode": 5, "conv2d_decode_encode": 3,
+            "dwconv": 1, "dwconv_decode": 4, "dwconv_decode_encode": 4,
+            "pool": 5, "pool_encode": 1, "pool_decode": 4, "act_relu": 4,
+            "act_relu_encode": 9, "bfp8_quant": 11, "bfp8_dequant": 11},
+           31, 337_379_328),
+    0.0: ({"conv2d_decode_encode": 26, "dwconv_decode_encode": 9,
+           "pool_decode_encode": 10, "act_relu_decode_encode": 13,
+           "bfp8_quant": 11, "bfp8_dequant": 21}, 79, 659_621_622),
+}
+
+
+@pytest.mark.parametrize("thresh", sorted(HAND_CUT, reverse=True))
+def test_x3d_m_hand_cut_launch_tables(thresh):
+    """The launch table, BFP8 edge count and payload bytes each way per
+    frame that chip_smoke.py holds each hand-cut plan to; the SE global
+    pools decode and encode in one launch at k up to 262144 only when
+    every stream is evicted."""
+    g = tbuilders.build_x3d_exec(**X3D_M)
+    plan = hand_cut_plan(g, 1, depth_thresh=thresh)
+    table, edges, payload = HAND_CUT[thresh]
+    assert launch_table(g, plan) == table
+    an = tex.analyze_plan(g, plan, use_kernels=True)
+    assert len(an.bfp8_edges) == edges
+    assert sum(r.offchip_bits for r in an.spills) // 8 == payload
+    fused_k = sorted(an.out_shape[g.in_edges(n)[0].src][0]
+                     // an.out_shape[n][0] for n in an.topo
+                     if g.vertex(n).kind == "pool"
+                     and tex._lower_vertex(g, n, an).fuse_in)
+    assert fused_k == {4096.0: [], 96.0: [2] * 4,
+                       0.0: [2] * 6 + [32768, 65536, 131072,
+                                       262144]}[thresh]
 
 
 # =============================================================================
