@@ -27,7 +27,17 @@ and prints no result line):
    hand-cut 3-stage plan; seeded streams, with the launches counted from 0
    around every stream and held against ticks x the plan's table per tick,
    every microbatch held bit for bit against the staged executor on the
-   same plan, and within tolerance against reference mode;
+   same plan, and within tolerance against reference mode.
+   Served (``Compiled.serve`` -> ``GraphStreamServer``): the same YOLO
+   head on its DSE plan with an SLO attached; 20 seeded frames, one flush
+   (two full streams and one with 4 bubbles), ``resident_limit=4``; every
+   result bit for bit the staged executor's, the counters read back from
+   the Prometheus exposition, the launches of every stream held to the
+   table; one ``Compiled.trace`` (outputs, Chrome trace, ModelCheck); the
+   served frames/s, latency percentiles, SLO verdicts and idle share.
+   Fuzzed: the port's conformance fuzzer on the card (seed 0, 12 cases,
+   every case on the kernel route), zero violations, with the act
+   decode-alone launches held to the lowering's count;
 4. hold each kernel against its plain PyTorch version on the card, at every
    shape a path launched it with in phase 3 plus ragged shapes (c = 3, 24,
    40 for the codec variants, payloads with random padding bytes) and the
@@ -173,6 +183,23 @@ STREAM_PATHS = (
 )
 STREAMS = 2
 
+# the fuzz path: the port's conformance fuzzer on the card, seed 0, every
+# case on the kernel route (the generator's last draw, so no other draw
+# moves); its act decode-alone launches, counted from the lowering on the
+# CPU by tests/test_torch_fuzz.py (cases 0-6, 0-10, 0-11: 4 + 3 + 4 frames)
+FUZZ_SEED = 0
+FUZZ_CASES = 12
+FUZZ_P_PALLAS = 1.0
+FUZZ_ACT_DECODE_LAUNCHES = 11
+
+# the served path: the YOLO head's DSE stream behind GraphStreamServer
+SERVE_FRAMES = 20           # 2 full streams of 8 and one with 4 bubbles
+SERVE_RESIDENT = 4          # results kept on the card; the rest go to host
+SERVE_ROUNDS = 3            # timed flushes of SERVE_FRAMES, fresh server
+# the SLO the served path is scored against: submit -> result of 20 frames
+# queued at once, three streams deep
+SERVE_SLO = dict(p50_target_s=0.25, p99_target_s=0.5)
+
 TPU_SRC = {
     "streamed_matmul": "src/repro/kernels/streamed_matmul.py:31",
     "act_relu": "src/repro/kernels/streaming_conv.py:409",
@@ -192,6 +219,7 @@ TPU_SRC = {
     "pool_decode": "src/repro/kernels/streaming_conv.py:325",
     "pool_decode_encode": "src/repro/kernels/streaming_conv.py:339",
     "act_relu_decode_encode": "src/repro/kernels/streaming_conv.py:426",
+    "act_relu_decode": "src/repro/kernels/streaming_conv.py:413",
 }
 CUDA_SRC = {
     "streamed_matmul": "src/repro_torch/csrc/streamed_matmul.cu",
@@ -212,6 +240,7 @@ CUDA_SRC = {
     "pool_decode": "src/repro_torch/csrc/streaming_conv.cu",
     "pool_decode_encode": "src/repro_torch/csrc/streaming_conv.cu",
     "act_relu_decode_encode": "src/repro_torch/csrc/streaming_conv.cu",
+    "act_relu_decode": "src/repro_torch/csrc/streaming_conv.cu",
 }
 
 
@@ -373,7 +402,7 @@ def kernel_phase(torch, timer, path_shapes):
             fn = functools.partial(SC.pool, m_out=m_out, c=c)
             unfused = lambda h: SC.pool(h, m_out)               # noqa: E731
         else:
-            body, unfused = ref.act_relu_ref, None
+            body, unfused = ref.act_relu_ref, SC.act_relu
             fn = functools.partial(SC.act_relu, c=c)
 
         def kern(x, pay):
@@ -387,27 +416,23 @@ def kernel_phase(torch, timer, path_shapes):
         """y bit for bit the un-fused kernel's on the input (the standalone
         decode kernel's output, for a decoding variant) and the payload bit
         for bit the codec's of that y; y within MATMUL_TOL (conv2d) or
-        POOL_TOL (pool, k > 2) of the plain version, else bit for bit (act
-        variants: y and payload bit for bit the plain version's)."""
+        POOL_TOL (pool, k > 2) of the plain version, else bit for bit."""
         kern, plain, unfused = variant(kind, c, m_out, w)
         enc = kind.endswith("_encode")
         got, want = kern(x, pay), plain(x, pay)
         (y, ypay), (py, ppay) = ((got, want) if enc
                                  else ((got, None), (want, None)))
-        if unfused is None:
-            exact(kind, y, py, nan_bits)
+        xin = x if pay is None else bfp8_dequant(*pay)[:, :c].contiguous()
+        exact(kind, y, unfused(xin), nan_bits)
+        if enc:
+            ppay = bfp8_quant_values(F.pad(y, (0, (-y.shape[1]) % 32)),
+                                     block=32)
+        if kind.startswith("conv2d"):
+            close(kind, y, py, MATMUL_TOL, MATMUL_TOL)
+        elif kind.startswith("pool") and xin.shape[0] // m_out > 2:
+            pool_close(kind, y, xin, m_out)
         else:
-            xin = x if pay is None else bfp8_dequant(*pay)[:, :c].contiguous()
-            exact(kind, y, unfused(xin), nan_bits)
-            if enc:
-                ppay = bfp8_quant_values(F.pad(y, (0, (-y.shape[1]) % 32)),
-                                         block=32)
-            if kind.startswith("conv2d"):
-                close(kind, y, py, MATMUL_TOL, MATMUL_TOL)
-            elif kind.startswith("pool") and xin.shape[0] // m_out > 2:
-                pool_close(kind, y, xin, m_out)
-            else:
-                exact(kind, y, py, nan_bits)
+            exact(kind, y, py, nan_bits)
         if enc:
             exact(kind, ypay[0], ppay[0])
             exact(kind, ypay[1], ppay[1])
@@ -586,6 +611,7 @@ def kernel_phase(torch, timer, path_shapes):
                                   payload_of(m, c) if dec else None, c,
                                   w=randn(taps, c))
             check_variant("act_relu_decode_encode", None, payload_of(m, c), c)
+            check_variant("act_relu_decode", None, payload_of(m, c), c)
             for m_out in (m, 1):
                 for kind in ("pool_decode", "pool_decode_encode",
                              "pool_encode"):
@@ -636,8 +662,10 @@ def kernel_phase(torch, timer, path_shapes):
     check_variant("pool_encode", x.repeat_interleave(2, dim=0), None, 64,
                   x.shape[0], nan_bits=False)
     # the same blocks as payloads: the decode of every exponent from the
-    # subnormals up, through relu's decode -> encode and a k = 2 pool's
+    # subnormals up, through relu's decode (alone and -> encode) and a k = 2
+    # pool's
     check_variant("act_relu_decode_encode", None, (man, exp), 64)
+    check_variant("act_relu_decode", None, (man, exp), 64)
     check_variant("pool_decode_encode", None,
                   (man.repeat_interleave(2, dim=0),
                    exp.repeat_interleave(2, dim=0)), 64, x.shape[0])
@@ -653,6 +681,17 @@ def kernel_phase(torch, timer, path_shapes):
     man, exp = randi8(-128, 127, 300, 96), randi8(-128, 127, 300, 3)
     exact("bfp8_dequant", bfp8_dequant(man, exp),
           ref.bfp8_dequant_ref(man, exp))
+    # the decode alone at the shape the YOLO head's acts run at, beside its
+    # siblings there (no path launches it at this shape)
+    check, kern, plain, _, nbytes, ops = case(
+        "act_relu_decode", ((25600, 64), (25600, 2), (25600, 64)))
+    check()
+    t_kern, t_plain = timer(kern), timer(plain)
+    b, bound_by = bound_ms(nbytes, ops)
+    rows["act_relu_decode"]["at_25600x64"] = dict(
+        ms=t_kern, plain_ms=t_plain, bound_ms=b, bound_by=bound_by)
+    print(f"  act_relu_decode at 25600 x 64: ms {t_kern:.4f} plain "
+          f"{t_plain:.4f} bound {b:.4f} ({bound_by})")
     torch.cuda.synchronize()
     reset_launches()        # the comparisons above are not path launches
     return rows
@@ -875,6 +914,188 @@ def run_stream_path(torch, repro_torch, library, path: StreamPath):
     return main, staged, refc, counts, shapes
 
 
+def serve_phase(torch, repro_torch, library, path: StreamPath):
+    """The served path: ``Compiled.serve`` over the YOLO head's DSE stream,
+    SERVE_FRAMES seeded frames in one flush with ``resident_limit``; every
+    result (resident or restored) bit for bit the staged executor's, the
+    counters read back from ``metrics_text()``, each stream's launches
+    counted from 0 and held to the table, one ``Compiled.trace``; then the
+    served frames/s, latency percentiles and SLO verdicts, and the idle
+    share of one served stream.  Returns (launches, launch shapes) summed
+    over the checked flush's streams."""
+    from repro_torch.core import builders
+    from repro_torch.obs.metrics import MetricsRegistry, parse_metrics_text
+    from repro_torch.obs.slo import SloConfig
+    from repro_torch.obs.trace import ObsConfig, validate_chrome_trace
+    from repro_torch.serving import GraphStreamServer
+    g = getattr(builders, path.builder)(**path.kwargs)
+    B = path.microbatches
+    t0 = time.perf_counter()
+    comp = repro_torch.compile(repro_torch.CompileSpec(
+        model=g, device="u200", strategy="dse", mode="pipelined",
+        microbatches=B, obs=ObsConfig(slo=SloConfig(**SERVE_SLO))))
+    staged = repro_torch.compile(repro_torch.CompileSpec(
+        model=g, device="u200", strategy="manual-plan", plan=comp.plan))
+    print(f"[serve] compile (DSE plan, pipelined B={B}, and staged): "
+          f"{time.perf_counter() - t0:.2f} s")
+    srv = comp.serve(resident_limit=SERVE_RESIDENT)
+    if srv.executor is not comp.executor or srv.slo is None:
+        raise AssertionError("[serve] serve() did not reuse the pipelined "
+                             "executor or attach the SLO")
+    m, c = comp.input_shape()
+    frames = [torch.randn((m, c), generator=torch.Generator().manual_seed(
+        200 + i)) for i in range(SERVE_FRAMES)]
+    inner = srv.executor
+    per_stream, shapes = [], collections.Counter()
+
+    def counted(xs):
+        torch.cuda.synchronize()
+        library.reset_launches()
+        ys = inner(xs)
+        torch.cuda.synchronize()
+        per_stream.append(library.launches())
+        shapes.update(library.launch_shapes())
+        return ys
+    srv.executor = counted
+    tickets = [srv.submit(f) for f in frames]
+    t0 = time.perf_counter()
+    srv.flush()
+    flush_s = time.perf_counter() - t0
+    srv.executor = inner
+    expected = dict.fromkeys(library.SIGNATURES, 0) | {
+        k: path.ticks * n for k, n in path.launches.items()}
+    n_streams = -(-SERVE_FRAMES // B)
+    if len(per_stream) != n_streams or any(n != expected
+                                           for n in per_stream):
+        raise AssertionError(f"[serve] launches per stream {per_stream}, "
+                             f"expected {n_streams} x {expected}")
+    resident = set(tickets[-SERVE_RESIDENT:])   # the oldest go to host
+    for t, f in zip(tickets, frames):
+        y = srv.result(t)
+        where = "resident" if t in resident else "restored"
+        if y.device.type != comp.executor.device.type or not bit_equal(
+                torch, y, staged.run(f.cuda())):
+            raise AssertionError(f"[serve] ticket {t} ({where}) is not the "
+                                 f"staged executor's result")
+    fams = parse_metrics_text(comp.metrics_text())
+
+    def total(fam):
+        return sum(fams[fam]["samples"].values())
+    got = {k: total(f"smof_server_{k}_total") for k in (
+        "frames_in", "frames_out", "streams", "padded_frames",
+        "evicted_results", "restored_results")}
+    n_pad = n_streams * B - SERVE_FRAMES
+    n_host = SERVE_FRAMES - SERVE_RESIDENT
+    want = dict(frames_in=SERVE_FRAMES, frames_out=SERVE_FRAMES,
+                streams=n_streams, padded_frames=n_pad,
+                evicted_results=n_host, restored_results=n_host)
+    if got != want:
+        raise AssertionError(f"[serve] counters {got}, expected {want}")
+    verdicts = fams["smof_server_slo_evaluations_total"]["samples"]
+    print(f"[serve] {SERVE_FRAMES} frames, one flush: every result bit-equal "
+          f"to the staged executor ({len(resident)} resident, {n_host} "
+          f"restored from the host); counters {got}; launches per stream "
+          f"{ {k: n for k, n in per_stream[0].items() if n} } x "
+          f"{n_streams}")
+    print(f"[serve] checked flush (launches counted around each stream): "
+          f"{flush_s * 1e3:.3f} ms host clock, submit -> flush delivery p50 "
+          f"{srv.latency.quantile(0.5) * 1e3:.3f} ms p99 "
+          f"{srv.latency.quantile(0.99) * 1e3:.3f} ms; SLO verdicts "
+          f"{verdicts}; last report "
+          f"{json.dumps(srv.slo.last_report.summary())}")
+
+    # -- one traced stream ---------------------------------------------------
+    xs = torch.stack(frames[:B]).cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        tpath = pathlib.Path(tmp) / "served.trace.json"
+        ys, mc = comp.trace(xs, path=tpath)
+        stats = validate_chrome_trace(json.loads(tpath.read_text()))
+    want_ys = comp.run(xs)
+    if not all(bit_equal(torch, ys[b], want_ys[b]) for b in range(B)):
+        raise AssertionError("[serve] traced outputs are not run's")
+    S = comp.plan.n_stages
+    if (not (mc.ticks_ok and mc.queues_ok)
+            or mc.ticks_measured != B + S - 1):
+        raise AssertionError(f"[serve] ModelCheck {mc.violations()}")
+    print(f"[serve] trace: outputs bit-equal to run; Chrome trace "
+          f"{ {k: v for k, v in stats.items() if k != 'tracks'} }; "
+          f"ModelCheck ticks {mc.ticks_measured} = B + S - 1, queues ok")
+
+    # -- served rate and latency on a fresh server -----------------------------
+    timed = GraphStreamServer(executor=comp.executor,
+                              metrics=MetricsRegistry(),
+                              resident_limit=SERVE_RESIDENT)
+    fps = []
+    for _ in range(SERVE_ROUNDS):
+        ts = [timed.submit(f) for f in frames]
+        t0 = time.perf_counter()
+        timed.flush()
+        for t in ts:
+            timed.result(t)
+        torch.cuda.synchronize()
+        fps.append(SERVE_FRAMES / (time.perf_counter() - t0))
+    print(f"[serve] {SERVE_ROUNDS} timed rounds of {SERVE_FRAMES} frames "
+          f"(flush and every claim, to a synchronize): "
+          f"{statistics.median(fps):.2f} frames/s median "
+          f"({', '.join(f'{f:.2f}' for f in fps)}), submit -> flush "
+          f"delivery p50 "
+          f"{timed.latency.quantile(0.5) * 1e3:.3f} ms p99 "
+          f"{timed.latency.quantile(0.99) * 1e3:.3f} ms (host clock, "
+          f"after the stream's results are on the card)")
+    one = frames[:B]
+
+    def one_stream():
+        ts = [timed.submit(f) for f in one]
+        timed.flush()
+        for t in ts:
+            timed.result(t)
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one_stream()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    profile_device(torch, "[serve] profile of one served stream (8 frames "
+                   "submitted, flushed, claimed)", one_stream,
+                   statistics.median(ms))
+    summed = collections.Counter()
+    for n in per_stream:
+        summed.update(n)
+    return dict(summed), dict(shapes)
+
+
+def fuzz_phase(torch, library):
+    """The fuzz path: the port's conformance fuzzer on the card through its
+    API, FUZZ_CASES cases of seed FUZZ_SEED with every case on the kernel
+    route; zero violations, and ``act_relu_decode`` launched exactly
+    FUZZ_ACT_DECODE_LAUNCHES times.  Returns (launches, launch shapes)
+    over the phase."""
+    from repro_torch.testing import GenConfig
+    from repro_torch.testing.fuzz import fuzz
+    torch.cuda.synchronize()
+    library.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        failures = fuzz(GenConfig(p_pallas=FUZZ_P_PALLAS), seed=FUZZ_SEED,
+                        budget=FUZZ_CASES, max_shrink_runs=6, out=tmp,
+                        torch_device="cuda")
+        # a shrunk repro, printed so that it can be replayed elsewhere
+        for repro in sorted(pathlib.Path(tmp).glob("*.json")):
+            print(f"[fuzz] repro {repro.name}: "
+                  f"{json.dumps(json.loads(repro.read_text()))}")
+    torch.cuda.synchronize()
+    counts, shapes = library.launches(), library.launch_shapes()
+    print(f"[fuzz] {FUZZ_CASES} cases in {time.perf_counter() - t0:.2f} s, "
+          f"{failures} violation(s); launches "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    if failures:
+        raise AssertionError(f"[fuzz] {failures} violation(s)")
+    if counts["act_relu_decode"] != FUZZ_ACT_DECODE_LAUNCHES:
+        raise AssertionError(f"[fuzz] act_relu_decode launched "
+                             f"{counts['act_relu_decode']} times, expected "
+                             f"{FUZZ_ACT_DECODE_LAUNCHES}")
+    return counts, shapes
+
+
 def profile_device(torch, label: str, fn, ms: float) -> None:
     """``fn`` once under ``torch.profiler``: the device-side events'
     busy time against ``ms``, the median unprofiled time of the same work
@@ -1032,9 +1253,18 @@ def main() -> int:
     runs = {p.name: run_path(torch, repro_torch, library, p) for p in PATHS}
     streams = {p.name: run_stream_path(torch, repro_torch, library, p)
                for p in STREAM_PATHS}
-    # launches and launch shapes per frame (staged) or per stream
+    t0 = time.perf_counter()
+    served = serve_phase(torch, repro_torch, library, STREAM_PATHS[0])
+    t1 = time.perf_counter()
+    fuzzed = fuzz_phase(torch, library)
+    print(f"served path {t1 - t0:.1f} s, fuzz path "
+          f"{time.perf_counter() - t1:.1f} s")
+    # launches and launch shapes per frame (staged), per stream
+    # (pipelined), per flush (served) or over the phase (fuzz)
     counts = {n: r[-2] for n, r in (runs | streams).items()}
     shapes = {n: r[-1] for n, r in (runs | streams).items()}
+    for name, (c, sh) in (("yolo-served", served), ("fuzz", fuzzed)):
+        counts[name], shapes[name] = c, sh
 
     # -- 4. kernels against their plain versions --------------------------------
     timer = Timer(torch)

@@ -20,6 +20,11 @@ runnable streaming design with the off-chip eviction decisions baked in:
     again = repro_torch.Compiled.load("unet.smof.json")   # on the card
     again.run(x)                           # bit-identical (seeded weights)
 
+    srv = stream.serve(resident_limit=4)   # batched streaming front end
+    t = srv.submit(frame); srv.flush(); y = srv.result(t)
+    ys, mc = stream.trace(xs, path="yolo.trace.json")   # Chrome trace
+    print(stream.metrics_text())           # Prometheus exposition
+
 The artifact is the reference package's (``ARTIFACT_KIND``, schema 1, the
 same keys), so each package loads the other's: see :meth:`Compiled.save`.
 
@@ -44,6 +49,9 @@ Spec knobs
 ``channel``      opt-in off-chip channel model (``repro_torch.memory``):
                  the pipelined report then carries the contended Eq. 5/6
                  bounds and the prefetch deadline accounting.
+``obs``          telemetry (:class:`~repro_torch.obs.trace.ObsConfig`): the
+                 trace path, the SLO targets a server scores against, the
+                 flight recorder.
 ``seed``         fixes the per-vertex weights.
 """
 from __future__ import annotations
@@ -61,6 +69,8 @@ from .core.graph import Graph
 from .core.plan import ExecutionPlan, PLAN_SCHEMA_VERSION, plan_from_dse
 from .core.resources import Device, get_device
 from .memory import ChannelConfig
+from .obs.metrics import MetricsRegistry
+from .obs.trace import ObsConfig, TraceRecorder
 from .runtime.executor import (KERNEL_MODES, LoweredPipeline, lower_plan,
                                reference_pipeline)
 from .runtime.streamer import (PLACEMENTS, StreamingExecutor,
@@ -77,16 +87,18 @@ ARTIFACT_SCHEMA_VERSION = 1
 # kernels' plain versions.
 _ARTIFACT_KERNEL_MODE = {"auto": "auto", "cuda": "pallas",
                          "reference": "reference"}
-# obs in an artifact: the reference's default observability config, which
-# asks for no telemetry.  The port has no telemetry yet, so it writes this
-# and refuses to load any other (ROADMAP.md, Queue 1, item 5).
-_DEFAULT_OBS = dict(enabled=False, trace_path=None, slo=None,
-                    flight_capacity=0, flight_path=None)
 
 # The default executable-path DSE configuration: eviction + fragmentation
 # friendly settings at 16-bit stream words (the reference package's).
 _DEFAULT_DSE = DSEConfig(batch=1, codecs=("none", "bfp8"), word_bits=16,
                          cut_kinds=("pool", "conv"))
+
+
+def kernel_route(torch_device) -> str:
+    """The port's ``kernel_mode`` for the reference's ``"pallas"`` (the
+    kernel route) on ``torch_device``: ``"cuda"`` on the card, ``"auto"``
+    on the CPU."""
+    return "cuda" if torch.device(torch_device).type == "cuda" else "auto"
 
 
 @dataclasses.dataclass
@@ -112,6 +124,7 @@ class CompileSpec:
     #: policy + optional gbps override; pipelined lowerings then carry the
     #: contended Eq. 5/6 bounds and prefetch deadline accounting.
     channel: ChannelConfig | None = None
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
 
     def validate(self) -> None:
         if self.mode not in MODES:
@@ -213,12 +226,23 @@ def compile(spec: CompileSpec) -> "Compiled":
 
 @dataclasses.dataclass
 class Compiled:
-    """A runnable compiled design: executor + plan + provenance."""
+    """A runnable compiled design: executor + plan + provenance.
+
+    ``run`` executes, ``serve`` wraps the pipelined executor in a
+    :class:`~repro_torch.serving.GraphStreamServer`, ``trace`` runs once
+    with telemetry on, ``metrics`` / ``metrics_text`` read the artifact's
+    one metrics registry, and ``save`` / ``load`` round-trip the artifact.
+    """
     spec: CompileSpec
     graph: Graph
     device: str
     plan: ExecutionPlan | None
     executor: LoweredPipeline | StreamingExecutor
+    model_check: object = None       # obs.ModelCheck, set by trace()
+    recorder: object = None          # obs.TraceRecorder, set by trace()
+    # one scrape surface per artifact: trace() and serve() both feed it
+    registry: MetricsRegistry = dataclasses.field(
+        default_factory=MetricsRegistry)
 
     @property
     def model(self) -> str:
@@ -234,14 +258,18 @@ class Compiled:
             return self.plan.provenance["strategy"]
         return self.spec.strategy
 
+    def _on_device(self, x) -> torch.Tensor:
+        """A frame or stream (tensor or array) on the executor's device."""
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+        return x.to(self.executor.device)
+
     def run(self, x) -> torch.Tensor:
         """Staged / reference: one ``(m, c)`` frame (tensor or array) ->
         the flat ``(L,)`` output.  Pipelined: a ``(B, m, c)`` stream ->
         ``(B, L)``, or one ``(m, c)`` frame, broadcast through the stream
         (every slot computes the same frame) -> ``(L,)``."""
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
-        x = x.to(self.executor.device)
+        x = self._on_device(x)
         if self.mode == "pipelined" and x.dim() == 2:
             B = self.executor.microbatches
             return self.executor(x.expand((B,) + tuple(x.shape)))[0]
@@ -265,7 +293,128 @@ class Compiled:
         }
         if self.plan is not None:
             out["provenance"] = dict(self.plan.provenance)
+        if self.model_check is not None:
+            out["model_check"] = self.model_check.summary()
         return out
+
+    def metrics(self) -> dict:
+        """The artifact's metrics snapshot (``{sample_key: value}``).
+
+        Every traced run (:meth:`trace`) and every server built by
+        :meth:`serve` feeds the artifact's one
+        :class:`~repro_torch.obs.metrics.MetricsRegistry`, so this is the
+        whole design's scrape surface; :meth:`metrics_text` is the
+        Prometheus exposition of the same registry.
+        """
+        return self.registry.snapshot()
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of :meth:`metrics`."""
+        return self.registry.metrics_text()
+
+    # -- tracing --------------------------------------------------------------
+    def trace(self, x=None, *, path=None, recorder=None):
+        """Execute once with telemetry on; returns ``(outputs, ModelCheck)``.
+
+        Pipelined designs run tick by tick through
+        ``StreamingExecutor.run_traced`` — per-tick wall-clock spans, queue
+        counters, spill bytes, all into the artifact's registry too — and
+        yield a full :class:`~repro_torch.obs.modelcheck.ModelCheck`
+        (measured vs Eq. 5/6 latencies, Eq. 1 queue bounds), which later
+        :meth:`report` calls include.  Staged and reference designs record
+        one frame span plus spill counters and yield ``model_check=None``.
+
+        ``x=None`` makes a seeded input (numpy, from ``spec.seed``);
+        ``path`` (default: ``spec.obs.trace_path``) writes the Chrome
+        trace-event JSON.  With ``spec.obs.flight_capacity > 0`` the
+        default recorder is a bounded
+        :class:`~repro_torch.obs.flight.FlightRecorder` ring instead, which
+        dumps to ``spec.obs.flight_path`` if the run's ModelCheck comes
+        back violated.
+        """
+        if recorder is not None:
+            rec = recorder
+        elif self.spec.obs.flight_capacity > 0:
+            from .obs.flight import FlightRecorder
+            rec = FlightRecorder(self.spec.obs.flight_capacity,
+                                 path=self.spec.obs.flight_path)
+        else:
+            rec = TraceRecorder()
+        if x is None:
+            m, c = self.input_shape()
+            rng = np.random.default_rng(self.spec.seed)
+            x = rng.normal(size=(m, c)).astype(np.float32)
+        x = self._on_device(x)
+        mc = None
+        if self.mode == "pipelined":
+            if x.dim() == 2:
+                B = self.executor.microbatches
+                x = x.expand((B,) + tuple(x.shape))
+            y, mc = self.executor.run_traced(x, rec, metrics=self.registry)
+        else:
+            y = self.executor.run_traced(x, rec)
+        self.model_check = mc
+        self.recorder = rec
+        if (mc is not None and getattr(rec, "path", None) is not None
+                and hasattr(rec, "on_model_check")):
+            rec.on_model_check(mc)       # flight ring: dump on violation
+        path = path if path is not None else self.spec.obs.trace_path
+        if path is not None and rec.enabled:
+            rec.save(path)
+        return y, mc
+
+    # -- serving --------------------------------------------------------------
+    def serve(self, *, resident_limit: int = 0, **kw):
+        """Batched streaming front end around this design.
+
+        Reuses the pipelined executor when this artifact is already
+        pipelined and no overrides are given; otherwise re-lowers the same
+        plan pipelined with ``kw`` applied as :class:`CompileSpec`
+        overrides (e.g. ``microbatches=16``), with the same seed and so the
+        same weights.  Unless overridden, the stream depth follows the
+        current executor's.  ``resident_limit`` bounds the
+        flushed-but-unclaimed results kept on the device (the oldest go to
+        an exact host byte store).
+
+        The server shares this artifact's metrics registry.  When
+        ``spec.obs.slo`` is set, a rolling-window
+        :class:`~repro_torch.obs.slo.SloEvaluator` is attached — roofline
+        from the plan's calibrated provenance, spill bandwidth budget from
+        the device sheet's ``offchip_gbps`` — and, with
+        ``spec.obs.flight_capacity > 0``, an SLO breach dumps a
+        :class:`~repro_torch.obs.flight.FlightRecorder` ring to
+        ``spec.obs.flight_path``."""
+        from .serving.engine import GraphStreamServer
+        if self.mode != "pipelined" and self.plan is None:
+            raise ValueError(
+                'mode="reference" compiles are plan-free and cannot be '
+                'served; compile with mode="staged"/"pipelined" (any '
+                "strategy) to get a servable plan")
+        if self.mode == "pipelined" and not kw:
+            sx = self.executor
+        else:
+            kw.setdefault("microbatches",
+                          getattr(self.executor, "microbatches",
+                                  self.spec.microbatches))
+            sx = compile(dataclasses.replace(
+                self.spec, mode="pipelined", strategy="manual-plan",
+                plan=self.plan, **kw)).executor
+        srv = GraphStreamServer(executor=sx, metrics=self.registry,
+                                resident_limit=resident_limit)
+        if self.spec.obs.slo is not None:
+            try:
+                bw = _resolve_device(self.spec).offchip_gbps
+            except (KeyError, ValueError):
+                bw = None
+            evaluator = srv.enable_slo(self.spec.obs.slo, bw_gbps=bw)
+            if (self.spec.obs.flight_capacity > 0
+                    and self.spec.obs.flight_path is not None):
+                from .obs.flight import FlightRecorder
+                flight = FlightRecorder(self.spec.obs.flight_capacity,
+                                        path=self.spec.obs.flight_path)
+                evaluator.on_breach.append(flight.on_slo_report)
+                srv.flight = flight
+        return srv
 
     # -- persistence ----------------------------------------------------------
     def save(self, path) -> pathlib.Path:
@@ -293,7 +442,7 @@ class Compiled:
             "microbatches": B,
             "seed": self.spec.seed,
             "placement": self.spec.placement,
-            "obs": dict(_DEFAULT_OBS),
+            "obs": self.spec.obs.to_dict(),
             "channel": (self.spec.channel.to_dict()
                         if self.spec.channel is not None else None),
             "graph": self.graph.to_json_dict(),
@@ -322,16 +471,9 @@ class Compiled:
             raise ValueError(
                 f"{path}: artifact schema v{d['artifact_schema_version']} is "
                 f"newer than this toolflow (v{ARTIFACT_SCHEMA_VERSION})")
-        obs = {**_DEFAULT_OBS, **(d.get("obs") or {})}
-        if {k: obs[k] for k in _DEFAULT_OBS} != _DEFAULT_OBS:
-            raise NotImplementedError(
-                f"{path}: telemetry (obs={d['obs']}) is not ported yet: "
-                f"Compiled.trace, metrics and serve wait for ROADMAP.md, "
-                f"Queue 1, item 5")
         kernel_mode = d["kernel_mode"]
         if kernel_mode == "pallas":
-            kernel_mode = ("cuda" if torch.device(torch_device).type == "cuda"
-                           else "auto")
+            kernel_mode = kernel_route(torch_device)
         if kernel_mode not in KERNEL_MODES:
             raise ValueError(f"{path}: unknown kernel_mode {kernel_mode!r}")
         plan = (ExecutionPlan.from_json(json.dumps(d["plan"]))
@@ -345,5 +487,6 @@ class Compiled:
             placement=d.get("placement", "auto"), plan=plan,
             channel=(ChannelConfig.from_dict(d["channel"])
                      if d.get("channel") else None),
+            obs=ObsConfig.from_dict(d.get("obs") or {}),
             torch_device=torch_device)
         return compile(spec)

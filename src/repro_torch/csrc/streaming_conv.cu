@@ -1,8 +1,9 @@
 // act_relu and pool: the row-streaming elementwise and pooling kernels, with
 // the fused BFP8 boundary codec.
 //
-// act_relu replaces the TPU kernels _act_kernel, _act_enc_kernel and
-// _act_dec_enc_kernel (src/repro/kernels/streaming_conv.py, act_relu); pool
+// act_relu replaces the TPU kernels _act_kernel, _act_dec_kernel,
+// _act_enc_kernel and _act_dec_enc_kernel (src/repro/kernels/
+// streaming_conv.py, act_relu); pool
 // replaces _pool_kernel, _pool_dec_kernel, _pool_enc_kernel and
 // _pool_dec_enc_kernel (same file, pool).  On the H100 all of them are bound
 // by bytes: relu does one compare per 8 bytes moved, the egress encode adds a
@@ -12,6 +13,12 @@
 // stores, and at enough blocks in flight:
 //  * act_relu (plain): four values per thread, 16-byte loads and stores;
 //    the thread at the end of a ragged n takes the n % 4 left one by one;
+//  * act_relu with the ingress decode alone: four channels of a row per
+//    thread, one 4-byte load of mantissas (char4; the payload's rows are
+//    nb * 32 bytes, so every group of four lies inside the row and inside
+//    one 32-channel block, under one exponent) and one 16-byte store where
+//    c % 4 == 0; for other c the thread stores its channels below c one by
+//    one, so the payload's padding channels never reach y;
 //  * act_relu and pool (egress encode, and act_relu's decode -> relu ->
 //    encode): one warp per (row, 32-channel block).  Lane l owns channel
 //    32*b + l, the block's amax is a butterfly of __shfl_xor_sync, and the
@@ -63,6 +70,32 @@ __global__ void act_relu_kernel(const float* __restrict__ x,
         make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w));
   } else {
     for (; i < n; ++i) y[i] = relu(x[i]);
+  }
+}
+
+// Four channels 4q .. 4q + 3 of row r per thread, q < q4 = ceil(c / 4):
+// y[r, ch] = relu(man[r, ch] * 2^(exp[r, ch / 32] - 6)) for ch < c.
+__global__ void act_relu_decode_kernel(const int8_t* __restrict__ man,
+                                       const int8_t* __restrict__ exp,
+                                       float* __restrict__ y, int64_t m,
+                                       int64_t c, int64_t nb, int64_t q4) {
+  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= m * q4) return;
+  int64_t r = i / q4, ch = (i - r * q4) * 4;
+  const char4 mv =
+      *reinterpret_cast<const char4*>(man + r * nb * smof::kBfp8Block + ch);
+  const int8_t e = exp[r * nb + ch / smof::kBfp8Block];
+  const float v[4] = {relu(smof::bfp8_decode(mv.x, e)),
+                      relu(smof::bfp8_decode(mv.y, e)),
+                      relu(smof::bfp8_decode(mv.z, e)),
+                      relu(smof::bfp8_decode(mv.w, e))};
+  float* out = y + r * c + ch;
+  if ((c & 3) == 0) {
+    *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (ch + j < c) out[j] = v[j];
   }
 }
 
@@ -241,6 +274,19 @@ extern "C" int smof_act_relu(const void* x, void* y, int64_t n, void* stream) {
   if (n > 0)
     act_relu_kernel<<<grid_for((n + 3) / 4, 256), 256, 0,
                       (cudaStream_t)stream>>>((const float*)x, (float*)y, n);
+  return (int)cudaGetLastError();
+}
+
+// man: (m, nb * 32), 4-byte aligned; exp: (m, nb); y: (m, c);
+// nb = ceil(c / 32).
+extern "C" int smof_act_relu_decode(const void* man, const void* exp, void* y,
+                                    int64_t m, int64_t c, void* stream) {
+  const int64_t nb = (c + smof::kBfp8Block - 1) / smof::kBfp8Block;
+  const int64_t q4 = (c + 3) / 4;
+  if (m * q4 > 0)
+    act_relu_decode_kernel<<<grid_for(m * q4, 256), 256, 0,
+                             (cudaStream_t)stream>>>(
+        (const int8_t*)man, (const int8_t*)exp, (float*)y, m, c, nb, q4);
   return (int)cudaGetLastError();
 }
 

@@ -60,6 +60,7 @@ SIGNATURES = {
     "pool_decode": "ppppiii",
     "pool_decode_encode": "ppppppiii",
     "act_relu_decode_encode": "pppppii",
+    "act_relu_decode": "pppii",
 }
 
 #: Launches of each kernel since the last :func:`reset_launches`.
@@ -206,10 +207,3 @@ def launch(name: str, *args) -> None:
     LAUNCH_SHAPES[(name, tuple(tuple(a.shape) for a in args
                                if isinstance(a, torch.Tensor)))] += 1
 
-
-def not_ported(what: str):
-    """A CUDA tensor reached a TPU kernel that has no CUDA kernel yet: raise
-    rather than run its plain version on the card."""
-    raise NotImplementedError(
-        f"{what} has no CUDA kernel yet (ROADMAP.md, Queue 2); on the card "
-        f"only the kernels that a path of the port runs are ported")

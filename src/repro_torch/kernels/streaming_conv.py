@@ -10,11 +10,14 @@ the codec block with zeros, bitwise what ``bfp8_spill_encode`` gives).
 On the CPU every variant runs its plain version (decode -> op -> encode).
 On a CUDA tensor a wrapper launches its kernel or raises.  Every variant of
 ``conv2d`` (``csrc/conv2d.cu``), ``dwconv`` (``csrc/dwconv.cu``) and
-``pool`` (``csrc/streaming_conv.cu``) has a kernel, named ``<op>``,
-``<op>_encode``, ``<op>_decode`` and ``<op>_decode_encode``; ``act_relu``
-has ``act_relu``, ``act_relu_encode`` and ``act_relu_decode_encode`` (same
-file).  The decode alone of ``act_relu`` (``_act_dec_kernel``) has none
-yet (ROADMAP.md, Queue 2): no path of the port reaches it.
+``pool`` and ``act_relu`` (``csrc/streaming_conv.cu``) has a kernel,
+named ``<op>``, ``<op>_encode``, ``<op>_decode`` and
+``<op>_decode_encode``.
+
+Every fused egress payload, on both devices, leaves through
+:func:`_egress_payload`, so a test can plant a fault in the fused encode
+alone (``repro_torch.testing.oracle.inject_fault``) while the standalone
+codec stays correct.
 """
 from __future__ import annotations
 
@@ -23,14 +26,19 @@ import torch.nn.functional as F
 
 from . import ref
 from .bfp8 import bfp8_dequant_values, bfp8_quant_values
-from .library import check_operand, launch, not_ported
+from .library import check_operand, launch
 from .streamed_matmul import _round_up
 
 BFP8_BLOCK = 32
 CONV2D_BN = 32            # the conv2d kernel's output columns per block
 POOL_SERIAL_MAX_K = 8     # pool sums up to this many rows in one thread
 POOL_CHUNK = 256          # rows per block of a pool tree pass
-_SRC = "src/repro/kernels/streaming_conv.py"
+
+
+def _egress_payload(man: torch.Tensor, exp: torch.Tensor) -> tuple:
+    """The identity on a fused egress payload: the one point every fused
+    encode's ``(mantissas, exponents)`` passes."""
+    return man, exp
 
 
 def _decode(payload, c: int, block: int) -> torch.Tensor:
@@ -52,7 +60,7 @@ def _plain(op, x, c, payload, encode, block):
     if payload is not None:
         x = _decode(payload, c, block)
     y = op(x)
-    return (y, _encode(y, block)) if encode else y
+    return (y, _egress_payload(*_encode(y, block))) if encode else y
 
 
 def _on_cuda(x, payload) -> bool:
@@ -121,7 +129,7 @@ def conv2d(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
         return y
     out = _empty_payload(m, n, w.device)
     launch(name, *src, w, y, *out, m, k, n)
-    return y, out
+    return y, _egress_payload(*out)
 
 
 def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
@@ -142,7 +150,7 @@ def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
         return y
     out = _empty_payload(m, c, w.device)
     launch(name, *src, w, y, *out, m, c, taps)
-    return y, out
+    return y, _egress_payload(*out)
 
 
 def pool_scratch_size(m_out: int, k: int, c: int) -> int:
@@ -182,23 +190,20 @@ def pool(x, m_out: int, *, c: int | None = None, payload=None, encode=False,
         return y
     out = _empty_payload(m_out, c, device)
     launch(name, *src, y, *out, scratch, m_out, k, c)
-    return y, out
+    return y, _egress_payload(*out)
 
 
 def act_relu(x, *, c: int | None = None, payload=None, encode=False,
              block: int = BFP8_BLOCK):
-    """relu, with the codec fused as above (the decode only with the
-    encode, on the card)."""
+    """relu, with the codec fused as above; with ``payload``, ``c`` names
+    the channels it carries."""
     if not _on_cuda(x, payload):
         return _plain(ref.act_relu_ref, x, c, payload, encode, block)
-    if payload is not None and not encode:
-        not_ported(f"act_relu with the ingress decode alone ({_SRC} "
-                   f"_act_dec_kernel)")
     if payload is None:
         c = x.shape[1]
     elif c is None:
         raise ValueError("act_relu with the ingress decode needs c")
-    if not encode:
+    if payload is None and not encode:
         check_operand("act_relu x", x, torch.float32)
         y = torch.empty_like(x)
         launch("act_relu", x, y, x.numel())
@@ -206,9 +211,15 @@ def act_relu(x, *, c: int | None = None, payload=None, encode=False,
     _check_codec_block("act_relu", payload, encode, block)
     src, m = _input_operands("act_relu", x, payload, c)
     y = torch.empty((m, c), dtype=torch.float32, device=src[0].device)
+    name = _kernel_name("act_relu", payload, encode)
+    if not encode:
+        # the decode alone reads the mantissas four bytes at a time
+        check_operand("act_relu man", src[0], torch.int8, align=4)
+        launch(name, *src, y, m, c)
+        return y
     out = _empty_payload(m, c, src[0].device)
-    launch(_kernel_name("act_relu", payload, encode), *src, y, *out, m, c)
-    return y, out
+    launch(name, *src, y, *out, m, c)
+    return y, _egress_payload(*out)
 
 
 __all__ = ["conv2d", "dwconv", "pool", "act_relu"]

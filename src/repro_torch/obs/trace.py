@@ -26,6 +26,7 @@ the streamer, the serving engine, and the autotuner.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import json
 import pathlib
 import time
@@ -33,9 +34,46 @@ from contextlib import contextmanager
 from typing import Any, Callable
 
 __all__ = [
-    "NullRecorder", "TraceRecorder", "NULL_RECORDER",
+    "ObsConfig", "NullRecorder", "TraceRecorder", "NULL_RECORDER",
     "LatencyHistogram", "validate_chrome_trace",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """The observability knobs a :class:`~repro_torch.api.CompileSpec`
+    carries.
+
+    ``enabled`` is the reference's switch for tracing inside its autotune
+    loop, kept so the artifact round-trips (the port has no autotuner
+    yet); ``trace_path`` is where ``Compiled.trace`` writes the Chrome
+    trace JSON when set.  ``slo``
+    carries the :class:`~repro_torch.obs.slo.SloConfig` targets the serving
+    layer scores against; ``flight_capacity`` > 0 makes ``Compiled.trace``
+    record into a bounded :class:`~repro_torch.obs.flight.FlightRecorder`
+    ring that dumps to ``flight_path`` on a ModelCheck violation.  The
+    config round-trips through ``Compiled.save``/``load`` (see
+    ``to_dict``/``from_dict``), in the reference package's keys.
+    """
+    enabled: bool = False
+    trace_path: str | None = None
+    slo: Any = None                   # repro_torch.obs.slo.SloConfig | None
+    flight_capacity: int = 0          # > 0 enables the flight recorder
+    flight_path: str | None = None
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)  # SloConfig nests as a plain dict
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ObsConfig":
+        # forward-compat: a newer writer's extra keys are ignored, same
+        # policy as ExecutionPlan.from_json
+        known = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in known}
+        if isinstance(kw.get("slo"), dict):
+            from .slo import SloConfig
+            kw["slo"] = SloConfig.from_dict(kw["slo"])
+        return cls(**kw)
 
 
 class NullRecorder:

@@ -532,6 +532,30 @@ class LoweredPipeline:
         the *first* vertex where two executors' numerics part."""
         return self.values_fn(self.params, x)
 
+    def run_traced(self, x: torch.Tensor, recorder=None) -> torch.Tensor:
+        """Run one frame, recording a ``frame`` span plus spill counters.
+
+        The staged executor has no tick structure, so the telemetry is one
+        host-side wall-clock span per frame and one ``emit_spill_counters``
+        round-trip per :class:`SpillRecord` (every evicted edge crosses
+        off-chip exactly once per frame here).  On a CUDA device the span
+        closes after a synchronise, so it measures the frame and not its
+        launches.  With ``recorder=None`` this is exactly ``self(x)``.
+        """
+        from ..obs.stream import emit_spill_counters
+        from ..obs.trace import NULL_RECORDER
+
+        rec = NULL_RECORDER if recorder is None else recorder
+        with rec.span("frame", track="host",
+                      args={"graph": self.graph_name}):
+            y = self.fn(self.params, x)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        ts = rec.now()
+        for r in self.report.spills:
+            emit_spill_counters(rec, r, ts=ts)
+        return y
+
 
 def resolve_kernel_mode(kernel_mode: str, device: torch.device) -> bool:
     """Whether the pipeline takes the kernel route (``use_kernels``)."""

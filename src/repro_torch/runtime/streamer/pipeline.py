@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
 from typing import Callable
 
@@ -300,7 +301,8 @@ class StreamingExecutor:
 
     def run_traced(self, xs: torch.Tensor, recorder=NULL_RECORDER, *,
                    measure_stages: bool = True, repeats: int = 3,
-                   warmup: int = 1) -> tuple[torch.Tensor, ModelCheck]:
+                   warmup: int = 1,
+                   metrics=None) -> tuple[torch.Tensor, ModelCheck]:
         """Run the pipeline tick by tick, narrating each tick into a trace.
 
         Same tick body as ``fn`` — the only change is that the host waits
@@ -314,15 +316,18 @@ class StreamingExecutor:
         :func:`measured_stage_latencies`) against Eq. 5/6 and Eq. 1.
 
         Instrumentation is host-side only, at tick boundaries: with the
-        default ``NULL_RECORDER`` every hook is a no-op.  (The reference's
-        ``metrics`` registry comes with the port's serving front end.)
+        default ``NULL_RECORDER`` every hook is a no-op.  With a ``metrics``
+        :class:`~repro_torch.obs.metrics.MetricsRegistry`, the run also
+        feeds the scrape surface: per-phase ``smof_stream_ticks_total``,
+        ``smof_stream_frames_total``, per-edge queue occupancy and stall
+        metrics (through the rings) and ``smof_spill_bytes_total``.
         """
         if tuple(xs.shape) != self._stream_shape:
             raise ValueError(
                 f"microbatch stream shape {tuple(xs.shape)} does not match "
                 f"the lowered {self._stream_shape} for {self.graph_name!r}")
         sched = self.schedule
-        queues = Q.build_queues(self._queue_specs, recorder)
+        queues = Q.build_queues(self._queue_specs, recorder, metrics)
         tracer = StreamTracer(recorder, sched, queues=queues,
                               stage_of=self._stage_of,
                               spill_records=self.report.spills)
@@ -356,6 +361,8 @@ class StreamingExecutor:
                     recorder.instant(f"contention:stage{j}", ts,
                                      track=f"stage{j}")
         acct = tracer.finish()
+        if metrics is not None:
+            self._record_metrics(metrics, acct)
 
         stage_s = None
         if measure_stages:
@@ -371,6 +378,52 @@ class StreamingExecutor:
                           steady_measured=acct["phase_ticks"]["steady"],
                           steady_tick_seconds=steady_s)
         return torch.stack(ys[self.n_stages - 1:]), mc
+
+    def _record_metrics(self, metrics, acct: dict) -> None:
+        """Feed one traced run's accounting into a MetricsRegistry.
+
+        Queue occupancy/stall metrics update live inside the rings (they
+        were built with the registry); what is left to record at run end
+        are tick counts and the per-edge off-chip spill volume — each
+        spill record moves ``offchip_bits`` once per microbatch, the same
+        totals ``StreamTracer`` accumulates on the recorder.
+        """
+        ticks = metrics.counter(
+            "smof_stream_ticks_total",
+            "pipeline ticks walked, by 1F1B phase", ("phase",))
+        for phase, n in acct["phase_ticks"].items():
+            if n:
+                ticks.labels(phase=phase).inc(n)
+        metrics.counter(
+            "smof_stream_frames_total",
+            "microbatch frames retired by the pipelined streamer",
+        ).inc(self.microbatches)
+        spill = metrics.counter(
+            "smof_spill_bytes_total",
+            "off-chip spill traffic in bytes, by edge and direction",
+            ("edge", "direction"))
+        for r in self.report.spills:
+            nbytes = (r.offchip_bits // 8) * self.microbatches
+            if nbytes:
+                edge = f"{r.src}->{r.dst}"
+                spill.labels(edge=edge, direction="evict").inc(nbytes)
+                spill.labels(edge=edge, direction="restore").inc(nbytes)
+        mem = self.report.memory
+        if mem is not None:
+            stall = metrics.counter(
+                "smof_contention_stall_cycles_total",
+                "model cycles compute stalls on the shared off-chip "
+                "channel, by stage", ("stage",))
+            for j, c in enumerate(mem.stall_cycles):
+                # one frame's stall per microbatch the stage processed
+                if c > 0 and math.isfinite(c):
+                    stall.labels(stage=str(j)).inc(c * self.microbatches)
+            misses = mem.prefetch.deadline_misses
+            if misses:
+                metrics.counter(
+                    "smof_prefetch_deadline_misses_total",
+                    "weight prefetch slots that missed their stage-start "
+                    "deadline").inc(misses)
 
 
 def stage_weight_bits(g: Graph, an: PlanAnalysis) -> dict[int, int]:

@@ -19,7 +19,7 @@ port on the CPU, held against the reference package.
 * ``Compiled.save`` / ``load``: the artifact is the reference's (kind,
   schema, keys, graph and plan JSON), each package loads the other's, a
   reload runs bit for bit as the compile that saved it, and an artifact
-  that asks for telemetry is refused;
+  that asks for telemetry keeps its ``obs`` both ways;
 * the executor's memory order: a vertex's decoded inputs are gone before
   its output's standalone encode runs.
 """
@@ -308,14 +308,21 @@ def test_reference_loads_the_port_artifact(evict_all, tmp_path, kernel_mode):
 @pytest.mark.parametrize("obs", [dict(enabled=True),
                                  dict(trace_path="frame.trace.json"),
                                  dict(flight_capacity=64)])
-def test_artifact_asking_for_telemetry_is_refused(evict_all, tmp_path, obs):
+def test_artifact_with_telemetry_loads_and_round_trips(evict_all, tmp_path,
+                                                       obs):
+    """An artifact whose ``obs`` asks for telemetry loads into the port
+    with that ``obs``, and the reference loads the port's re-save of it."""
     _, tc = evict_all
     path = tc.save(tmp_path / "port.smof.json")
     d = json.loads(path.read_text())
     d["obs"].update(obs)
     path.write_text(json.dumps(d))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        repro_torch.Compiled.load(path, torch_device="cpu")
+    back = repro_torch.Compiled.load(path, torch_device="cpu")
+    assert back.spec.obs.to_dict() == d["obs"]
+    again = back.save(tmp_path / "again.smof.json")
+    assert json.loads(again.read_text())["obs"] == d["obs"]
+    ref = repro.Compiled.load(again)
+    assert ref.spec.obs.to_dict() == d["obs"]
 
 
 def test_cuda_kernel_mode_is_saved_as_the_reference_kernel_route(

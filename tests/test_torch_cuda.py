@@ -339,13 +339,18 @@ def test_act_relu_decode_encode_bit_exact(gen, m, c):
     _assert_payload(ypay, wpay)
 
 
-@pytest.mark.parametrize("variant", ["act_relu ingress"])
-def test_unported_kernel_raises_on_the_card(gen, variant):
-    """The one fused codec variant no path reaches has no kernel: the card
-    refuses rather than run its plain version."""
-    op, _ = variant.split()
-    with pytest.raises(NotImplementedError, match=op):
-        SC.act_relu(None, c=40, payload=_codec_payload(gen, 64, 40))
+@pytest.mark.parametrize("m,c", [(77, 3), (4099, 24), (300, 40),
+                                 (25600, 64), (4096, 96)])
+def test_act_relu_decode_bit_exact(gen, m, c):
+    """The decode alone, at ragged widths (random padding bytes in the
+    payload) and at the YOLO head's: bit for bit its plain version and
+    relu on the standalone decode kernel's output."""
+    pay = _codec_payload(gen, m, c)
+    y = SC.act_relu(None, c=c, payload=pay)
+    want = SC._plain(ref.act_relu_ref, None, c, pay, False, 32)
+    assert torch.equal(_bits(y), _bits(want))
+    dec = bfp8_dequant(*pay)[:, :c].contiguous()
+    assert torch.equal(_bits(y), _bits(SC.act_relu(dec)))
 
 
 @pytest.mark.parametrize("thresh", [512.0, 64.0, 0.0])

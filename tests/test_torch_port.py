@@ -103,11 +103,14 @@ def test_import_leaves_jax_and_repro_out():
 
 
 @pytest.mark.parametrize("module", ["repro_torch.runtime.streamer",
-                                    "repro_torch.memory", "repro_torch.obs"])
+                                    "repro_torch.memory", "repro_torch.obs",
+                                    "repro_torch.serving",
+                                    "repro_torch.testing"])
 def test_streamer_packages_leave_jax_and_repro_out(module):
-    """The pipelined streamer and its copies of the reference's memory and
-    obs layers, each imported first in a fresh interpreter, with its
-    submodules."""
+    """The pipelined streamer, its copies of the reference's memory and obs
+    layers (the metrics registry, SLO scoring and flight recorder among
+    them), the serving front end and the conformance harness, each
+    imported first in a fresh interpreter, with its submodules."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         mod = importlib.import_module({module!r})
