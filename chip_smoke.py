@@ -37,15 +37,28 @@ and prints no result line):
    served frames/s, latency percentiles, SLO verdicts and idle share.
    Fuzzed: the port's conformance fuzzer on the card (seed 0, 12 cases,
    every case on the kernel route), zero violations, with the act
-   decode-alone launches held to the lowering's count;
+   decode-alone launches held to the lowering's count.
+   LM served (``ServingEngine``): yi-6b at its published widths (about
+   6.06 B parameters in f32, from a seeded generator on the card), 8
+   seeded prompts of 64-512 tokens through 4 slots, 32 new tokens each,
+   finished requests' KV pages BFP8-evicted to the host past 2 parked on
+   the card; the counters from the Prometheus exposition against the
+   schedule worked out beforehand, 32 x 8 flash_attention launches and no
+   other kernel, every prefill against ``kernel_mode="reference"`` on the
+   same weights (first-token logits, KV pages, then the token streams), a
+   parked restore bit for bit and a host restore within the BFP8 bound;
+   prefill and decode times, decode against its byte bound, one profiled
+   prefill and decode step, peak memory; then the model is released;
 4. hold each kernel against its plain PyTorch version on the card, at every
    shape a path launched it with in phase 3 plus ragged shapes (c = 3, 24,
    40 for the codec variants, payloads with random padding bytes) and the
    edge cases (the BFP8 exponent's, 'same'-padding rows and +-0.0 for
    dwconv); a codec variant's y also bit for bit the un-fused kernel's on
-   the decode kernel's output, its payload the codec's of that y; and time
-   kernel, plain version and one PyTorch call as a yardstick (CUDA events,
-   L2 flushed before every launch);
+   the decode kernel's output, its payload the codec's of that y;
+   flash_attention at the LM path's shapes and at ragged S with head widths
+   16-128, causal and not; every tile choice of every tiled kernel bit for
+   bit its untiled launch; and time kernel, plain version and one PyTorch
+   call as a yardstick (CUDA events, L2 flushed before every launch);
 5. each staged path's frame time and peak device memory, with its spills
    evicted as planned and with the same plan's spills kept on the device,
    its frame time in reference mode, and the device's busy time and idle
@@ -61,6 +74,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import json
 import math
 import pathlib
@@ -200,6 +214,27 @@ SERVE_ROUNDS = 3            # timed flushes of SERVE_FRAMES, fresh server
 # queued at once, three streams deep
 SERVE_SLO = dict(p50_target_s=0.25, p99_target_s=0.5)
 
+# the LM serving path: yi-6b at its published widths (32 layers, d_model
+# 4096, 32 heads, 4 KV heads of 128, d_ff 11008, vocab 64000; f32, about
+# 6.06 B parameters) behind ServingEngine, weights from a seeded generator
+# on the card; 8 seeded prompts of 64-512 tokens (the first 512) through 4
+# slots, 32 new tokens each, no EOS; finished requests' KV pages BFP8-evicted
+# to the host past 2 parked on the card
+LM_ARCH = "yi-6b"
+LM_SEED = 0
+LM_REQUESTS = 8
+LM_SLOTS = 4
+LM_S_MAX = 1024
+LM_MAX_NEW = 32
+LM_RESIDENT = 2
+# kernel route vs plain route on first-token logits and KV pages: f32 sums
+# in another order through 32 layers
+LM_TOL = 2e-4              # of max |plain|
+# a host-evicted page back through the BFP8 codec, relative to max |page|
+# (the reference's test_bfp8_page_roundtrip_numerics)
+LM_BFP8_REL = 0.05
+FLASH_TOL = 2e-4           # rtol = atol, the reference's for its kernel
+
 TPU_SRC = {
     "streamed_matmul": "src/repro/kernels/streamed_matmul.py:31",
     "act_relu": "src/repro/kernels/streaming_conv.py:409",
@@ -220,6 +255,7 @@ TPU_SRC = {
     "pool_decode_encode": "src/repro/kernels/streaming_conv.py:339",
     "act_relu_decode_encode": "src/repro/kernels/streaming_conv.py:426",
     "act_relu_decode": "src/repro/kernels/streaming_conv.py:413",
+    "flash_attention": "src/repro/kernels/flash_attention.py:24",
 }
 CUDA_SRC = {
     "streamed_matmul": "src/repro_torch/csrc/streamed_matmul.cu",
@@ -241,6 +277,7 @@ CUDA_SRC = {
     "pool_decode_encode": "src/repro_torch/csrc/streaming_conv.cu",
     "act_relu_decode_encode": "src/repro_torch/csrc/streaming_conv.cu",
     "act_relu_decode": "src/repro_torch/csrc/streaming_conv.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 
 
@@ -299,8 +336,10 @@ def kernel_phase(torch, timer, path_shapes):
     from repro_torch.kernels.bfp8 import (bfp8_dequant, bfp8_quant,
                                           bfp8_quant_values)
     from repro_torch.kernels.library import reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.streamed_matmul import (streamed_matmul,
                                                      streamed_matmul_padded)
+    from repro_torch.models.attention import chunked_attention
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -477,6 +516,21 @@ def kernel_phase(torch, timer, path_shapes):
         or None, bytes moved, operations)."""
         if kind.endswith("_encode") or "_decode" in kind:
             return codec_case(kind, arg_shapes)
+        if kind == "flash_attention":
+            B, S, H, D = arg_shapes[0]
+            q, k, v = (randn(B, S, H, D) for _ in range(3))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            kern = lambda: flash_attention(q, k, v)            # noqa: E731
+            plain = lambda: chunked_attention(                 # noqa: E731
+                q, k, v, causal=True, chunk=min(1024, S), skip_masked=True)
+            # bytes: q, k, v read and o written once; operations: the two
+            # products over the causal triangle, diagonal included
+            return ((lambda: close(kind, kern(), plain(), FLASH_TOL,
+                                   FLASH_TOL)),
+                    kern, plain,
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True),
+                    16.0 * B * S * H * D, 2.0 * B * H * D * S * (S + 1))
         if kind == "streamed_matmul":
             (m, k), (ks, n), (kd, _), _ = arg_shapes
             x = randn(m, k)
@@ -620,6 +674,17 @@ def kernel_phase(torch, timer, path_shapes):
                     check_variant(kind, None if dec else randn(k * m_out, c),
                                   payload_of(k * m_out, c) if dec else None,
                                   c, m_out)
+    # flash attention at ragged S (tail rows and key tiles masked inside the
+    # kernel), every head width it is built for, causal and not
+    for B, S, H, D in ((2, 1, 3, 16), (1, 63, 4, 64), (2, 300, 2, 16),
+                       (1, 77, 32, 128), (1, 1000, 2, 64), (1, 130, 2, 32)):
+        q, k, v = (randn(B, S, H, D) for _ in range(3))
+        for causal in (True, False):
+            close("flash_attention", flash_attention(q, k, v, causal=causal),
+                  chunked_attention(q, k, v, causal=causal,
+                                    chunk=min(1024, S), skip_masked=causal),
+                  FLASH_TOL, FLASH_TOL)
+    tile_checks(torch, SC, randn, exact)
     specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -1.0],
                             device="cuda")
     exact("act_relu", SC.act_relu(specials[None, :]),
@@ -695,6 +760,61 @@ def kernel_phase(torch, timer, path_shapes):
     torch.cuda.synchronize()
     reset_launches()        # the comparisons above are not path launches
     return rows
+
+
+def tile_checks(torch, SC, randn, exact) -> None:
+    """The plan's tiles as launch parameters: for each tiled kernel variant
+    at ragged shapes (m = 300, c = 40, conv n = 130; pool k = 2 and the
+    tree passes at k = 300), every TILE_BM_CHOICES x TILE_BC_CHOICES value
+    it takes gives output bit for bit that of tile 0."""
+    from repro_torch.kernels.bfp8 import bfp8_quant_values
+    F = torch.nn.functional
+    n_cases = 0
+    for op in ("conv2d", "dwconv", "pool", "pool_tree", "act_relu"):
+        for dec in (False, True):
+            for enc in (False, True):
+                m, c = (900 if op == "pool_tree" else 300), 40
+                x = randn(m, c) * 3
+                pay = (bfp8_quant_values(F.pad(x, (0, (-c) % 32)), block=32)
+                       if dec else None)
+                kw = dict(payload=pay, encode=enc)
+                xin = None if dec else x
+                bcs = (0,)
+                if op == "conv2d":
+                    w = randn(c, 130) / math.sqrt(c)
+                    bcs = SC.TILE_BC_CHOICES
+
+                    def fn(bm, bc, w=w, kw=kw, xin=xin):
+                        return SC.conv2d(xin, w, bm=bm, bc=bc, **kw)
+                elif op == "dwconv":
+                    w = randn(3, c)
+
+                    def fn(bm, bc, w=w, kw=kw, xin=xin):
+                        return SC.dwconv(xin, w, bm=bm, **kw)
+                elif op.startswith("pool"):
+                    m_out = 3 if op == "pool_tree" else m // 2
+
+                    def fn(bm, bc, m_out=m_out, kw=kw, xin=xin, c=c):
+                        return SC.pool(xin, m_out, c=c, bm=bm, **kw)
+                else:
+                    def fn(bm, bc, kw=kw, xin=xin, c=c):
+                        return SC.act_relu(xin, c=c, bm=bm, **kw)
+
+                def flat(out, enc=enc):
+                    return [out[0], *out[1]] if enc else [out]
+                name = (op.replace("pool_tree", "pool")
+                        + ("_decode" if dec else "")
+                        + ("_encode" if enc else ""))
+                want = flat(fn(0, 0))
+                for bm in SC.TILE_BM_CHOICES:
+                    for bc in bcs:
+                        for g, w_ in zip(flat(fn(bm, bc)), want):
+                            exact(name, g, w_)
+                        n_cases += 1
+    torch.cuda.synchronize()
+    print(f"  tiles: {n_cases} (kernel variant, bm, bc) cases bit for bit "
+          f"the untiled launch (bm in {SC.TILE_BM_CHOICES}, bc in "
+          f"{SC.TILE_BC_CHOICES} for conv2d)")
 
 
 def frame_stats(torch, comp, x) -> tuple[float, int]:
@@ -1096,6 +1216,230 @@ def fuzz_phase(torch, library):
     return counts, shapes
 
 
+def lm_schedule(lengths, slots: int, max_new: int, resident: int,
+                page_values: int, n_pages: int) -> dict:
+    """The engine's counters worked out beforehand from the schedule (every
+    request runs to ``max_new`` tokens; a prefill gives the first, each
+    lockstep step one more to every active slot) and the page shapes (raw
+    bytes count bf16 words, as the reference; compressed one int8 mantissa
+    a value and one exponent per 32), with the requests host-evicted and
+    left parked (retirement order, oldest spilled first)."""
+    queue, active, retired, steps = list(range(len(lengths))), {}, [], 0
+    while True:
+        for b in range(slots):
+            if b not in active and queue:
+                active[b] = [queue.pop(0), 1]
+        if not active:
+            break
+        steps += 1
+        for b in sorted(active):
+            active[b][1] += 1
+            if active[b][1] >= max_new:
+                retired.append(active.pop(b)[0])
+    host = retired[:max(len(retired) - resident, 0)]
+    return dict(prefills=len(lengths), decode_steps=steps,
+                generated_tokens=len(lengths) * (max_new - 1),
+                evicted_pages=len(host) * n_pages,
+                evicted_bytes_raw=len(host) * n_pages * page_values * 2,
+                evicted_bytes_compressed=len(host) * n_pages * (
+                    page_values + page_values // 32),
+                host=host, parked=retired[len(host):])
+
+
+def lm_serve_phase(torch, library):
+    """The LM serving path: ``ServingEngine`` on yi-6b at its published
+    widths on the card, the prefill attention through the flash_attention
+    kernel.  Checks the counters (read from ``metrics_text()``) against
+    the schedule, 32 x 8 flash launches and no other kernel, the kernel
+    route against the plain route (every prefill again in
+    ``kernel_mode="reference"`` on the same weights: first-token logits and
+    KV pages, then the whole token streams), a resident restore bit for bit
+    and a host restore within the BFP8 bound; then times prefill and
+    decode, profiles one of each and reads the peak memory.  Returns
+    (launches, launch shapes) of the served run."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params, param_count, project_logits
+    from repro_torch.models.model import decode_step
+    from repro_torch.obs.metrics import parse_metrics_text
+    from repro_torch.serving import ServingEngine
+    cfg = ARCHS[LM_ARCH]
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
+                         cfg)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    w_bytes = 4 * n_params
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters, f32 "
+          f"{w_bytes} bytes on the card, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(LM_SEED)
+    lengths = rng.integers(64, 513, LM_REQUESTS)
+    lengths[0] = 512
+    if sum(int(n) % 64 != 0 for n in lengths) < 2:
+        raise AssertionError(f"[lm] prompt lengths {lengths}: fewer than two "
+                             f"off the kernel's 64-row blocks")
+    prompts = [rng.integers(0, cfg.vocab, n) for n in lengths]
+    kw = dict(max_batch=LM_SLOTS, s_max=LM_S_MAX, device="cuda")
+    eng = ServingEngine(cfg, params, evict_to_host=True,
+                        resident_limit=LM_RESIDENT, **kw)
+    page_values = cfg.n_groups * LM_S_MAX * cfg.n_kv_heads * cfg.hd
+    n_pages = 2 * cfg.group_size
+    want = lm_schedule(lengths, LM_SLOTS, LM_MAX_NEW, LM_RESIDENT,
+                       page_values, n_pages)
+    host_rid, parked_rid = want.pop("host")[0], want.pop("parked")[-1]
+    # the pages as they leave for the host (a copy on the card), to hold the
+    # BFP8 restore against
+    evicted = {}
+    host_evict = eng._host_evict
+
+    def keep_evicted(rid, pages):
+        if rid == host_rid:
+            evicted.update({k: v.clone() for k, v in pages.items()})
+        host_evict(rid, pages)
+    eng._host_evict = keep_evicted
+    reqs = [eng.submit(p, max_new_tokens=LM_MAX_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    library.reset_launches()
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    counts, shapes = library.launches(), library.launch_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    expected = dict.fromkeys(library.SIGNATURES, 0) | {
+        "flash_attention": cfg.n_layers * LM_REQUESTS}
+    if counts != expected:
+        raise AssertionError(f"[lm] launches {counts}, expected {expected}")
+    parked = {k: v.clone() for k, v in eng.resident_store[parked_rid].items()}
+    eng.restore_request(host_rid, 0)
+    eng.restore_request(parked_rid, 1)
+    fams = parse_metrics_text(eng.metrics_text())
+    got = {k: int(sum(fams[f"smof_engine_{k}_total"]["samples"].values()))
+           for k in ("prefills", "decode_steps", "generated_tokens",
+                     "evicted_pages", "restored_pages")}
+    raw = fams["smof_engine_evicted_bytes_total"]["samples"]
+    got["evicted_bytes_raw"] = int(raw['smof_engine_evicted_bytes_total'
+                                       '{kind="raw"}'])
+    got["evicted_bytes_compressed"] = int(raw[
+        'smof_engine_evicted_bytes_total{kind="compressed"}'])
+    want["restored_pages"] = 2 * n_pages
+    print(f"[lm] counters from metrics_text(): {got}; worked out beforehand: "
+          f"{want}")
+    if got != want:
+        raise AssertionError("[lm] counters differ from the schedule")
+    if [len(r.out_tokens) for r in reqs] != [LM_MAX_NEW] * LM_REQUESTS:
+        raise AssertionError("[lm] a request did not get its tokens")
+    for name, c in (("pos_0/k", eng.cache["pos_0"]["k"]),
+                    ("pos_0/v", eng.cache["pos_0"]["v"])):
+        if not bit_equal(torch, c[:, 1], parked[name]):
+            raise AssertionError(f"[lm] resident restore of {name} is not "
+                                 f"bit for bit")
+        page = evicted[name]
+        rel = float((c[:, 0] - page).abs().max() / page.abs().max())
+        print(f"[lm] restores of {name}: resident bit for bit; host "
+              f"(request {host_rid}) max|restored - page| / max|page| "
+              f"{rel:.4f} (bound {LM_BFP8_REL})")
+        if not 0.0 < rel < LM_BFP8_REL:
+            raise AssertionError(f"[lm] host restore of {name} off by {rel}")
+    print(f"[lm] {LM_REQUESTS} requests ({list(map(int, lengths))} prompt "
+          f"tokens) through {LM_SLOTS} slots: {served_s:.3f} s to drain, "
+          f"{got['generated_tokens'] / served_s:.1f} generated tokens/s; "
+          f"launches {({k: n for k, n in counts.items() if n})}; peak device "
+          f"memory {peak} bytes ({peak - base} above weights and cache)")
+
+    # -- the kernel route against the plain route, on the same weights --------
+    plain = ServingEngine(cfg, params, kernel_mode="reference", **kw)
+    worst = 0.0
+    for i, (p, r) in enumerate(zip(prompts, reqs)):
+        lk, ck = eng.run_prefill(p)
+        lp, cp = plain.run_prefill(p)
+        if int(lk.argmax()) != r.out_tokens[0]:
+            raise AssertionError(f"[lm] request {i}: rerun's first token is "
+                                 f"not the served one")
+        for what, g, w in [("logits", lk, lp)] + [
+                (f"{pj}/{n}", ck[pj][n], cp[pj][n]) for pj in cp
+                for n in ("k", "v")]:
+            err = float((g - w).abs().max()) / float(w.abs().max())
+            worst = max(worst, err)
+            if err > LM_TOL:
+                raise AssertionError(f"[lm] request {i} {what}: kernel vs "
+                                     f"plain {err:.3e} of max|plain|")
+        del ck, cp
+    print(f"[lm] kernel vs plain route, first-token logits and every KV page "
+          f"of the 8 prefills: max|kernel - plain| at most {worst:.3e} of "
+          f"max|plain| (tol {LM_TOL})")
+    plain_reqs = [plain.submit(p, max_new_tokens=LM_MAX_NEW) for p in prompts]
+    plain.run_until_drained()
+    for i, (r, q) in enumerate(zip(reqs, plain_reqs)):
+        if r.out_tokens == q.out_tokens:
+            continue
+        t = next(j for j, (a, b) in enumerate(zip(r.out_tokens,
+                                                  q.out_tokens)) if a != b)
+        logits, _ = plain.run_prefill(np.concatenate(
+            [prompts[i], q.out_tokens[:t]]))
+        top = logits[0].topk(2).values
+        margin = float(top[0] - top[1])
+        lim = LM_TOL * float(logits.abs().max())
+        print(f"[lm] request {i}: token streams part at token {t}; the plain "
+              f"route's top-2 logit margin there {margin:.3e} (tol "
+              f"{lim:.3e})")
+        if margin >= lim:
+            raise AssertionError(f"[lm] request {i}: streams part at token "
+                                 f"{t} past a tie")
+    print(f"[lm] token streams of the two routes: "
+          f"{sum(r.out_tokens == q.out_tokens for r, q in zip(reqs, plain_reqs))}"
+          f" of {LM_REQUESTS} equal")
+    del plain
+
+    # -- times ----------------------------------------------------------------
+    ms = []
+    for p in prompts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_prefill(p)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[lm] prefill ms per request (host clock, kernel route): "
+          + ", ".join(f"{n}: {t:.3f}" for n, t in zip(lengths, ms)))
+    token = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((LM_SLOTS,), 600, dtype=torch.int64, device="cuda")
+
+    def one_step():
+        logits, _ = decode_step(params, cfg, token, pos, eng.cache)
+        return logits.argmax(-1).cpu()
+    one_step()
+    torch.cuda.synchronize()
+    steps = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        one_step()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(steps)
+    cache_bytes = sum(t.numel() * 4 for lv in eng.cache.values()
+                      for t in lv.values())
+    read = w_bytes - 4 * params["embed"].numel() + cache_bytes
+    b_ms = read / PEAK_HBM_BYTES_S * 1e3
+    print(f"[lm] decode: {step_ms:.3f} ms per lockstep step of {LM_SLOTS} "
+          f"slots (median of 10, host clock to the sampled tokens), bound "
+          f"{b_ms:.3f} ms ({read} bytes: every weight but the embedding "
+          f"table, of which 4 rows are read, and the KV cache, once, at "
+          f"3.35 TB/s); {LM_SLOTS / step_ms * 1e3:.1f} tokens/s in steady "
+          f"decode")
+    profile_device(torch, "[lm] profile of one decode step", one_step,
+                   step_ms)
+    profile_host(torch, "[lm] host profile of one decode step", one_step)
+    long = prompts[0]
+    profile_device(torch, f"[lm] profile of one prefill ({len(long)} "
+                   f"tokens)", lambda: eng.run_prefill(long), ms[0])
+    del eng, params, evicted, parked
+    return counts, shapes
+
+
 def profile_device(torch, label: str, fn, ms: float) -> None:
     """``fn`` once under ``torch.profiler``: the device-side events'
     busy time against ``ms``, the median unprofiled time of the same work
@@ -1257,13 +1601,20 @@ def main() -> int:
     served = serve_phase(torch, repro_torch, library, STREAM_PATHS[0])
     t1 = time.perf_counter()
     fuzzed = fuzz_phase(torch, library)
-    print(f"served path {t1 - t0:.1f} s, fuzz path "
-          f"{time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    lm = lm_serve_phase(torch, library)
+    # the model is released: phase 4 starts with the card's memory free
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"served path {t1 - t0:.1f} s, fuzz path {t2 - t1:.1f} s, LM "
+          f"serving path {time.perf_counter() - t2:.1f} s; device memory "
+          f"held after it {torch.cuda.memory_allocated()} bytes")
     # launches and launch shapes per frame (staged), per stream
     # (pipelined), per flush (served) or over the phase (fuzz)
     counts = {n: r[-2] for n, r in (runs | streams).items()}
     shapes = {n: r[-1] for n, r in (runs | streams).items()}
-    for name, (c, sh) in (("yolo-served", served), ("fuzz", fuzzed)):
+    for name, (c, sh) in (("yolo-served", served), ("fuzz", fuzzed),
+                          ("lm-serve", lm)):
         counts[name], shapes[name] = c, sh
 
     # -- 4. kernels against their plain versions --------------------------------
@@ -1277,6 +1628,8 @@ def main() -> int:
         name = r["name"]
         if name in ("streamed_matmul", "conv2d"):
             tol = MATMUL_TOL
+        elif name == "flash_attention":
+            tol = f"rtol = atol = {FLASH_TOL} vs plain"
         elif name.startswith("conv2d"):
             tol = (f"bit-exact vs the conv2d kernel on the decode kernel's "
                    f"output and the codec, {MATMUL_TOL} vs plain")

@@ -10,12 +10,12 @@
 // which at 2 m k n flops on (m k + k n + m n) * 4 bytes is bound by bytes
 // (about 7 flops per byte, under the f32 ridge of the card).  Design: a
 // register-blocked SGEMM with bounds checks and plain f32 FMAs (no TF32,
-// the reference is pure f32).  A block of 256 threads owns a 128 x 32
-// output tile, narrow in n because n is 32 on the head; per step of 16
-// along k it stages a 128 x 16 slice of x (transposed, padded by 4 floats a
-// row against bank conflicts) and a 16 x 32 slice of w in shared memory,
-// zeros past every edge, and every thread accumulates a 4 x 4 sub-tile in
-// registers, in k order.
+// the reference is pure f32).  At the default tile a block of 256 threads
+// owns a 128 x 32 output tile, narrow in n because n is 32 on the head; per
+// step of 16 along k it stages a 128 x 16 slice of x (transposed, padded by
+// 4 floats a row against bank conflicts) and a 16 x 32 slice of w in shared
+// memory, zeros past every edge, and every thread accumulates a 4 x 4
+// sub-tile in registers, in k order.
 //
 // conv2d_encode replaces _conv_enc_kernel (same file): the same product and,
 // from the same launch, the BFP8 spill payload of y zero-padded to the
@@ -45,6 +45,15 @@
 // 1/32 bytes per input value where the plain kernel reads 4.  On X3D-M's
 // hand-cut plans K runs from 3 (the stem, whose input edge is evicted) to
 // 384 and m from 1 (the squeeze-excitation convs) to 262144.
+//
+// Tiles (the plan's tile_bm / tile_bc, the reference's bm / bc): bm picks
+// the template instance by its row tile, BM = 32, 64 or 128 with 2 BM
+// threads a block (bm 0 is 128; a bm below 32 rounds up to 32, one
+// between two instances up to the larger, one above 128 down to 128).
+// bc sets the columns a block covers: bc / 32 column tiles of BN = 32, one
+// after the other (bc 0 is 32).  Every thread sums its outputs over k in
+// the same order whatever the tile, and a tile's staged values are exact
+// copies, so no tile changes a result.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -53,24 +62,31 @@
 
 namespace {
 
-constexpr int BM = 128, BN = 32, BK = 16, THREADS = 256;
+constexpr int BN = 32, BK = 16;
 
 static_assert(BN == smof::kBfp8Block, "one tile column block = one block");
 
 // x: the (m, k) input, or with kDecode its BFP8 payload decoded as the A
 // tile is staged.  kEncode: also write the payload man (m, nb * 32) and exp
-// (m, nb), with nb = gridDim.y = ceil(n / 32).
-template <bool kDecode, bool kEncode>
-__global__ void __launch_bounds__(THREADS)
+// (m, nb), with nb = ceil(n / 32).  Block y covers `ctiles` column tiles.
+template <int BM, bool kDecode, bool kEncode>
+__global__ void __launch_bounds__(2 * BM)
 conv2d_kernel(smof::Stripe<kDecode> x, const float* __restrict__ w,
               float* __restrict__ y, int8_t* __restrict__ man,
-              int8_t* __restrict__ exp, int64_t m, int64_t k, int64_t n) {
+              int8_t* __restrict__ exp, int64_t m, int64_t k, int64_t n,
+              int ctiles) {
+  constexpr int THREADS = 2 * BM;
   __shared__ __align__(16) float xs[BK][BM + 4];
   __shared__ __align__(16) float ws[BK][BN];
   const int tid = threadIdx.x;
   const int ty = tid >> 3, tx = tid & 7;  // rows 4ty..4ty+3, cols 4tx..4tx+3
   const int64_t row0 = (int64_t)blockIdx.x * BM;
-  const int64_t col0 = (int64_t)blockIdx.y * BN;
+  const int64_t nb = (n + BN - 1) / BN;
+
+  for (int ct = 0; ct < ctiles; ++ct) {
+  const int64_t cb = (int64_t)blockIdx.y * ctiles + ct;  // column tile
+  if (cb >= nb) break;                                   // block-uniform
+  const int64_t col0 = cb * BN;
 
   float acc[4][4];
 #pragma unroll
@@ -119,7 +135,6 @@ conv2d_kernel(smof::Stripe<kDecode> x, const float* __restrict__ w,
       }
     }
   } else {
-    const int64_t nb = gridDim.y;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int64_t r = row0 + ty * 4 + i;
@@ -149,54 +164,76 @@ conv2d_kernel(smof::Stripe<kDecode> x, const float* __restrict__ w,
                      smof::bfp8_mantissa(v[1], scale),
                      smof::bfp8_mantissa(v[2], scale),
                      smof::bfp8_mantissa(v[3], scale));
-      if (tx == 0) exp[r * nb + blockIdx.y] = static_cast<int8_t>(e);
+      if (tx == 0) exp[r * nb + cb] = static_cast<int8_t>(e);
     }
+  }
   }
 }
 
-dim3 conv2d_grid(int64_t m, int64_t n) {
-  return dim3((unsigned)((m + BM - 1) / BM), (unsigned)((n + BN - 1) / BN));
+template <int BM, bool kDecode, bool kEncode>
+int launch_conv2d(smof::Stripe<kDecode> x, const void* w, void* y, void* man,
+                  void* exp, int64_t m, int64_t n, int ctiles,
+                  cudaStream_t st) {
+  const int64_t nb = (n + BN - 1) / BN;
+  const dim3 grid((unsigned)((m + BM - 1) / BM),
+                  (unsigned)((nb + ctiles - 1) / ctiles));
+  conv2d_kernel<BM, kDecode, kEncode><<<grid, 2 * BM, 0, st>>>(
+      x, (const float*)w, (float*)y, (int8_t*)man, (int8_t*)exp, m, x.c, n,
+      ctiles);
+  return (int)cudaGetLastError();
 }
 
+// bm, bc as the note at the top says.
 template <bool kDecode, bool kEncode>
 int run_conv2d(smof::Stripe<kDecode> x, const void* w, void* y, void* man,
-               void* exp, int64_t m, int64_t n, void* stream) {
-  if (m > 0 && n > 0)
-    conv2d_kernel<kDecode, kEncode><<<conv2d_grid(m, n), THREADS, 0,
-                                      (cudaStream_t)stream>>>(
-        x, (const float*)w, (float*)y, (int8_t*)man, (int8_t*)exp, m, x.c, n);
-  return (int)cudaGetLastError();
+               void* exp, int64_t m, int64_t n, int64_t bm, int64_t bc,
+               void* stream) {
+  if (m <= 0 || n <= 0) return (int)cudaGetLastError();
+  const int ctiles = bc > 0 ? (int)((bc + BN - 1) / BN) : 1;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bm > 0 && bm <= 32)
+    return launch_conv2d<32, kDecode, kEncode>(x, w, y, man, exp, m, n,
+                                               ctiles, st);
+  if (bm > 0 && bm <= 64)
+    return launch_conv2d<64, kDecode, kEncode>(x, w, y, man, exp, m, n,
+                                               ctiles, st);
+  return launch_conv2d<128, kDecode, kEncode>(x, w, y, man, exp, m, n,
+                                              ctiles, st);
 }
 
 }  // namespace
 
 // x: (m, k); w: (k, n); y: (m, n).  With the encode, man: (m, ceil(n / 32)
 // * 32) and exp: (m, ceil(n / 32)); with the decode, xman: (m, ceil(k / 32)
-// * 32) and xexp: (m, ceil(k / 32)) in place of x.
+// * 32) and xexp: (m, ceil(k / 32)) in place of x.  bm, bc: the tiles.
 extern "C" int smof_conv2d(const void* x, const void* w, void* y, int64_t m,
-                           int64_t k, int64_t n, void* stream) {
+                           int64_t k, int64_t n, int64_t bm, int64_t bc,
+                           void* stream) {
   return run_conv2d<false, false>(smof::f32_stripe(x, k), w, y, nullptr,
-                                  nullptr, m, n, stream);
+                                  nullptr, m, n, bm, bc, stream);
 }
 
 extern "C" int smof_conv2d_encode(const void* x, const void* w, void* y,
                                   void* man, void* exp, int64_t m, int64_t k,
-                                  int64_t n, void* stream) {
+                                  int64_t n, int64_t bm, int64_t bc,
+                                  void* stream) {
   return run_conv2d<false, true>(smof::f32_stripe(x, k), w, y, man, exp, m,
-                                 n, stream);
+                                 n, bm, bc, stream);
 }
 
 extern "C" int smof_conv2d_decode(const void* xman, const void* xexp,
                                   const void* w, void* y, int64_t m,
-                                  int64_t k, int64_t n, void* stream) {
+                                  int64_t k, int64_t n, int64_t bm,
+                                  int64_t bc, void* stream) {
   return run_conv2d<true, false>(smof::payload_stripe(xman, xexp, k), w, y,
-                                 nullptr, nullptr, m, n, stream);
+                                 nullptr, nullptr, m, n, bm, bc, stream);
 }
 
 extern "C" int smof_conv2d_decode_encode(const void* xman, const void* xexp,
                                          const void* w, void* y, void* man,
                                          void* exp, int64_t m, int64_t k,
-                                         int64_t n, void* stream) {
+                                         int64_t n, int64_t bm, int64_t bc,
+                                         void* stream) {
   return run_conv2d<true, true>(smof::payload_stripe(xman, xexp, k), w, y,
-                                man, exp, m, n, stream);
+                                man, exp, m, n, bm, bc, stream);
 }

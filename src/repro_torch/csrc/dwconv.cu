@@ -7,14 +7,14 @@
 // streaming_conv.py, dwconv).  There the input stays un-blocked and each
 // grid step reads its overlapping tap windows with pl.ds, the line-buffer
 // access pattern (the ingress variants hold the whole payload for the same
-// reason).  Here each block owns `tr` consecutive output rows (about
-// kValuesPerBlock values) and stages the rows it reads, tr + taps - 1 of
-// them with the halo, in shared memory: the rows are contiguous in memory,
-// so the stage is one coalesced copy, zeros where a row lies outside
-// [0, m).  Bound on the H100 by bytes: 8 bytes move per output (5 + 1/32
-// with one side encoded, 2 + 1/16 with both) and taps multiply-adds are
-// done on them; the halo re-reads (taps - 1) / tr rows per block, mostly
-// from L2.
+// reason).  Here each block owns `tr` consecutive output rows (the plan's
+// tile_bm where it is set, else about kValuesPerBlock values) and stages
+// the rows it reads, tr + taps - 1 of them with the halo, in shared memory:
+// the rows are contiguous in memory, so the stage is one coalesced copy,
+// zeros where a row lies outside [0, m).  Bound on the H100 by bytes: 8
+// bytes move per output (5 + 1/32 with one side encoded, 2 + 1/16 with
+// both) and taps multiply-adds are done on them; the halo re-reads
+// (taps - 1) / tr rows per block, mostly from L2.
 //
 // One template over the four variants:
 //  * kDecode: the tile is staged from the input's BFP8 payload, each value
@@ -42,6 +42,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kValuesPerBlock = 2048;
+constexpr int64_t kMaxSmem = 232448;  // dynamic shared memory of a block
 
 // Output row r (of the block) and channel ch from the staged tile.
 __device__ __forceinline__ float tap_sum(const float* __restrict__ w,
@@ -93,12 +94,24 @@ dwconv_kernel(smof::Stripe<kDecode> in, const float* __restrict__ w,
   }
 }
 
+// Rows a block owns: bm (the plan's tile_bm) where it is > 0, else about
+// kValuesPerBlock values' worth; cut down to what the shared memory of one
+// block holds with the halo.  The tile never changes a result: each output
+// is its own tap_sum.
+int64_t dwconv_rows(int64_t bm, int64_t c, int64_t taps) {
+  int64_t tr = bm > 0 ? bm : (kValuesPerBlock / c > 0 ? kValuesPerBlock / c
+                                                       : 1);
+  const int64_t fit = kMaxSmem / (int64_t)(c * sizeof(float)) - (taps - 1);
+  return tr < fit ? tr : (fit > 1 ? fit : 1);
+}
+
 template <bool kDecode, bool kEncode>
 int run_dwconv(smof::Stripe<kDecode> in, const void* w, void* y, void* man,
-               void* exp, int64_t m, int64_t taps, void* stream) {
+               void* exp, int64_t m, int64_t taps, int64_t bm,
+               void* stream) {
   const int64_t c = in.c;
   if (m <= 0 || c <= 0) return (int)cudaGetLastError();
-  const int tr = (int)(kValuesPerBlock / c > 0 ? kValuesPerBlock / c : 1);
+  const int tr = (int)dwconv_rows(bm, c, taps);
   const size_t smem = (size_t)(tr + taps - 1) * c * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -119,29 +132,32 @@ int run_dwconv(smof::Stripe<kDecode> in, const void* w, void* y, void* man,
 // (m, nb), nb = ceil(c / 32); with the decode the input is its payload of
 // the same shapes.
 extern "C" int smof_dwconv(const void* x, const void* w, void* y, int64_t m,
-                           int64_t c, int64_t taps, void* stream) {
+                           int64_t c, int64_t taps, int64_t bm,
+                           void* stream) {
   return run_dwconv<false, false>(smof::f32_stripe(x, c), w, y, nullptr,
-                                  nullptr, m, taps, stream);
+                                  nullptr, m, taps, bm, stream);
 }
 
 extern "C" int smof_dwconv_encode(const void* x, const void* w, void* y,
                                   void* man, void* exp, int64_t m, int64_t c,
-                                  int64_t taps, void* stream) {
+                                  int64_t taps, int64_t bm, void* stream) {
   return run_dwconv<false, true>(smof::f32_stripe(x, c), w, y, man, exp, m,
-                                 taps, stream);
+                                 taps, bm, stream);
 }
 
 extern "C" int smof_dwconv_decode(const void* xman, const void* xexp,
                                   const void* w, void* y, int64_t m,
-                                  int64_t c, int64_t taps, void* stream) {
+                                  int64_t c, int64_t taps, int64_t bm,
+                                  void* stream) {
   return run_dwconv<true, false>(smof::payload_stripe(xman, xexp, c), w, y,
-                                 nullptr, nullptr, m, taps, stream);
+                                 nullptr, nullptr, m, taps, bm, stream);
 }
 
 extern "C" int smof_dwconv_decode_encode(const void* xman, const void* xexp,
                                          const void* w, void* y, void* man,
                                          void* exp, int64_t m, int64_t c,
-                                         int64_t taps, void* stream) {
+                                         int64_t taps, int64_t bm,
+                                         void* stream) {
   return run_dwconv<true, true>(smof::payload_stripe(xman, xexp, c), w, y,
-                                man, exp, m, taps, stream);
+                                man, exp, m, taps, bm, stream);
 }

@@ -43,6 +43,15 @@
 //    input load of the first pass and the egress encode the epilogue of the
 //    last (whose warp 0 holds one output row's 32-channel block), so y is
 //    bit for bit the plain pool kernel's on the decoded input, at every k.
+//
+// Tiles (the plan's tile_bm, the reference's bm): every act_relu variant,
+// and pool over few rows, cut their output rows into row blocks of bm rows,
+// grid row y for block y, and the grid's x blocks share one row block's
+// work (RowTiles).  bm 0 is one row block of all m rows, the untiled launch;
+// a bm that would need more than 65535 row blocks grows to ceil(m / 65535).
+// The tree passes of pool over many rows give each block one output row's
+// chunk whatever bm is.  Every output is computed by the same arithmetic
+// whatever the tile, so no tile changes a result.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -57,19 +66,46 @@ constexpr int64_t kPoolSerialMaxK = 8;
 constexpr int64_t kPoolChunk = 256;
 constexpr int kPoolRowLanes = 8;  // warps of a tree block
 
+// Row blocks of rb rows, n of them (grid y), for m rows and the plan's bm.
+struct RowTiles {
+  int64_t rb;
+  unsigned n;
+};
+
+RowTiles row_tiles(int64_t m, int64_t bm) {
+  int64_t rb = bm > 0 ? bm : (m > 0 ? m : 1);
+  if ((m + rb - 1) / rb > 65535) rb = (m + 65534) / 65535;
+  return {rb, (unsigned)((m + rb - 1) / rb)};
+}
+
+// Rows of this block's row block: [*r0, *r0 + return value).
+__device__ __forceinline__ int64_t block_rows(int64_t m, int64_t rb,
+                                              int64_t* r0) {
+  *r0 = (int64_t)blockIdx.y * rb;
+  return m - *r0 < rb ? m - *r0 : rb;
+}
+
 // relu as the plain version computes it (torch.where(x < 0, 0, x)): NaN
 // and -0.0 pass through unchanged.
 __device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
 
+// Four values of the row block per thread, as one 16-byte load and store
+// where they are whole and aligned, else one by one.
 __global__ void act_relu_kernel(const float* __restrict__ x,
-                                float* __restrict__ y, int64_t n) {
-  int64_t i = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) * 4;
-  if (i + 4 <= n) {
+                                float* __restrict__ y, int64_t m, int64_t c,
+                                int64_t rb) {
+  int64_t r0;
+  const int64_t rows = block_rows(m, rb, &r0);
+  const int64_t end = (r0 + rows) * c;
+  int64_t i = r0 * c + (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) * 4;
+  if (i >= end) return;
+  if (i + 4 <= end && (i & 3) == 0) {
     float4 v = *reinterpret_cast<const float4*>(x + i);
     *reinterpret_cast<float4*>(y + i) =
         make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w));
   } else {
-    for (; i < n; ++i) y[i] = relu(x[i]);
+    for (const int64_t stop = i + 4 < end ? i + 4 : end; i < stop; ++i)
+      y[i] = relu(x[i]);
   }
 }
 
@@ -78,9 +114,13 @@ __global__ void act_relu_kernel(const float* __restrict__ x,
 __global__ void act_relu_decode_kernel(const int8_t* __restrict__ man,
                                        const int8_t* __restrict__ exp,
                                        float* __restrict__ y, int64_t m,
-                                       int64_t c, int64_t nb, int64_t q4) {
+                                       int64_t c, int64_t nb, int64_t q4,
+                                       int64_t rb) {
+  int64_t r0;
+  const int64_t rows = block_rows(m, rb, &r0);
   int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= m * q4) return;
+  if (i >= rows * q4) return;
+  i += r0 * q4;
   int64_t r = i / q4, ch = (i - r * q4) * 4;
   const char4 mv =
       *reinterpret_cast<const char4*>(man + r * nb * smof::kBfp8Block + ch);
@@ -106,10 +146,13 @@ __global__ void act_relu_encode_kernel(Stripe<kDecode> in,
                                        float* __restrict__ y,
                                        int8_t* __restrict__ man,
                                        int8_t* __restrict__ exp, int64_t m,
-                                       int64_t nb) {
+                                       int64_t nb, int64_t rb) {
+  int64_t r0;
+  const int64_t rows = block_rows(m, rb, &r0);
   int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
   int lane = threadIdx.x & 31;
-  if (warp >= m * nb) return;  // whole warps leave together
+  if (warp >= rows * nb) return;  // whole warps leave together
+  warp += r0 * nb;
   int64_t row = warp / nb, b = warp - row * nb;
   int64_t col = b * smof::kBfp8Block + lane;
   float v = 0.0f;
@@ -132,9 +175,12 @@ __device__ __forceinline__ float serial_mean(const Stripe<kDecode>& in,
 
 template <bool kDecode>
 __global__ void pool_kernel(Stripe<kDecode> in, float* __restrict__ y,
-                            int64_t m_out, int64_t k) {
+                            int64_t m_out, int64_t k, int64_t rb) {
+  int64_t r0;
+  const int64_t rows = block_rows(m_out, rb, &r0);
   int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= m_out * in.c) return;
+  if (i >= rows * in.c) return;
+  i += r0 * in.c;
   int64_t o = i / in.c, ch = i - o * in.c;
   y[i] = serial_mean(in, o, k, ch);
 }
@@ -144,10 +190,13 @@ template <bool kDecode>
 __global__ void pool_encode_kernel(Stripe<kDecode> in, float* __restrict__ y,
                                    int8_t* __restrict__ man,
                                    int8_t* __restrict__ exp, int64_t m_out,
-                                   int64_t k, int64_t nb) {
+                                   int64_t k, int64_t nb, int64_t rb) {
+  int64_t r0;
+  const int64_t rows = block_rows(m_out, rb, &r0);
   int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
   int lane = threadIdx.x & 31;
-  if (warp >= m_out * nb) return;  // whole warps leave together
+  if (warp >= rows * nb) return;  // whole warps leave together
+  warp += r0 * nb;
   int64_t o = warp / nb, b = warp - o * nb;
   int64_t col = b * smof::kBfp8Block + lane;
   float v = 0.0f;
@@ -222,17 +271,20 @@ int tree_pass(Stripe<kDecode> in, float* out, int8_t* man, int8_t* exp,
 // sizes it).
 template <bool kDecode, bool kEncode>
 int run_pool(Stripe<kDecode> in, float* y, int8_t* man, int8_t* exp,
-             float* scratch, int64_t m_out, int64_t k, cudaStream_t st) {
+             float* scratch, int64_t m_out, int64_t k, int64_t bm,
+             cudaStream_t st) {
   const int64_t c = in.c;
   const int64_t nb = (c + smof::kBfp8Block - 1) / smof::kBfp8Block;
   if (m_out * c <= 0) return (int)cudaGetLastError();
   if (k <= kPoolSerialMaxK) {
+    const RowTiles t = row_tiles(m_out, bm);
     if constexpr (kEncode)
-      pool_encode_kernel<kDecode><<<grid_for(m_out * nb * 32, 256), 256, 0,
-                                    st>>>(in, y, man, exp, m_out, k, nb);
+      pool_encode_kernel<kDecode><<<dim3(grid_for(t.rb * nb * 32, 256), t.n),
+                                    256, 0, st>>>(in, y, man, exp, m_out, k,
+                                                  nb, t.rb);
     else
-      pool_kernel<kDecode><<<grid_for(m_out * c, 256), 256, 0, st>>>(
-          in, y, m_out, k);
+      pool_kernel<kDecode><<<dim3(grid_for(t.rb * c, 256), t.n), 256, 0,
+                             st>>>(in, y, m_out, k, t.rb);
     return (int)cudaGetLastError();
   }
   float* bufs[2] = {scratch,
@@ -259,85 +311,97 @@ int run_pool(Stripe<kDecode> in, float* y, int8_t* man, int8_t* exp,
 // One warp per (row, block) of an (m, c) output: payload nb * 32 wide.
 template <bool kDecode>
 int run_act_relu_encode(Stripe<kDecode> in, void* y, void* man, void* exp,
-                        int64_t m, cudaStream_t st) {
+                        int64_t m, int64_t bm, cudaStream_t st) {
   const int64_t nb = (in.c + smof::kBfp8Block - 1) / smof::kBfp8Block;
-  if (m * nb > 0)
-    act_relu_encode_kernel<kDecode><<<grid_for(m * nb * 32, 256), 256, 0,
-                                      st>>>(in, (float*)y, (int8_t*)man,
-                                            (int8_t*)exp, m, nb);
+  if (m * nb > 0) {
+    const RowTiles t = row_tiles(m, bm);
+    act_relu_encode_kernel<kDecode><<<dim3(grid_for(t.rb * nb * 32, 256),
+                                           t.n), 256, 0, st>>>(
+        in, (float*)y, (int8_t*)man, (int8_t*)exp, m, nb, t.rb);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int smof_act_relu(const void* x, void* y, int64_t n, void* stream) {
-  if (n > 0)
-    act_relu_kernel<<<grid_for((n + 3) / 4, 256), 256, 0,
-                      (cudaStream_t)stream>>>((const float*)x, (float*)y, n);
+// x, y: (m, c), 16-byte aligned; bm: the row tile (every entry point).
+extern "C" int smof_act_relu(const void* x, void* y, int64_t m, int64_t c,
+                             int64_t bm, void* stream) {
+  if (m * c > 0) {
+    const RowTiles t = row_tiles(m, bm);
+    act_relu_kernel<<<dim3(grid_for((t.rb * c + 3) / 4, 256), t.n), 256, 0,
+                      (cudaStream_t)stream>>>((const float*)x, (float*)y, m,
+                                              c, t.rb);
+  }
   return (int)cudaGetLastError();
 }
 
 // man: (m, nb * 32), 4-byte aligned; exp: (m, nb); y: (m, c);
 // nb = ceil(c / 32).
 extern "C" int smof_act_relu_decode(const void* man, const void* exp, void* y,
-                                    int64_t m, int64_t c, void* stream) {
+                                    int64_t m, int64_t c, int64_t bm,
+                                    void* stream) {
   const int64_t nb = (c + smof::kBfp8Block - 1) / smof::kBfp8Block;
   const int64_t q4 = (c + 3) / 4;
-  if (m * q4 > 0)
-    act_relu_decode_kernel<<<grid_for(m * q4, 256), 256, 0,
+  if (m * q4 > 0) {
+    const RowTiles t = row_tiles(m, bm);
+    act_relu_decode_kernel<<<dim3(grid_for(t.rb * q4, 256), t.n), 256, 0,
                              (cudaStream_t)stream>>>(
-        (const int8_t*)man, (const int8_t*)exp, (float*)y, m, c, nb, q4);
+        (const int8_t*)man, (const int8_t*)exp, (float*)y, m, c, nb, q4,
+        t.rb);
+  }
   return (int)cudaGetLastError();
 }
 
 // x, y: (m, c); man: (m, nb * 32); exp: (m, nb); nb = ceil(c / 32).
 extern "C" int smof_act_relu_encode(const void* x, void* y, void* man,
                                     void* exp, int64_t m, int64_t c,
-                                    void* stream) {
-  return run_act_relu_encode(smof::f32_stripe(x, c), y, man, exp, m,
+                                    int64_t bm, void* stream) {
+  return run_act_relu_encode(smof::f32_stripe(x, c), y, man, exp, m, bm,
                              (cudaStream_t)stream);
 }
 
 // xman, man: (m, nb * 32); xexp, exp: (m, nb); y: (m, c).
 extern "C" int smof_act_relu_decode_encode(const void* xman, const void* xexp,
                                            void* y, void* man, void* exp,
-                                           int64_t m, int64_t c,
+                                           int64_t m, int64_t c, int64_t bm,
                                            void* stream) {
   return run_act_relu_encode(smof::payload_stripe(xman, xexp, c), y, man,
-                             exp, m, (cudaStream_t)stream);
+                             exp, m, bm, (cudaStream_t)stream);
 }
 
 // x: (m_out * k, c); y: (m_out, c); scratch as run_pool says.
 extern "C" int smof_pool(const void* x, void* y, void* scratch, int64_t m_out,
-                         int64_t k, int64_t c, void* stream) {
+                         int64_t k, int64_t c, int64_t bm, void* stream) {
   return run_pool<false, false>(smof::f32_stripe(x, c), (float*)y, nullptr,
-                                nullptr, (float*)scratch, m_out, k,
+                                nullptr, (float*)scratch, m_out, k, bm,
                                 (cudaStream_t)stream);
 }
 
 // ... and man: (m_out, nb * 32); exp: (m_out, nb).
 extern "C" int smof_pool_encode(const void* x, void* y, void* man, void* exp,
                                 void* scratch, int64_t m_out, int64_t k,
-                                int64_t c, void* stream) {
+                                int64_t c, int64_t bm, void* stream) {
   return run_pool<false, true>(smof::f32_stripe(x, c), (float*)y,
                                (int8_t*)man, (int8_t*)exp, (float*)scratch,
-                               m_out, k, (cudaStream_t)stream);
+                               m_out, k, bm, (cudaStream_t)stream);
 }
 
 // xman: (m_out * k, nb * 32); xexp: (m_out * k, nb); y: (m_out, c).
 extern "C" int smof_pool_decode(const void* xman, const void* xexp, void* y,
                                 void* scratch, int64_t m_out, int64_t k,
-                                int64_t c, void* stream) {
+                                int64_t c, int64_t bm, void* stream) {
   return run_pool<true, false>(smof::payload_stripe(xman, xexp, c), (float*)y,
                                nullptr, nullptr, (float*)scratch, m_out, k,
-                               (cudaStream_t)stream);
+                               bm, (cudaStream_t)stream);
 }
 
 extern "C" int smof_pool_decode_encode(const void* xman, const void* xexp,
                                        void* y, void* man, void* exp,
                                        void* scratch, int64_t m_out,
-                                       int64_t k, int64_t c, void* stream) {
+                                       int64_t k, int64_t c, int64_t bm,
+                                       void* stream) {
   return run_pool<true, true>(smof::payload_stripe(xman, xexp, c), (float*)y,
                               (int8_t*)man, (int8_t*)exp, (float*)scratch,
-                              m_out, k, (cudaStream_t)stream);
+                              m_out, k, bm, (cudaStream_t)stream);
 }

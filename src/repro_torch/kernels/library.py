@@ -43,24 +43,25 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 #: trailing stream, ``p`` a device pointer and ``i`` an int64.
 SIGNATURES = {
     "streamed_matmul": "ppppiiii",
-    "act_relu": "ppi",
-    "act_relu_encode": "ppppii",
-    "pool": "pppiii",
+    "act_relu": "ppiii",
+    "act_relu_encode": "ppppiii",
+    "pool": "pppiiii",
     "bfp8_dequant": "pppii",
-    "conv2d": "pppiii",
-    "dwconv": "pppiii",
+    "conv2d": "pppiiiii",
+    "dwconv": "pppiiii",
     "bfp8_quant": "pppii",
-    "pool_encode": "pppppiii",
-    "conv2d_encode": "pppppiii",
-    "conv2d_decode": "ppppiii",
-    "conv2d_decode_encode": "ppppppiii",
-    "dwconv_encode": "pppppiii",
-    "dwconv_decode": "ppppiii",
-    "dwconv_decode_encode": "ppppppiii",
-    "pool_decode": "ppppiii",
-    "pool_decode_encode": "ppppppiii",
-    "act_relu_decode_encode": "pppppii",
-    "act_relu_decode": "pppii",
+    "pool_encode": "pppppiiii",
+    "conv2d_encode": "pppppiiiii",
+    "conv2d_decode": "ppppiiiii",
+    "conv2d_decode_encode": "ppppppiiiii",
+    "dwconv_encode": "pppppiiii",
+    "dwconv_decode": "ppppiiii",
+    "dwconv_decode_encode": "ppppppiiii",
+    "pool_decode": "ppppiiii",
+    "pool_decode_encode": "ppppppiiii",
+    "act_relu_decode_encode": "pppppiii",
+    "act_relu_decode": "pppiii",
+    "flash_attention": "ppppiiiii",
 }
 
 #: Launches of each kernel since the last :func:`reset_launches`.

@@ -12,6 +12,7 @@ import dataclasses
 from typing import Callable
 
 from . import ref, streaming_conv
+from .flash_attention import flash_attention
 from .library import (LAUNCHES, KernelLibrary, launches, load_library,
                       reset_launches)
 
@@ -63,6 +64,13 @@ def kernel_for(kind: str, *, use_kernels: bool
     return entry.reference, False
 
 
+def flash_attn(q, k, v, *, causal: bool = True):
+    """Blockwise softmax attention over (B, S, H, D): the
+    ``flash_attention`` kernel on a CUDA tensor, its plain version on a CPU
+    one (``kernels/flash_attention.py``)."""
+    return flash_attention(q, k, v, causal=causal)
+
+
 def fusable_kinds() -> tuple[str, ...]:
     """Op kinds whose kernel wrapper fuses the BFP8 boundary codec."""
     return tuple(k for k, e in KERNEL_REGISTRY.items() if e.fuse_bfp8)
@@ -73,5 +81,5 @@ def lowerable_kinds() -> tuple[str, ...]:
 
 
 __all__ = ["KernelEntry", "KERNEL_REGISTRY", "kernel_for", "fusable_kinds",
-           "lowerable_kinds", "LAUNCHES", "KernelLibrary", "launches",
-           "load_library", "reset_launches"]
+           "lowerable_kinds", "flash_attn", "flash_attention", "LAUNCHES",
+           "KernelLibrary", "launches", "load_library", "reset_launches"]

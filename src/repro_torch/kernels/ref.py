@@ -16,6 +16,19 @@ def streamed_matmul_ref(x: torch.Tensor, w_static: torch.Tensor,
     return conv2d_ref(x, torch.cat([w_static, w_dyn], dim=0))
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Plain softmax attention.  q, k, v: (B, S, H, D) (kv heads
+    pre-repeated)."""
+    B, S, H, D = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask[None, None], s, -2.0 ** 30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
+
+
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """1x1 channel mixing (conv/matmul/deconv): y = x @ w, in f32."""
     return torch.matmul(x, w)

@@ -18,6 +18,26 @@ Every fused egress payload, on both devices, leaves through
 :func:`_egress_payload`, so a test can plant a fault in the fused encode
 alone (``repro_torch.testing.oracle.inject_fault``) while the standalone
 codec stays correct.
+
+Tiles.  Every wrapper takes the reference's ``bm`` (row tile) and
+``conv2d`` also its ``bc`` (column tile), the plan's ``tile_bm`` /
+``tile_bc``; 0 is the kernel's default.  The plain versions have no tiles
+and ignore them.  On the card they are launch parameters, and no tile
+changes a result (each output is summed in the same order whatever the
+tile):
+
+* ``conv2d*``: ``bm`` picks the kernel instance by its row tile, 32, 64 or
+  128 rows (0 is 128; a ``bm`` below 32 rounds up to 32, one between two
+  instances up to the larger, one above 128 down to 128); ``bc``, a
+  multiple of 32, sets the output columns a block covers, ``bc / 32``
+  tiles of the 32-column codec block one after the other (0 is 32);
+* ``dwconv*``: ``bm`` is the rows a block owns (0: about 2048 values'
+  worth), cut down to what a block's shared memory holds with the halo;
+* ``act_relu*`` and ``pool*``: ``bm`` rows a row block, which the grid's
+  blocks share (0: one row block of all rows; a ``bm`` that would need
+  more than 65535 row blocks grows to ``ceil(m / 65535)``).  The tree
+  passes of a pool over more than 8 rows give each block one output row
+  whatever ``bm`` is.
 """
 from __future__ import annotations
 
@@ -33,6 +53,9 @@ BFP8_BLOCK = 32
 CONV2D_BN = 32            # the conv2d kernel's output columns per block
 POOL_SERIAL_MAX_K = 8     # pool sums up to this many rows in one thread
 POOL_CHUNK = 256          # rows per block of a pool tree pass
+# the reference autotuner's tile choices (src/repro/optim/autotune.py)
+TILE_BM_CHOICES = (0, 8, 16, 32, 64, 128)
+TILE_BC_CHOICES = (0, 32, 64, 128)
 
 
 def _egress_payload(man: torch.Tensor, exp: torch.Tensor) -> tuple:
@@ -61,6 +84,12 @@ def _plain(op, x, c, payload, encode, block):
         x = _decode(payload, c, block)
     y = op(x)
     return (y, _egress_payload(*_encode(y, block))) if encode else y
+
+
+def _check_tiles(name: str, bm: int, bc: int = 0) -> None:
+    if bm < 0 or bc < 0 or bc % CONV2D_BN:
+        raise ValueError(f"{name}: tiles bm={bm}, bc={bc}: both >= 0, bc a "
+                         f"multiple of {CONV2D_BN}")
 
 
 def _on_cuda(x, payload) -> bool:
@@ -111,33 +140,38 @@ def _input_operands(name: str, x, payload, c: int) -> tuple:
     return src, src[0].shape[0]
 
 
-def conv2d(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
-    """1x1 conv ``y = x @ w`` (conv/matmul/deconv), fusion flags as above."""
+def conv2d(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK,
+           bm: int = 0, bc: int = 0):
+    """1x1 conv ``y = x @ w`` (conv/matmul/deconv), fusion flags and tiles
+    as above."""
     if not _on_cuda(x, payload):
         return _plain(lambda h: ref.conv2d_ref(h, w), x, w.shape[0], payload,
                       encode, block)
     _check_codec_block("conv2d", payload, encode, block)
+    _check_tiles("conv2d", bm, bc)
     check_operand("conv2d w", w, torch.float32, align=4)
     k, n = w.shape
-    if n > 65535 * CONV2D_BN:
+    if n > 65535 * max(bc, CONV2D_BN):
         raise ValueError(f"conv2d: n={n} exceeds the grid's columns")
     src, m = _input_operands("conv2d", x, payload, k)
     y = torch.empty((m, n), dtype=torch.float32, device=w.device)
     name = _kernel_name("conv2d", payload, encode)
     if not encode:
-        launch(name, *src, w, y, m, k, n)
+        launch(name, *src, w, y, m, k, n, bm, bc)
         return y
     out = _empty_payload(m, n, w.device)
-    launch(name, *src, w, y, *out, m, k, n)
+    launch(name, *src, w, y, *out, m, k, n, bm, bc)
     return y, _egress_payload(*out)
 
 
-def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
+def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK,
+           bm: int = 0):
     """Depthwise temporal conv (w: (taps, c), 'same' padding)."""
     if not _on_cuda(x, payload):
         return _plain(lambda h: ref.dwconv_ref(h, w), x, w.shape[1], payload,
                       encode, block)
     _check_codec_block("dwconv", payload, encode, block)
+    _check_tiles("dwconv", bm)
     check_operand("dwconv w", w, torch.float32, align=4)
     taps, c = w.shape
     if taps < 1:
@@ -146,10 +180,10 @@ def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK):
     y = torch.empty((m, c), dtype=torch.float32, device=w.device)
     name = _kernel_name("dwconv", payload, encode)
     if not encode:
-        launch(name, *src, w, y, m, c, taps)
+        launch(name, *src, w, y, m, c, taps, bm)
         return y
     out = _empty_payload(m, c, w.device)
-    launch(name, *src, w, y, *out, m, c, taps)
+    launch(name, *src, w, y, *out, m, c, taps, bm)
     return y, _egress_payload(*out)
 
 
@@ -165,13 +199,14 @@ def pool_scratch_size(m_out: int, k: int, c: int) -> int:
 
 
 def pool(x, m_out: int, *, c: int | None = None, payload=None, encode=False,
-         block: int = BFP8_BLOCK):
+         block: int = BFP8_BLOCK, bm: int = 0):
     """Mean over k = m / m_out consecutive rows (m -> m_out); with
     ``payload``, ``c`` names the channels it carries."""
     if not _on_cuda(x, payload):
         return _plain(lambda h: ref.pool_ref(h, m_out), x, c, payload,
                       encode, block)
     _check_codec_block("pool", payload, encode, block)
+    _check_tiles("pool", bm)
     if payload is None:
         c = x.shape[1]
     elif c is None:
@@ -186,28 +221,31 @@ def pool(x, m_out: int, *, c: int | None = None, payload=None, encode=False,
                           device=device)
     name = _kernel_name("pool", payload, encode)
     if not encode:
-        launch(name, *src, y, scratch, m_out, k, c)
+        launch(name, *src, y, scratch, m_out, k, c, bm)
         return y
     out = _empty_payload(m_out, c, device)
-    launch(name, *src, y, *out, scratch, m_out, k, c)
+    launch(name, *src, y, *out, scratch, m_out, k, c, bm)
     return y, _egress_payload(*out)
 
 
 def act_relu(x, *, c: int | None = None, payload=None, encode=False,
-             block: int = BFP8_BLOCK):
+             block: int = BFP8_BLOCK, bm: int = 0):
     """relu, with the codec fused as above; with ``payload``, ``c`` names
     the channels it carries."""
     if not _on_cuda(x, payload):
         return _plain(ref.act_relu_ref, x, c, payload, encode, block)
+    _check_tiles("act_relu", bm)
+    if payload is None and not encode:
+        check_operand("act_relu x", x, torch.float32)
+        if x.dim() != 2:
+            raise ValueError(f"act_relu: x {tuple(x.shape)} is not (m, c)")
+        y = torch.empty_like(x)
+        launch("act_relu", x, y, x.shape[0], x.shape[1], bm)
+        return y
     if payload is None:
         c = x.shape[1]
     elif c is None:
         raise ValueError("act_relu with the ingress decode needs c")
-    if payload is None and not encode:
-        check_operand("act_relu x", x, torch.float32)
-        y = torch.empty_like(x)
-        launch("act_relu", x, y, x.numel())
-        return y
     _check_codec_block("act_relu", payload, encode, block)
     src, m = _input_operands("act_relu", x, payload, c)
     y = torch.empty((m, c), dtype=torch.float32, device=src[0].device)
@@ -215,10 +253,10 @@ def act_relu(x, *, c: int | None = None, payload=None, encode=False,
     if not encode:
         # the decode alone reads the mantissas four bytes at a time
         check_operand("act_relu man", src[0], torch.int8, align=4)
-        launch(name, *src, y, m, c)
+        launch(name, *src, y, m, c, bm)
         return y
     out = _empty_payload(m, c, src[0].device)
-    launch(name, *src, y, *out, m, c)
+    launch(name, *src, y, *out, m, c, bm)
     return y, _egress_payload(*out)
 
 

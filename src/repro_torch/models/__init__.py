@@ -1,0 +1,11 @@
+"""The LM stack on PyTorch: configs and the dense GQA transformer of the
+reference package's ``models/`` (prefill with the ``flash_attention``
+kernel, KV-cache decode)."""
+from .config import ArchConfig, MoECfg
+from .model import (decode_step, forward, init_cache, init_params,
+                    param_count, param_shapes, params_from_numpy,
+                    project_logits)
+
+__all__ = ["ArchConfig", "MoECfg", "decode_step", "forward", "init_cache",
+           "init_params", "param_count", "param_shapes", "params_from_numpy",
+           "project_logits"]

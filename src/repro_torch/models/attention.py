@@ -1,0 +1,187 @@
+"""GQA attention: chunked (flash-style) prefill and KV-cache decode, on
+PyTorch tensors — the counterparts of the reference package's
+``models/attention.py``.
+
+:func:`chunked_attention` is the reference's online-softmax scan in plain
+torch, every branch kept (causal or not, ``q_offset``, causal block
+skipping, ``_divisor_chunk``); it is also the plain version of the
+``flash_attention`` kernel.  The serving prefill
+(:func:`prefill_attention` with ``inference=True``) runs that kernel on the
+kernel route (``kernels/flash_attention.py``: the kernel on a CUDA tensor,
+this scan on a CPU one); every other caller, and ``use_kernels=False``,
+runs the scan.  The reference's sharding hints (``runtime/hints``) have no
+counterpart on one GPU and are left out.  Cross and encoder attention
+(whisper) are not ported yet (ROADMAP.md, Queue 1, item 11).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from .common import apply_rope, dense_init
+
+NEG_INF = -2.0 ** 30
+_LATER = "is not ported yet (ROADMAP.md, Queue 1, item 11)"
+
+
+def _divisor_chunk(n: int, target: int) -> int:
+    """Largest chunk <= target that divides n (handles e.g. whisper's 1500)."""
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def attn_params(gen: torch.Generator, cfg, dtype=torch.float32,
+                lead: tuple = ()) -> dict:
+    """The projections, each with the leading axes ``lead`` (the stack over
+    layer groups)."""
+    d, hd = cfg.d_model, cfg.hd
+    return {
+        "wq": dense_init(gen, lead + (d, cfg.n_heads * hd), dtype),
+        "wk": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dtype),
+        "wv": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dtype),
+        "wo": dense_init(gen, lead + (cfg.n_heads * hd, d), dtype),
+    }
+
+
+def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
+                 repeat_kv: bool = False):
+    """QKV projections.  With ``repeat_kv`` the KV weight blocks are
+    broadcast to all H query heads before the matmul, as the reference
+    does, so k and v come out with the full H head axis."""
+    B, S, _ = x.shape
+    hd, KH, H = cfg.hd, cfg.n_kv_heads, cfg.n_heads
+    G = H // KH
+    wk, wv = p["wk"], p["wv"]
+    if repeat_kv and G > 1:
+        d = wk.shape[0]
+        wk = wk.reshape(d, KH, hd).repeat_interleave(G, dim=1).reshape(
+            d, H * hd)
+        wv = wv.reshape(d, KH, hd).repeat_interleave(G, dim=1).reshape(
+            d, H * hd)
+        KH = H
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ wk).reshape(B, S, KH, hd)
+    v = (x @ wv).reshape(B, S, KH, hd)
+    if cfg.rope == "rope":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        raise NotImplementedError(f"M-RoPE ({cfg.name}) {_LATER}")
+    return q, k, v
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool, chunk: int = 1024, q_chunk: int = 512,
+                      q_offset: int = 0, skip_masked: bool = False
+                      ) -> torch.Tensor:
+    """Flash-style online-softmax attention: an outer loop over query
+    blocks, an inner one over KV blocks.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with H a multiple of KH (GQA; KV
+    heads are repeated to H).  With ``skip_masked`` and ``causal`` only the
+    KV blocks at or below a query block's diagonal run.
+    """
+    B, Sq, H, D = q.shape
+    _, Sk, KH, _ = k.shape
+    G = H // KH
+    scale = D ** -0.5
+    chunk = _divisor_chunk(Sk, chunk)
+    q_chunk = _divisor_chunk(Sq, q_chunk)
+    nk, nq = Sk // chunk, Sq // q_chunk
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    kb = k.reshape(B, nk, chunk, H, D)
+    vb = v.reshape(B, nk, chunk, H, D)
+    qb = (q * scale).reshape(B, nq, q_chunk, H, D)
+    dev = q.device
+    blocks = []
+    for iq in range(nq):
+        qf = qb[:, iq].float()
+        q_pos = q_offset + iq * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, q_chunk, H), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, q_chunk, H), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, q_chunk, H, D), dtype=torch.float32, device=dev)
+        n_run = nk
+        if skip_masked and causal:
+            n_run = min(((iq + 1) * q_chunk + q_offset + chunk - 1) // chunk,
+                        nk)
+        for jk in range(n_run):
+            s = torch.einsum("bqhd,bkhd->bqhk", qf, kb[:, jk].float())
+            if causal:
+                k_pos = jk * chunk + torch.arange(chunk, device=dev)
+                mask = q_pos[:, None] >= k_pos[None, :]
+                s = torch.where(mask[None, :, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bqhk,bkhd->bqhd", p, vb[:, jk].float())
+            m = m_new
+        out = o / torch.clamp(l, min=1e-30)[..., None]
+        blocks.append(out.to(q.dtype))
+    return torch.stack(blocks, dim=1).reshape(B, Sq, H, D)
+
+
+def prefill_attention(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor, *,
+                      chunk: int = 1024, inference: bool = False,
+                      use_kernels: bool = True):
+    """Full-sequence causal self-attention; returns (out, (k, v) cache).
+    The returned cache keeps the true KH KV heads (strided slice of the
+    weight-repeated heads).  ``inference`` enables causal block skipping
+    (forward only) and, with ``use_kernels``, the ``flash_attention``
+    kernel route."""
+    B, S, _ = x.shape
+    G = cfg.n_heads // cfg.n_kv_heads
+    q, k, v = _project_qkv(p, x, cfg, pos, repeat_kv=True)
+    if inference and use_kernels:
+        out = flash_attention(q, k, v, causal=True)
+    else:
+        out = chunked_attention(q, k, v, causal=True, chunk=min(chunk, S),
+                                skip_masked=inference)
+    out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    return out, (k[:, :, ::G], v[:, :, ::G])
+
+
+def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
+                     pos: torch.Tensor):
+    """Single-token decode against a (B, S_max, KH, D) KV cache.
+
+    ``pos``: (B,) absolute position of the incoming token.  The new k and v
+    are written into the cache tensors at ``pos`` in place (the reference
+    returns updated copies; in place saves a copy of the cache per layer
+    and step), and positions > pos are masked out.  Returns (out, (k cache,
+    v cache)), the same tensors."""
+    B, S1, _ = x.shape
+    if S1 != 1:
+        raise ValueError(f"decode_attention takes one token, got {S1}")
+    ck, cv = cache
+    S_max = ck.shape[1]
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None])
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    ck[rows, pos] = k[:, 0].to(ck.dtype)
+    cv[rows, pos] = v[:, 0].to(cv.dtype)
+    KH, D = cfg.n_kv_heads, cfg.hd
+    G = cfg.n_heads // KH
+    qf = (q * D ** -0.5).reshape(B, KH, G, D).to(ck.dtype)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, ck).float()
+    mask = torch.arange(S_max, device=ck.device)[None] <= pos[:, None]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", w.to(cv.dtype), cv).float()
+    out = o.reshape(B, 1, cfg.n_heads * D).to(x.dtype) @ p["wo"]
+    return out, (ck, cv)
+
+
+def cross_attention(*args, **kwargs):
+    """Decoder -> encoder cross attention (whisper)."""
+    raise NotImplementedError(f"cross attention (whisper) {_LATER}")
+
+
+def encoder_attention(*args, **kwargs):
+    """Non-causal self-attention of the whisper encoder."""
+    raise NotImplementedError(f"encoder attention (whisper) {_LATER}")

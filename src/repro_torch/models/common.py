@@ -1,0 +1,102 @@
+"""Shared model components: initialisers, norms, gated activations and
+RoPE, on PyTorch tensors.
+
+The counterparts of the reference package's ``models/common.py``, in f32
+arithmetic as there.  M-RoPE (qwen2-vl) is not ported yet (ROADMAP.md,
+Queue 1, item 11).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+# -- initialisers --------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
+               scale: float | None = None) -> torch.Tensor:
+    """Truncated-normal (at +-2) fan-in init, drawn from ``gen`` on its
+    device."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(std).to(dtype)
+
+
+# -- norms ---------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+def apply_norm(kind: str, x: torch.Tensor, p: dict) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["w"])
+    return layernorm(x, p["w"], p["b"])
+
+
+def norm_params(kind: str, d: int, dtype=torch.float32,
+                device: str | torch.device = "cpu", lead: tuple = ()) -> dict:
+    shape = lead + (d,)
+    if kind == "rmsnorm":
+        return {"w": torch.ones(shape, dtype=dtype, device=device)}
+    return {"w": torch.ones(shape, dtype=dtype, device=device),
+            "b": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# -- activations ---------------------------------------------------------------
+
+def gated_act(kind: str, up: torch.Tensor, gate: torch.Tensor
+              ) -> torch.Tensor:
+    if kind == "swiglu":
+        return F.silu(gate) * up
+    if kind == "geglu":
+        # jax.nn.gelu's default is the tanh approximation
+        return F.gelu(gate, approximate="tanh") * up
+    raise ValueError(kind)
+
+
+# -- rotary embeddings -----------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                            / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device
+                   ) -> torch.Tensor:
+    """:func:`rope_freqs` as f32 on ``device``, made once: a copy from host
+    memory at every call would make the host wait for the card."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float = 1e6
+               ) -> torch.Tensor:
+    """x: (..., S, H, D); pos: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = _rope_freqs_on(d, theta, x.device)                   # (D/2,)
+    ang = pos[..., :, None].float() * freqs                      # (..., S, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

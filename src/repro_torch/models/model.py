@@ -1,0 +1,267 @@
+"""Model assembly on PyTorch tensors: parameter init, the full-sequence
+forward (serving prefill) and the single-token decode — the counterparts of
+the reference package's ``models/model.py``.
+
+Parameters keep the reference's pytree layout, stacked over *layer groups*
+(one period of the layer pattern): ``{"embed", "groups": {"pos_j": {...}},
+"final_norm", "lm_head"}`` with a leading group axis on every leaf under
+``groups``, so a tree from the reference's ``init_params`` carries over
+leaf for leaf (:func:`params_from_numpy`).  The KV cache keeps the
+reference's layout too, ``{"pos_j": {"k", "v"}}`` of shape ``(n_groups, B,
+s_max, KH, D)``, so its pages compare 1:1.  The reference scans over the
+groups; here a Python loop runs them in the same order.
+
+Only attention layers with a dense FFN run in this port yet: mamba, mLSTM,
+sLSTM, mixture-of-experts, encoder-decoder (whisper) and M-RoPE raise
+``NotImplementedError`` (ROADMAP.md, Queue 1, item 11).  The training loss
+(``lm_loss``) comes with the training path.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import attention as A
+from . import moe as M
+from .common import apply_norm, dense_init, norm_params
+from .config import ArchConfig
+
+Params = dict
+_LATER = "is not ported yet (ROADMAP.md, Queue 1, item 11)"
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    kinds = {cfg.layer_kind(j) for j in range(cfg.group_size)}
+    if kinds != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: mixers {sorted(kinds - {'attn'})} {_LATER}")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: mixture of experts {_LATER}")
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder {_LATER}")
+
+
+# =============================================================================
+# init
+# =============================================================================
+
+def init_params(gen: torch.Generator, cfg: ArchConfig,
+                dtype=torch.float32) -> Params:
+    """Random parameters drawn from ``gen`` on its device, in the
+    reference's layout and with its initialisers (truncated-normal fan-in,
+    0.02 for the embeddings, ones for the norms).  A torch generator gives
+    other numbers than the reference's key from the same seed; to run the
+    reference's weights, carry them over with :func:`params_from_numpy`."""
+    _check_supported(cfg)
+    dev = gen.device
+    lead = (cfg.n_groups,)
+    p: Params = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype,
+                                     scale=0.02)}
+    groups = {}
+    for j in range(cfg.group_size):
+        lp = {"norm1": norm_params(cfg.norm, cfg.d_model, dtype, dev, lead),
+              "mixer": A.attn_params(gen, cfg, dtype, lead)}
+        if cfg.d_ff > 0:
+            lp["norm2"] = norm_params(cfg.norm, cfg.d_model, dtype, dev,
+                                      lead)
+            lp["ffn"] = M.dense_ffn_params(gen, cfg, dtype, lead)
+        groups[f"pos_{j}"] = lp
+    p["groups"] = groups
+    p["final_norm"] = norm_params(cfg.norm, cfg.d_model, dtype, dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.vocab, cfg.d_model), dtype,
+                                  scale=0.02)
+    return p
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from _leaves(v, name + "/")
+        else:
+            yield name, v
+
+
+def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
+    """Every parameter's ``"/"``-joined tree path and shape."""
+    _check_supported(cfg)
+    d, hd, ng = cfg.d_model, cfg.hd, cfg.n_groups
+    layer = {"norm1/w": (d,), "mixer/wq": (d, cfg.n_heads * hd),
+             "mixer/wk": (d, cfg.n_kv_heads * hd),
+             "mixer/wv": (d, cfg.n_kv_heads * hd),
+             "mixer/wo": (cfg.n_heads * hd, d)}
+    if cfg.norm == "layernorm":
+        layer["norm1/b"] = (d,)
+    if cfg.d_ff > 0:
+        layer |= {"norm2/w": (d,), "ffn/w_up": (d, cfg.d_ff),
+                  "ffn/w_down": (cfg.d_ff, d)}
+        if cfg.norm == "layernorm":
+            layer["norm2/b"] = (d,)
+        if cfg.act in ("swiglu", "geglu"):
+            layer["ffn/w_gate"] = (d, cfg.d_ff)
+    out = {"embed": (cfg.vocab, d)}
+    for j in range(cfg.group_size):
+        out |= {f"groups/pos_{j}/{k}": (ng,) + s for k, s in layer.items()}
+    out["final_norm/w"] = (d,)
+    if cfg.norm == "layernorm":
+        out["final_norm/b"] = (d,)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (cfg.vocab, d)
+    return out
+
+
+def params_from_numpy(tree: dict, cfg: ArchConfig,
+                      device: str | torch.device = "cpu") -> Params:
+    """The reference's ``init_params`` tree, as nested dicts of numpy
+    arrays, as the port's parameters: f32 tensors on ``device`` in the same
+    layout.  Every leaf :func:`param_shapes` names must be there with its
+    shape, and no other."""
+    want = param_shapes(cfg)
+    got = dict(_leaves(tree))
+    if set(got) != set(want):
+        raise ValueError(f"parameter tree differs: missing "
+                         f"{sorted(set(want) - set(got))}, unknown "
+                         f"{sorted(set(got) - set(want))}")
+    out: Params = {}
+    for name, a in got.items():
+        a = np.asarray(a, dtype=np.float32)
+        if a.shape != want[name]:
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{want[name]}")
+        node = out
+        *path, leaf = name.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = torch.from_numpy(a.copy()).to(device)
+    return out
+
+
+def param_count(params: Params) -> int:
+    return sum(t.numel() for _, t in _leaves(params))
+
+
+# =============================================================================
+# layer application
+# =============================================================================
+
+def _apply_layer(lp: dict, x: torch.Tensor, cfg: ArchConfig, layer_idx: int,
+                 *, pos: torch.Tensor, cache: dict | None = None, mode: str,
+                 use_kernels: bool = True):
+    """One transformer layer.  mode: "full" (prefill) | "decode".  Returns
+    (x, new_cache)."""
+    kind = cfg.layer_kind(layer_idx)
+    if kind != "attn":
+        raise NotImplementedError(f"{kind} layers {_LATER}")
+    if "cross" in lp or "moe" in lp:
+        raise NotImplementedError(f"cross-attention and MoE layers {_LATER}")
+    h = apply_norm(cfg.norm, x, lp["norm1"])
+    new_cache: dict = {}
+    if mode == "full":
+        # cache production == serving prefill == forward-only: the
+        # causal-block-skipping attention (and its kernel) is safe
+        out, (k, v) = A.prefill_attention(lp["mixer"], h, cfg, pos,
+                                          inference=cache is not None,
+                                          use_kernels=use_kernels)
+        if cache is not None:
+            S = k.shape[1]
+            new_cache = {}
+            for name, t in (("k", k), ("v", v)):
+                c = torch.zeros_like(cache[name])
+                c[:, :S] = t.to(c.dtype)
+                new_cache[name] = c
+    else:
+        out, (ck, cv) = A.decode_attention(
+            lp["mixer"], h, cfg, (cache["k"], cache["v"]), pos)
+        new_cache = {"k": ck, "v": cv}
+    x = x + out
+    if cfg.d_ff > 0:
+        h2 = apply_norm(cfg.norm, x, lp["norm2"])
+        x = x + M.apply_dense_ffn(lp["ffn"], h2, cfg)
+    return x, new_cache
+
+
+def _group(tree: dict, g: int) -> dict:
+    """Group ``g``'s slice of every leaf (views)."""
+    return {k: _group(v, g) if isinstance(v, dict) else v[g]
+            for k, v in tree.items()}
+
+
+# =============================================================================
+# cache construction
+# =============================================================================
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int,
+               dtype=torch.float32, device: str | torch.device = "cpu"
+               ) -> dict:
+    """Stacked-over-groups cache: ``{pos_j: {"k", "v"}}``, each
+    (n_groups, batch, s_max, KH, D), zeros."""
+    _check_supported(cfg)
+    shape = (cfg.n_groups, batch, s_max, cfg.n_kv_heads, cfg.hd)
+    return {f"pos_{j}": {n: torch.zeros(shape, dtype=dtype, device=device)
+                         for n in ("k", "v")}
+            for j in range(cfg.group_size)}
+
+
+# =============================================================================
+# forward passes
+# =============================================================================
+
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            cache: dict | None = None, pos_offset: torch.Tensor | None = None,
+            use_kernels: bool = True):
+    """Full-sequence forward.  Returns (hidden, new_cache, aux_loss).
+
+    tokens: (B, S) int.  With ``cache`` given (prefill), new per-layer KV
+    caches of its shapes are returned, the prompt's keys and values in the
+    first S positions and zeros after.  ``pos_offset``: (B,) start
+    positions.  ``use_kernels`` lets the prefill attention take the
+    ``flash_attention`` kernel route.
+    """
+    _check_supported(cfg)
+    B, Sq = tokens.shape
+    x = params["embed"][tokens]
+    pos = torch.arange(Sq, device=x.device)[None]
+    if pos_offset is not None:
+        pos = pos + pos_offset[:, None]
+    gs = cfg.group_size
+    per_group = []
+    for g in range(cfg.n_groups):
+        gp = _group(params["groups"], g)
+        gc = _group(cache, g) if cache is not None else None
+        new_gc = {}
+        for j in range(gs):
+            x, nc = _apply_layer(gp[f"pos_{j}"], x, cfg, j, pos=pos,
+                                 cache=gc[f"pos_{j}"] if gc else None,
+                                 mode="full", use_kernels=use_kernels)
+            new_gc[f"pos_{j}"] = nc
+        per_group.append(new_gc)
+    x = apply_norm(cfg.norm, x, params["final_norm"])
+    new_cache = None
+    if cache is not None:
+        new_cache = {pj: {n: torch.stack([pg[pj][n] for pg in per_group])
+                          for n in ("k", "v")} for pj in cache}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux
+
+
+def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
+                pos: torch.Tensor, cache: dict):
+    """One decode step.  token: (B, 1); pos: (B,).  Returns (logits,
+    cache); the cache's tensors are updated in place at ``pos``."""
+    _check_supported(cfg)
+    x = params["embed"][token]
+    for g in range(cfg.n_groups):
+        gp = _group(params["groups"], g)
+        gc = _group(cache, g)
+        for j in range(cfg.group_size):
+            x, _ = _apply_layer(gp[f"pos_{j}"], x, cfg, j, pos=pos,
+                                cache=gc[f"pos_{j}"], mode="decode")
+    x = apply_norm(cfg.norm, x, params["final_norm"])
+    return project_logits(params, cfg, x[:, 0]), cache
+
+
+def project_logits(params: Params, cfg: ArchConfig, x: torch.Tensor
+                   ) -> torch.Tensor:
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return (x @ head.T).float()

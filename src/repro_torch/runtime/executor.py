@@ -202,6 +202,11 @@ class PlanAnalysis:
     #: evicted edges carrying a BFP8 spill — the payload-routed set the
     #: kernel route encodes once per producer / decodes per consumer
     bfp8_edges: set = dataclasses.field(default_factory=set)
+    #: the plan's kernel tiles (0 = kernel default): row block and, for the
+    #: conv family, column block; launch parameters on the card, ignored by
+    #: the plain versions (``kernels/streaming_conv.py``)
+    tile_bm: int = 0
+    tile_bc: int = 0
 
     @property
     def n_stages(self) -> int:
@@ -282,7 +287,9 @@ def analyze_plan(g: Graph, plan: ExecutionPlan | None, *,
         frac=frac, stage_of=stage_of, streamed_weight_bits=streamed_bits,
         static_weight_bits=static_bits, use_kernels=use_kernels,
         in_vertex=in_vertex, in_shape=out_shape[in_vertex],
-        bfp8_edges=bfp8_edges)
+        bfp8_edges=bfp8_edges,
+        tile_bm=(plan.tile_bm if plan is not None else 0),
+        tile_bc=(plan.tile_bc if plan is not None else 0))
 
 
 def apply_vertex(v, ins: list[torch.Tensor], params: dict,
@@ -308,22 +315,23 @@ def apply_vertex(v, ins: list[torch.Tensor], params: dict,
             return streamed_matmul_padded(h, params[v.name],
                                           static_fraction=f)
         if an.use_kernels:
-            return SC.conv2d(h, params[v.name])
+            return SC.conv2d(h, params[v.name], bm=an.tile_bm,
+                             bc=an.tile_bc)
         return kref.conv2d_ref(h, params[v.name])
     if v.kind in TEMPORAL_KINDS:
         # the temporal split is not streamable through the matmul kernel;
         # a fragmented dwconv streams per the plan's traffic accounting but
         # executes the full (numerically identical) temporal mix.
         if an.use_kernels:
-            return SC.dwconv(ins[0], params[v.name])
+            return SC.dwconv(ins[0], params[v.name], bm=an.tile_bm)
         return kref.dwconv_ref(ins[0], params[v.name])
     if v.kind == "act":
         if an.use_kernels:
-            return SC.act_relu(ins[0])
+            return SC.act_relu(ins[0], bm=an.tile_bm)
         return kref.act_relu_ref(ins[0])
     if v.kind == "pool":
         if an.use_kernels:
-            return SC.pool(ins[0], an.out_shape[v.name][0])
+            return SC.pool(ins[0], an.out_shape[v.name][0], bm=an.tile_bm)
         return kref.pool_ref(ins[0], an.out_shape[v.name][0])
     if v.kind == "upsample":
         return kref.upsample_ref(ins[0], an.out_shape[v.name][0])
@@ -396,9 +404,10 @@ def apply_vertex_fused(v, ins, params, x, analysis: PlanAnalysis, *,
     if not (an.use_kernels and v.kind in FUSABLE_KINDS):
         raise ValueError(f"{v.kind!r} cannot fuse the codec on this route")
     xin = ins[0] if payload_in is None else None
-    kw = dict(payload=payload_in, encode=want_payload, block=BFP8_BLOCK)
+    kw = dict(payload=payload_in, encode=want_payload, block=BFP8_BLOCK,
+              bm=an.tile_bm)
     if v.kind in WEIGHT_KINDS:
-        out = SC.conv2d(xin, params[v.name], **kw)
+        out = SC.conv2d(xin, params[v.name], bc=an.tile_bc, **kw)
     elif v.kind in TEMPORAL_KINDS:
         out = SC.dwconv(xin, params[v.name], **kw)
     elif v.kind == "pool":

@@ -1,26 +1,54 @@
-"""The graph serving front end of the port: frames in, streams through the
-pipelined executor, results out by ticket.
+"""The serving front ends of the port: the LM decode engine with continuous
+batching and BFP8 KV-page eviction, and the graph stream server.
 
-The counterpart of the reference package's ``serving/engine.py``
-``GraphStreamServer``: a batched front end that packs submitted frames
+The counterparts of the reference package's ``serving/engine.py``.
+
+:class:`ServingEngine`: requests enter a queue and are packed into fixed
+decode slots (continuous batching — a finished request's slot is refilled
+at the next step); each prompt is prefilled on its own into its slot, and
+decode advances all slots in lockstep.  The paper's activation eviction
+shows up as KV-page eviction: a finished request's pages stay parked in
+device memory while ``resident_limit`` allows, and older page-sets spill to
+the host oldest-first through the BFP8 codec (the host-side
+``core.compression`` copy, as in the reference), so the eviction order is
+the retirement order.  ``restore_request`` brings them back, exactly from
+the device, through the BFP8 decode from the host.  On the kernel route
+the prefill attention runs the ``flash_attention`` kernel on the card.
+
+:class:`GraphStreamServer`: a batched front end that packs submitted frames
 into fixed-length microbatch streams and runs them through the pipelined
-streaming executor (``runtime/streamer``).  The LM ``ServingEngine`` of
-the same module is not ported yet (ROADMAP.md, Queue 1, item 11).
-
-On a CUDA device a stream's frames are stacked into one tensor on the
-card, and the host waits for the stream's results before it reads the
-clock for the latency histogram and the SLO window: without that wait the
-clock would read the launches, not the work.
+streaming executor (``runtime/streamer``).  On a CUDA device a stream's
+frames are stacked into one tensor on the card, and the host waits for the
+stream's results before it reads the clock for the latency histogram and
+the SLO window: without that wait the clock would read the launches, not
+the work.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
+import queue
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
+from ..core.compression import bfp8_decode, bfp8_encode
+from ..models import decode_step, forward, init_cache, project_logits
+from ..models.config import ArchConfig
 from ..obs.metrics import MetricsRegistry
+from ..runtime.executor import resolve_kernel_mode
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                    # (S,) int32
+    max_new_tokens: int = 16
+    eos: int | None = None
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
 
 
 class _RegistryStats:
@@ -48,6 +76,265 @@ class _RegistryStats:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.report()})"
+
+
+class EngineStats(_RegistryStats):
+    """Live view of the decode engine's counters (see ``_RegistryStats``)."""
+
+    _PREFIX = "smof_engine_"
+
+    @property
+    def prefills(self) -> int:
+        return self._value("smof_engine_prefills_total")
+
+    @property
+    def decode_steps(self) -> int:
+        return self._value("smof_engine_decode_steps_total")
+
+    @property
+    def generated(self) -> int:
+        return self._value("smof_engine_generated_tokens_total")
+
+    @property
+    def evicted_pages(self) -> int:
+        return self._value("smof_engine_evicted_pages_total")
+
+    @property
+    def restored_pages(self) -> int:
+        return self._value("smof_engine_restored_pages_total")
+
+    @property
+    def evicted_bytes_raw(self) -> int:
+        return self._value("smof_engine_evicted_bytes_total", kind="raw")
+
+    @property
+    def evicted_bytes_compressed(self) -> int:
+        return self._value("smof_engine_evicted_bytes_total",
+                           kind="compressed")
+
+
+def _page_names(cache: dict):
+    """Each cache leaf as (``"/"``-joined tree path, tensor): the
+    reference's page names (``pos_0/k`` ...)."""
+    for pj, leaves in cache.items():
+        for n, t in leaves.items():
+            yield f"{pj}/{n}", t
+
+
+class ServingEngine:
+    """Continuous-batching LM decode engine with BFP8 KV-page eviction.
+
+    ``device`` holds the cache and must hold ``params``; nothing moves to
+    another device on its own.  ``kernel_mode``, as ``CompileSpec``'s:
+    ``"auto"`` (the kernel route: the ``flash_attention`` kernel on a CUDA
+    device, its plain version on the CPU), ``"cuda"`` (the kernel route,
+    refused off the card) or ``"reference"`` (the plain scan everywhere).
+    """
+
+    def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 4,
+                 s_max: int = 256, dtype=torch.float32,
+                 evict_to_host: bool = False, resident_limit: int = 0,
+                 sampler: Callable | None = None,
+                 metrics: MetricsRegistry | None = None,
+                 device: str | torch.device = "cuda",
+                 kernel_mode: str = "auto"):
+        self.cfg = cfg
+        self.params = params
+        self.device = torch.device(device)
+        self.use_kernels = resolve_kernel_mode(kernel_mode, self.device)
+        held = params["embed"].device
+        if held.type != self.device.type:
+            raise ValueError(f"params lie on {held}, the engine serves on "
+                             f"{self.device}")
+        if self.device.type == "cuda":
+            # the reference is pure f32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.B = max_batch
+        self.s_max = s_max
+        self.dtype = dtype
+        self.evict_to_host = evict_to_host
+        # retired page-sets allowed to stay parked on the device before the
+        # oldest spills to the host (0 = spill immediately on retire)
+        self.resident_limit = resident_limit
+        self.sampler = sampler or (lambda logits: torch.argmax(logits, -1))
+        self.cache = init_cache(cfg, max_batch, s_max, dtype=dtype,
+                                device=self.device)
+        self.slots: list[Request | None] = [None] * max_batch
+        self.pos = np.zeros(max_batch, np.int64)
+        self.queue: "queue.Queue[Request]" = queue.Queue()
+        # every engine counter lives in one MetricsRegistry (own registry by
+        # default so engines never cross-talk); self.stats is a live view
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        m = self.metrics
+        self._c_prefills = m.counter(
+            "smof_engine_prefills_total", "prompt prefills run")
+        self._c_decode = m.counter(
+            "smof_engine_decode_steps_total", "lockstep decode steps")
+        self._c_generated = m.counter(
+            "smof_engine_generated_tokens_total",
+            "tokens sampled across all slots")
+        self._c_evicted_pages = m.counter(
+            "smof_engine_evicted_pages_total",
+            "KV pages BFP8-evicted across the HBM -> host boundary")
+        self._c_restored_pages = m.counter(
+            "smof_engine_restored_pages_total",
+            "KV pages restored into HBM (resident or via BFP8 decode)")
+        self._c_evicted_bytes = m.counter(
+            "smof_engine_evicted_bytes_total",
+            "KV eviction traffic in bytes, raw (bf16 words) vs compressed",
+            ("kind",))
+        self._h_latency = m.histogram(
+            "smof_engine_request_latency_seconds",
+            "submit -> retire wall clock per request")
+        self.stats = EngineStats(m)
+        # submit -> retire wall clock per request (log-bucketed)
+        self.latency = self._h_latency.labels().hist
+        self._submit_ts: dict[int, float] = {}
+        self.host_store: dict[int, dict] = {}    # rid -> evicted pages
+        # rid -> raw pages still on the device, in retirement order (FIFO)
+        self.resident_store: "collections.OrderedDict[int, dict]" = \
+            collections.OrderedDict()
+        self._next_rid = 0
+
+    # -- request intake ------------------------------------------------------------
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
+               eos: int | None = None) -> Request:
+        r = Request(rid=self._next_rid, prompt=np.asarray(prompt, np.int32),
+                    max_new_tokens=max_new_tokens, eos=eos)
+        self._next_rid += 1
+        self._submit_ts[r.rid] = time.perf_counter()
+        self.queue.put(r)
+        return r
+
+    # -- slot management -------------------------------------------------------------
+    def _fill_slots(self) -> None:
+        for b in range(self.B):
+            if self.slots[b] is None and not self.queue.empty():
+                r = self.queue.get()
+                self._prefill(b, r)
+                self.slots[b] = r
+
+    def run_prefill(self, prompt: np.ndarray):
+        """One prompt through the full forward on this engine's route:
+        (logits of its last position (1, vocab), its KV cache of one slot,
+        the engine cache's layout with batch 1)."""
+        S = len(prompt)
+        if S >= self.s_max:
+            raise ValueError(f"prompt of {S} tokens does not fit s_max="
+                             f"{self.s_max}")
+        toks = torch.as_tensor(np.asarray(prompt, np.int64),
+                               device=self.device)[None]
+        one_cache = init_cache(self.cfg, 1, self.s_max, dtype=self.dtype,
+                               device=self.device)
+        x, new_cache, _ = forward(self.params, self.cfg, toks,
+                                  cache=one_cache,
+                                  use_kernels=self.use_kernels)
+        return project_logits(self.params, self.cfg, x[:, -1]), new_cache
+
+    def _prefill(self, slot: int, r: Request) -> None:
+        """Run the prompt through the full forward, writing slot ``slot``."""
+        logits, new_cache = self.run_prefill(r.prompt)
+        r.out_tokens.append(int(self.sampler(logits)[0]))
+        for (_, c), (_, n) in zip(_page_names(self.cache),
+                                  _page_names(new_cache)):
+            c[:, slot] = n[:, 0]
+        self.pos[slot] = len(r.prompt)
+        self._c_prefills.inc()
+
+    def _retire(self, slot: int) -> None:
+        r = self.slots[slot]
+        if r is not None:
+            t0 = self._submit_ts.pop(r.rid, None)
+            if t0 is not None:
+                self.latency.record(time.perf_counter() - t0)
+        if r is not None and self.evict_to_host:
+            pages = self._snapshot_slot(slot)
+            if self.resident_limit > 0:
+                self.resident_store[r.rid] = pages
+                while len(self.resident_store) > self.resident_limit:
+                    # budget exceeded: spill the OLDEST retired page-set
+                    old_rid, old_pages = self.resident_store.popitem(
+                        last=False)
+                    self._host_evict(old_rid, old_pages)
+            else:
+                self._host_evict(r.rid, pages)
+        self.slots[slot] = None
+        self.pos[slot] = 0
+
+    # -- KV eviction (paper Eq. 1/2 at the HBM <-> host level) -----------------------
+    def _snapshot_slot(self, slot: int) -> dict:
+        """Copy one slot's KV pages out of the decode cache (a copy of its
+        own on the device: later steps write the cache in place)."""
+        return {name: c[:, slot].clone() for name, c in
+                _page_names(self.cache)}
+
+    def _host_evict(self, rid: int, pages: dict) -> None:
+        """BFP8-encode a page-set across the device -> host boundary."""
+        enc_pages = {}
+        for name, page in pages.items():
+            page = page.float().cpu().numpy()
+            enc = bfp8_encode(page)
+            self._c_evicted_bytes.labels(kind="raw").inc(
+                page.size * 2)                                 # bf16 words
+            self._c_evicted_bytes.labels(kind="compressed").inc(
+                enc.mantissas.size + enc.exponents.size)
+            enc_pages[name] = enc
+        self.host_store[rid] = enc_pages
+        self._c_evicted_pages.inc(len(enc_pages))
+
+    def restore_request(self, rid: int, slot: int) -> None:
+        """Bring an evicted request's pages back into the cache's slot
+        ``slot`` (resumption).  Pages still parked under ``resident_limit``
+        restore exactly; pages that crossed to the host come back through
+        the BFP8 codec."""
+        resident = self.resident_store.pop(rid, None)
+        for name, c in _page_names(self.cache):
+            if resident is not None:
+                page = resident[name]
+            else:
+                page = torch.from_numpy(bfp8_decode(
+                    self.host_store[rid][name]))
+            c[:, slot] = page.to(device=c.device, dtype=c.dtype)
+            self._c_restored_pages.inc()
+        if resident is None:
+            del self.host_store[rid]
+
+    # -- decode loop ---------------------------------------------------------------
+    def step(self) -> int:
+        """One lockstep decode step over all active slots; returns #active."""
+        self._fill_slots()
+        active = [b for b, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return 0
+        last = np.zeros((self.B, 1), np.int64)
+        for b in active:
+            last[b, 0] = self.slots[b].out_tokens[-1]
+        logits, self.cache = decode_step(
+            self.params, self.cfg, torch.as_tensor(last, device=self.device),
+            torch.as_tensor(self.pos, device=self.device), self.cache)
+        nxt = self.sampler(logits).cpu().numpy()
+        self._c_decode.inc()
+        for b in active:
+            r = self.slots[b]
+            self.pos[b] += 1
+            r.out_tokens.append(int(nxt[b]))
+            self._c_generated.inc()
+            if (len(r.out_tokens) >= r.max_new_tokens
+                    or (r.eos is not None and int(nxt[b]) == r.eos)
+                    or self.pos[b] >= self.s_max - 1):
+                r.done = True
+                self._retire(b)
+        return len(active)
+
+    def run_until_drained(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if self.step() == 0 and self.queue.empty():
+                return
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of this engine's registry."""
+        return self.metrics.metrics_text()
 
 
 class StreamServerStats(_RegistryStats):

@@ -8,6 +8,7 @@ skip.  Run them on the card with
 """
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -426,3 +427,128 @@ def test_raw_and_bfp8_crossings_of_one_producer_on_the_card(gen):
     ys = pipe.run(xs)
     for b in range(4):
         assert torch.equal(_bits(ys[b]), _bits(staged.run(xs[b])))
+
+
+# -- flash_attention -----------------------------------------------------------
+
+@pytest.mark.parametrize("S", [1, 63, 64, 300, 512])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_against_its_plain_version(gen, S, D, causal):
+    """The kernel on any S (ragged tail rows and key tiles) against the
+    plain scan within rtol = atol = 2e-4 (the online softmax sums in
+    another order), one launch a call."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import chunked_attention
+    q, k, v = (torch.randn(2, S, 3, D, generator=gen, device="cuda")
+               for _ in range(3))
+    reset_launches()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launches()["flash_attention"] == 1
+    want = chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
+                             skip_masked=causal)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got, ref.flash_attention_ref(
+        q, k, v, causal=causal), rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_raises_without_its_library(gen, monkeypatch,
+                                                    tmp_path):
+    """No kernel library (it cannot be built): the wrapper and the
+    engine's prefill raise; nothing runs the plain version instead."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import library
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    monkeypatch.setattr(library, "_LIBRARY", None)
+    monkeypatch.setattr(library, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(library, "_nvcc", lambda: str(tmp_path / "no-nvcc"))
+    q = torch.randn(1, 8, 2, 16, generator=gen, device="cuda")
+    with pytest.raises((RuntimeError, OSError)):
+        flash_attention(q, q, q)
+    cfg = ARCHS["yi-6b"].reduced()
+    eng = ServingEngine(cfg, init_params(gen, cfg), device="cuda")
+    with pytest.raises((RuntimeError, OSError)):
+        eng.run_prefill(np.arange(5))
+
+
+def test_engine_prefill_runs_the_kernel(gen):
+    """The serving prefill on the card: one flash launch per layer, first
+    logits and KV pages within 2e-4 x max|plain| of the plain route on
+    the same weights."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    cfg = ARCHS["yi-6b"].reduced(n_layers=3)
+    params = init_params(gen, cfg)
+    kern = ServingEngine(cfg, params, s_max=128, device="cuda")
+    plain = ServingEngine(cfg, params, s_max=128, device="cuda",
+                          kernel_mode="reference")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, 77)
+    reset_launches()
+    lk, ck = kern.run_prefill(prompt)
+    torch.cuda.synchronize()
+    assert launches()["flash_attention"] == cfg.n_layers
+    lp, cp = plain.run_prefill(prompt)
+    assert launches()["flash_attention"] == cfg.n_layers
+    for got, want in [(lk, lp)] + [(ck[pj][n], cp[pj][n]) for pj in cp
+                                   for n in ("k", "v")]:
+        tol = 2e-4 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+# -- the plan's tiles ----------------------------------------------------------
+
+def _tiled_calls(gen, kind):
+    """(call(bm, bc) -> outputs as a flat list, bc choices it takes) for a
+    tiled wrapper variant at ragged shapes."""
+    op = kind.split("_")[0]                 # conv2d, dwconv, pool, act
+    dec, enc = "_decode" in kind, kind.endswith("_encode")
+    m, c = 300, 40
+    tree = "_tree" in kind                  # k = 300: the tree passes
+    if tree:
+        m = 900
+    x = torch.randn(m, c, generator=gen, device="cuda") * 3
+    pay = _codec(x) if dec else None
+    xin = None if dec else x
+    kw = dict(payload=pay, encode=enc)
+    if op == "conv2d":
+        w = torch.randn(c, 130, generator=gen, device="cuda") / math.sqrt(c)
+        fn = lambda bm, bc: SC.conv2d(xin, w, bm=bm, bc=bc, **kw)  # noqa: E731
+        bcs = SC.TILE_BC_CHOICES
+    elif op == "dwconv":
+        w = torch.randn(3, c, generator=gen, device="cuda")
+        fn = lambda bm, bc: SC.dwconv(xin, w, bm=bm, **kw)       # noqa: E731
+        bcs = (0,)
+    elif op == "pool":
+        m_out = 3 if tree else 150
+        fn = lambda bm, bc: SC.pool(xin, m_out, c=c, bm=bm,      # noqa: E731
+                                    **kw)
+        bcs = (0,)
+    else:
+        fn = lambda bm, bc: SC.act_relu(xin, c=c, bm=bm, **kw)   # noqa: E731
+        bcs = (0,)
+
+    def call(bm, bc):
+        out = fn(bm, bc)
+        return list(out[:1]) + list(out[1]) if enc else [out]
+    return call, bcs
+
+
+TILED = [f"{op}{var}" for op in ("conv2d", "dwconv", "pool", "act_relu")
+         for var in ("", "_encode", "_decode", "_decode_encode")] + [
+    "pool_tree", "pool_tree_encode"]
+
+
+@pytest.mark.parametrize("kind", TILED)
+def test_every_tile_gives_the_untiled_result(gen, kind):
+    """Every TILE_BM_CHOICES x TILE_BC_CHOICES value a kernel takes gives
+    output bit-equal to tile 0 (ragged rows and channels)."""
+    call, bcs = _tiled_calls(gen, kind)
+    want = call(0, 0)
+    for bm in SC.TILE_BM_CHOICES:
+        for bc in bcs:
+            for g, w in zip(call(bm, bc), want):
+                assert torch.equal(_bits(g), _bits(w)), (kind, bm, bc)

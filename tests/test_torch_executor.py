@@ -216,3 +216,46 @@ def test_forward_holds_no_spilled_stream_while_it_waits(codecs):
     assert list(every) == an.topo
     assert torch.equal(out[an.topo[-1]], every[an.topo[-1]])
     assert torch.equal(c.run(x), out[an.topo[-1]])
+
+
+@pytest.mark.parametrize("thresh", [None, 0.0], ids=["dse", "evict-all"])
+@pytest.mark.parametrize("mode", ["staged", "pipelined"])
+def test_plan_tiles_reach_every_kernel_call(monkeypatch, thresh, mode):
+    """A plan's ``tile_bm`` / ``tile_bc`` reach every call of the tiled
+    wrappers, plain and fused, on both executors: ``bm`` to conv2d,
+    dwconv, pool and act_relu, ``bc`` to conv2d (the reference passes them
+    the same way)."""
+    from repro_torch.core import hand_cut_plan
+    from repro_torch.kernels import streaming_conv as SC
+    calls = []
+    for name in ("conv2d", "dwconv", "pool", "act_relu"):
+        orig = getattr(SC, name)
+
+        def spy(*a, _name=name, _orig=orig, **kw):
+            calls.append((_name, kw.get("bm"), kw.get("bc"),
+                          kw.get("payload") is not None or
+                          bool(kw.get("encode"))))
+            return _orig(*a, **kw)
+        monkeypatch.setattr(SC, name, spy)
+    g = tbuilders.build_x3d_exec(positions=64, cin=3, widths=(8, 16),
+                                 expansion=2, depth=1)
+    if thresh is None:
+        plan = repro_torch.build_plan(repro_torch.CompileSpec(
+            model=g, device=TDevice(**_TINY),
+            dse=TDSEConfig(**_dse(("none", "bfp8")))))
+    else:
+        plan = hand_cut_plan(g, 1, depth_thresh=thresh)
+    plan = dataclasses.replace(plan, tile_bm=64, tile_bc=64)
+    comp = repro_torch.compile(repro_torch.CompileSpec(
+        model=g, strategy="manual-plan", plan=plan, mode=mode,
+        microbatches=2, torch_device="cpu"))
+    x = torch.randn((2,) + comp.input_shape() if mode == "pipelined"
+                    else comp.input_shape(),
+                    generator=torch.Generator().manual_seed(0))
+    comp.run(x)
+    assert {c[0] for c in calls} == {"conv2d", "dwconv", "pool", "act_relu"}
+    if thresh is not None:
+        assert any(c[3] for c in calls)          # the fused variants too
+    for name, bm, bc, _ in calls:
+        assert bm == 64, name
+        assert bc == (64 if name == "conv2d" else None), name

@@ -105,16 +105,23 @@ def test_import_leaves_jax_and_repro_out():
 @pytest.mark.parametrize("module", ["repro_torch.runtime.streamer",
                                     "repro_torch.memory", "repro_torch.obs",
                                     "repro_torch.serving",
-                                    "repro_torch.testing"])
+                                    "repro_torch.serving.engine",
+                                    "repro_torch.testing",
+                                    "repro_torch.models",
+                                    "repro_torch.configs",
+                                    "repro_torch.launch.serve"])
 def test_streamer_packages_leave_jax_and_repro_out(module):
     """The pipelined streamer, its copies of the reference's memory and obs
     layers (the metrics registry, SLO scoring and flight recorder among
-    them), the serving front end and the conformance harness, each
-    imported first in a fresh interpreter, with its submodules."""
+    them), the serving front ends (the LM engine among them), the
+    conformance harness, the LM stack, its configs and the serving
+    launcher, each imported first in a fresh interpreter, with its
+    submodules."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         mod = importlib.import_module({module!r})
-        for m in pkgutil.walk_packages(mod.__path__, {module!r} + "."):
+        for m in pkgutil.walk_packages(getattr(mod, "__path__", []),
+                                       {module!r} + "."):
             importlib.import_module(m.name)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -144,6 +151,28 @@ def test_sources_import_neither_jax_nor_repro(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_arch_configs_equal_the_reference():
+    """The copied ``ArchConfig`` and ``ARCHS`` equal the reference's field
+    for field, ``param_counts()`` and the reduced forms included."""
+    from repro.configs import ARCHS as JARCHS
+    from repro.configs import SHAPES as JSHAPES
+    from repro_torch.configs import ARCHS, SHAPES, get_arch
+    from repro_torch.models.config import ArchConfig
+    assert sorted(ARCHS) == sorted(JARCHS)
+    assert ({f.name for f in dataclasses.fields(ArchConfig)}
+            == {f.name for f in dataclasses.fields(JARCHS["yi-6b"])})
+    for name, jcfg in JARCHS.items():
+        for t, j in ((ARCHS[name], jcfg),
+                     (ARCHS[name].reduced(), jcfg.reduced())):
+            td, jd = dataclasses.asdict(t), dataclasses.asdict(j)
+            assert td == jd, name
+            assert t.param_counts() == j.param_counts(), name
+            assert (t.group_size, t.hd) == (j.group_size, j.hd)
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
+    assert get_arch("yi-6b") is ARCHS["yi-6b"]
 
 
 # =============================================================================
