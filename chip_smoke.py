@@ -56,9 +56,15 @@ and prints no result line):
    dwconv); a codec variant's y also bit for bit the un-fused kernel's on
    the decode kernel's output, its payload the codec's of that y;
    flash_attention at the LM path's shapes and at ragged S with head widths
-   16-128, causal and not; every tile choice of every tiled kernel bit for
-   bit its untiled launch; and time kernel, plain version and one PyTorch
-   call as a yardstick (CUDA events, L2 flushed before every launch);
+   16-128, causal and not; streamed_matmul and flash_attention also bit
+   for bit from one launch to the next on the same inputs; every tile
+   choice of every tiled kernel bit for bit its untiled launch; and time
+   kernel, plain version and one PyTorch call as a yardstick (CUDA events,
+   L2 flushed before every launch).  Besides the f32 bound, the two
+   kernels that run on the tensor cores through the 3xTF32 split
+   (``csrc/tf32x3.cuh``: streamed_matmul, flash_attention) get the split's
+   bound, 3 x operations at 495 TFLOP/s dense TF32 (``bound_tf32x3_ms``):
+   their times may fall below the f32 FMA bound;
 5. each staged path's frame time and peak device memory, with its spills
    evicted as planned and with the same plan's spills kept on the device,
    its frame time in reference mode, and the device's busy time and idle
@@ -92,6 +98,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # times for a call's operations and bytes.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES_S = 3.35e12
+# dense TF32 on the tensor cores; the kernels that split each f32 operand
+# into two TF32 terms (csrc/tf32x3.cuh) issue three products per product
+PEAK_TF32_FLOPS = 495e12
+TF32X3_KERNELS = ("streamed_matmul", "flash_attention")
 
 FRAMES = 3
 REPS = 20
@@ -324,6 +334,12 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_tf32x3_ms(flops: float) -> float:
+    """The operations at the 3xTF32 split's peak: three TF32 products per
+    f32 product.  Below bound_ms where the f32 FMA rate sets that."""
+    return 3.0 * flops / PEAK_TF32_FLOPS * 1e3
+
+
 def kernel_phase(torch, timer, path_shapes):
     """Hold every kernel against its plain version at each ``(name, tensor
     shapes)`` a path launched, and time kernel, plain version and
@@ -356,6 +372,8 @@ def kernel_phase(torch, timer, path_shapes):
                     plain_ms=0.0, bound_ms=0.0, bound_by="bytes",
                     library_ms=0.0, by_path={})
             for n in TPU_SRC}
+    for n in TF32X3_KERNELS:
+        rows[n]["bound_tf32x3_ms"] = 0.0
 
     def note_err(name, err):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
@@ -386,6 +404,13 @@ def kernel_phase(torch, timer, path_shapes):
             got, want = got.view(torch.int32), want.view(torch.int32)
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: not bit-exact")
+
+    def close_and_repeatable(name, kern, plain, tol):
+        """Within rtol = atol = tol of the plain version, and a second
+        launch on the same inputs bit for bit the first."""
+        got = kern()
+        close(name, got, plain(), tol, tol)
+        exact(name, kern(), got)
 
     def pool_close(name, got, x, m_out):
         """The global pool: within POOL_TOL * mean |x| of each channel of
@@ -525,8 +550,8 @@ def kernel_phase(torch, timer, path_shapes):
                 q, k, v, causal=True, chunk=min(1024, S), skip_masked=True)
             # bytes: q, k, v read and o written once; operations: the two
             # products over the causal triangle, diagonal included
-            return ((lambda: close(kind, kern(), plain(), FLASH_TOL,
-                                   FLASH_TOL)),
+            return ((lambda: close_and_repeatable(kind, kern, plain,
+                                                  FLASH_TOL)),
                     kern, plain,
                     lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                            is_causal=True),
@@ -538,8 +563,8 @@ def kernel_phase(torch, timer, path_shapes):
             w = torch.cat([ws, wd])
             kern = lambda: streamed_matmul(x, ws, wd)          # noqa: E731
             plain = lambda: ref.streamed_matmul_ref(x, ws, wd)  # noqa: E731
-            return ((lambda: close(kind, kern(), plain(), MATMUL_TOL,
-                                   MATMUL_TOL)),
+            return ((lambda: close_and_repeatable(kind, kern, plain,
+                                                  MATMUL_TOL)),
                     kern, plain, lambda: torch.matmul(x, w),
                     4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
         if kind == "conv2d":
@@ -607,9 +632,12 @@ def kernel_phase(torch, timer, path_shapes):
         t_kern, t_plain = timer(kern), timer(plain)
         t_lib = None if lib is None else timer(lib)
         b, bound_by = bound_ms(nbytes, ops)
+        b3 = bound_tf32x3_ms(ops) if kind in TF32X3_KERNELS else None
         print(f"  {kind} {arg_shapes}: ms {t_kern:.4f} plain {t_plain:.4f} "
               f"library {'-' if t_lib is None else f'{t_lib:.4f}'} bound "
-              f"{b:.4f} ({bound_by}), on the paths x{union[key]}")
+              f"{b:.4f} ({bound_by})"
+              f"{'' if b3 is None else f', 3xTF32 bound {b3:.4f}'}, on the "
+              f"paths x{union[key]}")
         row = rows[kind]
         for pname, shapes in path_shapes.items():
             n = shapes.get(key, 0)
@@ -620,6 +648,8 @@ def kernel_phase(torch, timer, path_shapes):
             row["library_ms"] = None if t_lib is None else (
                 row["library_ms"] + n * t_lib)
             row["bound_ms"] += n * b
+            if b3 is not None:
+                row["bound_tf32x3_ms"] += n * b3
             bound_parts[kind][bound_by] += n * b
             row["bound_by"] = max(bound_parts[kind],
                                   key=bound_parts[kind].get)
@@ -634,7 +664,8 @@ def kernel_phase(torch, timer, path_shapes):
                 p["library_ms"] += n * t_lib
 
     # -- ragged shapes and edge cases ----------------------------------------
-    for m, k, n, f in ((1000, 300, 200, 0.0), (77, 1536, 130, 0.5)):
+    for m, k, n, f in ((1000, 300, 200, 0.0), (77, 1536, 130, 0.5),
+                       (22080, 1024, 512, 0.5), (11040, 512, 1024, 0.25)):
         x, w = randn(m, k), randn(k, n) / math.sqrt(k)
         close("streamed_matmul", streamed_matmul_padded(x, w,
                                                         static_fraction=f),
@@ -1589,9 +1620,21 @@ def main() -> int:
     kl = library.load_library()
     print(f"build: {kl.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {kl.build_s:.2f} s)")
+    source = kernel = ""
     for line in kl.log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if line.startswith("=="):
+            source = line[2:].strip()
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]  # ptxas's own (mangled) name
+        if "registers" in line:
+            print(f"  {line.strip()} [{kernel}]")
+        elif line.startswith("==") or "spill" in line:
             print(f"  {line.strip()}")
+        # the 3xTF32 kernels keep their fragments in registers: no spills
+        if (source in ("streamed_matmul.cu", "flash_attention.cu")
+                and "spill" in line
+                and any(int(w) for w in line.split() if w.isdigit())):
+            raise AssertionError(f"{source} spills: {line.strip()}")
 
     # -- 3. the main paths, one after the other -------------------------------
     runs = {p.name: run_path(torch, repro_torch, library, p) for p in PATHS}
@@ -1626,10 +1669,13 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on a path")
     for r in rows.values():
         name = r["name"]
-        if name in ("streamed_matmul", "conv2d"):
+        if name == "conv2d":
             tol = MATMUL_TOL
+        elif name == "streamed_matmul":
+            tol = f"{MATMUL_TOL}; two launches bit-exact"
         elif name == "flash_attention":
-            tol = f"rtol = atol = {FLASH_TOL} vs plain"
+            tol = (f"rtol = atol = {FLASH_TOL} vs plain; two launches "
+                   f"bit-exact")
         elif name.startswith("conv2d"):
             tol = (f"bit-exact vs the conv2d kernel on the decode kernel's "
                    f"output and the codec, {MATMUL_TOL} vs plain")
@@ -1640,10 +1686,12 @@ def main() -> int:
         else:
             tol = "bit-exact"
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        b3 = ("" if "bound_tf32x3_ms" not in r
+              else f"3xTF32 bound {r['bound_tf32x3_ms']:.4f} ")
         print(f"kernel {name:22s} launches {r['launches']:3d} "
               f"max_abs_err {r['max_abs_err']:.3e} (tol {tol}) "
               f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {lib} "
-              f"bound {r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']}) {b3}"
               f"by path {json.dumps(r['by_path'])}")
     for pname in counts:
         kern_sum = sum(r["by_path"].get(pname, {}).get("ms", 0.0)

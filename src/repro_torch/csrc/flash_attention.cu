@@ -6,187 +6,319 @@
 // flash_attention.py), whose grid walks (B H, q blocks, kv blocks) in order
 // and carries the running max, sum and (bq, D) accumulator in VMEM scratch
 // from one kv step to the next.  Here blocks run in no order, so one block
-// owns one (q block, b h) pair and walks the kv tiles itself in a loop,
-// with the running max, sum and accumulator in registers; kv tiles wholly
-// above the diagonal are never visited (the causal saving), the mask is
-// -2^30 as there, and the denominator is clamped at 1e-30.  Unlike the
-// Pallas wrapper, which asks S % bq == 0, any S is taken: rows past S are
-// read as zeros and never written, columns past S get a score of -inf (an
-// exact 0 after the exponential).  B and H are read in place through the
-// (B, S, H, D) strides; no fold copy.
+// owns one (b h, q block) pair and walks the kv tiles itself in a loop;
+// kv tiles wholly above the diagonal are never visited (the causal saving),
+// the mask is -2^30 as there, and the denominator is clamped at 1e-30.
+// Unlike the Pallas wrapper, which asks S % bq == 0, any S is taken: rows
+// past S are read as zeros and never written, keys past S are read as
+// zeros and get a score of -inf (an exact 0 after the exponential).  B and
+// H are read in place through the (B, S, H, D) strides; no fold copy.
 //
 // Bound on the H100: causal prefill at S = 512, D = 128 does about 2 S^2 D
-// f32 operations per (b, h) on 4 S D values of 4 bytes, 64 operations per
-// byte, above the f32 ridge (20 operations per byte), so it is bound by
-// operations.  Design: plain f32 FMAs (no tensor cores; TF32 stays off for
-// parity with the reference's pure f32).  A block of 256 threads (16 x 16)
-// takes BQ = 64 query rows; per kv tile of BK = 64 keys it stages k (as
-// k^T, so that a thread reads four keys with one float4) and v in shared
-// memory, beside q^T (staged once, pre-scaled by D^-1/2 as the reference
-// does).  Thread (ty, tx) computes the 4 x 4 scores of rows 4 ty .. 4 ty + 3
-// and keys 4 tx .. 4 tx + 3 as a sum over d in order; the 16 threads of a
-// row are 16 neighbouring lanes, which take the row's max and sum with
-// __shfl_xor_sync.  The probabilities go to shared memory (transposed), and
-// the same thread then accumulates its 4 rows of o over columns tx + 16 j,
-// j < D / 16, in key order.  The thread owns the same rows in both
-// products, so the rescale by exp(m_old - m_new) stays in its registers.
+// operations per (b, h) on 4 S D values of 4 bytes, 64 operations per byte, so
+// it is bound by operations.  Design: both products on the tensor cores
+// through the 3xTF32 split of tf32x3.cuh (f32 accuracy; TF32 alone would break
+// the 2e-4 parity bound).  Each warp owns 16 query rows and keeps their
+// running max, sum and (16, D) o-accumulator in registers in the m16n8
+// accumulator layout, so the exp(m_old - m_new) rescale never leaves them.  q
+// is staged once per block in shared memory, pre-scaled by D^-1/2 as the
+// reference does, and split once: a lane keeps the hi parts of its q fragments
+// in registers and the lo parts stay in shared memory.  k and v tiles of BK =
+// 32 keys come through a double-buffered cp.async ring, the first one in
+// flight while q is staged and each next one while the warps multiply this
+// one.  Per tile a warp computes its (16, 32) scores (the even and odd k8
+// steps into two accumulators, so that 8 chains of products are in flight, and
+// each step's fragments loaded while the last one's products issue), masks
+// them where the tile reaches past S or past a row's diagonal, takes the row
+// max and sum across the 4 lanes of a row with __shfl_xor_sync, writes the
+// probabilities to its own (16, 32) slice of shared memory (the accumulator
+// layout is not the A operand's) and multiplies them by v.  The k, probability
+// and v operands are split as their fragments are loaded (the split's integer
+// instructions cost about as much as the products: a tile's instructions, not
+// its products, set the pace).  A warp skips the tiles wholly above its own
+// diagonal (they would add exact zeros).  At D = 128 a 4-warp block takes
+// 111,616 bytes, so two blocks fit an SM.  Blocks of 4 warps (BQ = 64 query
+// rows); the heaviest causal q blocks are issued first.  The exponentials are
+// full expf (no fast math).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int BQ = 64, BK = 64, THREADS = 256;
+constexpr int WARPS = 4;
+constexpr int BK = 32;  // keys a kv tile
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the reference's mask
 
 template <int D>
-struct Smem {
-  float qt[D][BQ + 4];  // q^T, scaled
-  float kt[D][BK + 4];  // k^T of the kv tile
-  float v[BK][D];       // v of the kv tile
-  float pt[BK][BQ + 4];  // probabilities, transposed
+struct Layout {
+  static constexpr int BQ = 16 * WARPS, THREADS = 32 * WARPS;
+  // row strides (floats), padded so that a warp's fragment loads hit 32
+  // distinct banks: q and k rows read (g, t) -> D + 4, v rows read (t, g)
+  // -> D + 8, probabilities (g, t) -> BK + 4
+  static constexpr int LDQ = D + 4, LDK = D + 4, LDV = D + 8, LDP = BK + 4;
+  static constexpr int Q = BQ * LDQ, K = BK * LDK, V = BK * LDV, P = 16 * LDP;
+  static constexpr size_t BYTES =
+      (Q + 2 * K + 2 * V + WARPS * P) * sizeof(float);
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32 * WARPS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int64_t S, int64_t H, int causal, float scale) {
-  constexpr int DC = D / 16;  // o columns per thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int64_t q0 = (int64_t)blockIdx.x * BQ;
-  const int64_t bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  using L = Layout<D>;
+  constexpr int NF = D / 8;  // k8 steps of q k^T, n fragments of o
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;              // [BQ][LDQ], scaled
+  float* kbuf = qs + L::Q;       // 2 x [BK][LDK]
+  float* vbuf = kbuf + 2 * L::K;  // 2 x [BK][LDV]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* pw = vbuf + 2 * L::V + warp * L::P;  // this warp's [16][LDP]
+
+  const int64_t bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * L::BQ;
   const int64_t row = H * D;  // stride between positions
   const int64_t base = b * S * row + h * D;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i - r * D;
-    sm.qt[d][r] = q0 + r < S ? q[base + (q0 + r) * row + d] * scale : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][DC];
+  // a thread copies 16 bytes of each of rows r0 + RS i of a kv tile, at
+  // column c4; the first tile is in flight while q is staged
+  constexpr int RS = L::THREADS / (D / 4);
+  const int r0 = tid / (D / 4), c4 = tid % (D / 4) * 4;
+  const float* kg = k + base + r0 * row + c4;
+  const float* vg = v + base + r0 * row + c4;
+  auto load_kv = [&](int s, int64_t k0) {
+    float* kd = kbuf + s * L::K + r0 * L::LDK + c4;
+    float* vd = vbuf + s * L::V + r0 * L::LDV + c4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.0f;
-  }
-
-  // kv tiles up to the last one that holds a key at or below the block's
-  // last row (causal), or to the end
-  const int64_t q_last = (q0 + BQ < S ? q0 + BQ : S) - 1;
-  const int64_t k_end = causal ? q_last + 1 : S;
-  for (int64_t k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's reads are done (and q^T staged)
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D, d = i - c * D;
-      const bool in = k0 + c < S;
-      const int64_t at = base + (k0 + c) * row + d;
-      sm.kt[d][c] = in ? k[at] : 0.0f;
-      sm.v[c][d] = in ? v[at] : 0.0f;
+    for (int i = 0; i < BK / RS; ++i) {
+      // a key past S is zero-filled from a valid address that is not read
+      const bool in = k0 + r0 + RS * i < S;
+      const int64_t at = (k0 + RS * i) * row;
+      tf32x3::cp_async16(kd + RS * i * L::LDK, in ? kg + at : k + base, in);
+      tf32x3::cp_async16(vd + RS * i * L::LDV, in ? vg + at : v + base, in);
     }
+  };
+  load_kv(0, 0);
+  tf32x3::cp_async_commit();
+
+#pragma unroll
+  for (int i = 0; i < L::BQ / RS; ++i) {
+    const int r = r0 + RS * i;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < S)
+      x = *reinterpret_cast<const float4*>(q + base + (q0 + r) * row + c4);
+    *reinterpret_cast<float4*>(qs + r * L::LDQ + c4) =
+        make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+  }
+
+  // the warp's rows q0 + 16 warp + [0, 16); in the accumulator layout a
+  // thread holds rows g (elements 0, 1) and g + 8 (elements 2, 3)
+  const int wr = warp * 16;
+  const int64_t qw = q0 + wr;
+  const bool active = qw < S;
+  const int64_t w_end = causal ? (qw + 16 < S ? qw + 16 : S) : S;
+  const int64_t q_end = q0 + L::BQ < S ? q0 + L::BQ : S;
+  const int64_t k_end = causal ? q_end : S;  // keys the block's rows need
+  const int ntiles = (int)((k_end + BK - 1) / BK);
+
+  // q is split once: each lane keeps the hi parts of its A fragments of
+  // q k^T in registers and puts the lo parts back in their places in
+  // shared memory (a lane is the only reader of the values it splits)
+  __syncthreads();
+  uint32_t qh[NF][4];
+#pragma unroll
+  for (int d = 0; d < NF; ++d) {
+    float* pa = qs + (wr + g) * L::LDQ + 8 * d + t;
+    const int at[4] = {0, 8 * L::LDQ, 4, 8 * L::LDQ + 4};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t lo;
+      tf32x3::split(pa[at[e]], qh[d][e], lo);
+      pa[at[e]] = __uint_as_float(lo);
+    }
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float acc[NF][4];
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int64_t k0 = (int64_t)it * BK;
+    // tile it has landed and every warp is done with tile it - 1, whose
+    // buffer the next load fills while this tile is multiplied
+    tf32x3::cp_async_wait<0>();
     __syncthreads();
+    if (it + 1 < ntiles) load_kv((it + 1) & 1, k0 + BK);
+    tf32x3::cp_async_commit();
+    if (!active || k0 >= w_end) continue;
+    const float* kt = kbuf + (it & 1) * L::K;
+    const float* vt = vbuf + (it & 1) * L::V;
 
-    float s[4][4];
+    // scores s = (q D^-1/2) k^T of the warp's 16 rows and the tile's keys,
+    // the even and the odd k8 steps into two accumulators (8 independent
+    // chains of products, not 4), each step's fragments loaded while the
+    // previous step's products are issued
+    float s[4][4], s_odd[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&sm.qt[d][ty * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&sm.kt[d][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t qp = q0 + ty * 4 + i;
-      float mx = kNegInf;
+      for (int e = 0; e < 4; ++e) s[j][e] = s_odd[j][e] = 0.0f;
+    float ql[4], kr[4][2];
+    auto load_qk = [&](int d) {
+      const float* pa = qs + (wr + g) * L::LDQ + d + t;
+      ql[0] = pa[0];
+      ql[1] = pa[8 * L::LDQ];
+      ql[2] = pa[4];
+      ql[3] = pa[8 * L::LDQ + 4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int64_t kp = k0 + tx * 4 + j;
-        if (kp >= S)
-          s[i][j] = -CUDART_INF_F;
-        else if (causal && qp < kp)
-          s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+        const float* pb = kt + (j * 8 + g) * L::LDK + d + t;
+        kr[j][0] = pb[0];
+        kr[j][1] = pb[4];
       }
-      // the row's 16 threads are lanes 16 (ty % 2) + tx
+    };
+    load_qk(0);
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.0f;
+    for (int d = 0; d < D; d += 8) {
+      tf32x3::FragA a;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
+      for (int e = 0; e < 4; ++e) {
+        a.hi[e] = qh[d / 8][e];
+        a.lo[e] = __float_as_uint(ql[e]);
       }
+      tf32x3::FragB bk[4];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
+      for (int j = 0; j < 4; ++j) bk[j] = tf32x3::split_b(kr[j][0], kr[j][1]);
+      if (d + 8 < D) load_qk(d + 8);
 #pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sm.pt[tx * 4 + j][ty * 4 + i] = s[i][j];
+      for (int j = 0; j < 4; ++j)
+        tf32x3::mma_tf32x3(d & 8 ? s_odd[j] : s[j], a, bk[j]);
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += s_odd[j][e];
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 p = *reinterpret_cast<const float4*>(&sm.pt[c][ty * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
+    // mask (only a tile that reaches past S or past a row's diagonal),
+    // then the online softmax of rows g and g + 8; a row's 32 scores are
+    // spread over the 4 lanes 4 g .. 4 g + 3
+    if (k0 + BK > S || (causal && k0 + BK - 1 > qw)) {
+      const int past = (int)(S - k0 < BK ? S - k0 : BK);  // keys >= it: past S
+      const int diag = (int)(qw - k0 < BK ? qw - k0 : BK);  // row 0's last key
 #pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        const float vv = sm.v[c][tx + 16 * j];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1), r = g + 8 * (e >> 1);
+          if (c >= past)
+            s[j][e] = -CUDART_INF_F;
+          else if (causal && c > diag + r)
+            s[j][e] = kNegInf;
+        }
     }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
+      l[r] = l[r] * alpha[r] + sum[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // the probabilities through the warp's slice of shared memory, from
+    // the accumulator layout to the A operand's
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      *reinterpret_cast<float2*>(pw + g * L::LDP + j * 8 + 2 * t) =
+          make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(pw + (g + 8) * L::LDP + j * 8 + 2 * t) =
+          make_float2(s[j][2], s[j][3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      const float* pa = pw + g * L::LDP + kk + t;
+      const tf32x3::FragA a =
+          tf32x3::split_a(pa[0], pa[8 * L::LDP], pa[4], pa[8 * L::LDP + 4]);
+      // the step's v fragments, all loaded before the first product
+      float vr[NF][2];
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        const float* pb = vt + (kk + t) * L::LDV + j * 8 + g;
+        vr[j][0] = pb[0];
+        vr[j][1] = pb[4 * L::LDV];
+      }
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+        tf32x3::mma_tf32x3(acc[j], a, tf32x3::split_b(vr[j][0], vr[j][1]));
+    }
+    __syncwarp();  // the slice is read before the next tile rewrites it
   }
 
+  if (!active) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t qp = q0 + ty * 4 + i;
-    if (qp >= S) break;
-    const float den = fmaxf(l[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    const int64_t qp = qw + g + 8 * r;
+    if (qp >= S) continue;
+    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    float* out = o + base + qp * row + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      o[base + qp * row + tx + 16 * j] = acc[i][j] / den;
+    for (int j = 0; j < NF; ++j)
+      *reinterpret_cast<float2*>(out + j * 8) =
+          make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
   }
 }
 
 template <int D>
 int run_flash(const float* q, const float* k, const float* v, float* o,
-              int64_t B, int64_t S, int64_t H, int causal,
-              cudaStream_t st) {
-  const size_t smem = sizeof(Smem<D>);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)(B * H));
+              int64_t B, int64_t S, int64_t H, int causal, cudaStream_t st) {
+  using L = Layout<D>;
+  const cudaError_t err =
+      tf32x3::set_shared_memory<flash_attention_kernel<D>>((int)L::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + L::BQ - 1) / L::BQ));
   // D^-1/2 rounded once to f32, as the reference's q * D ** -0.5
   const float scale = (float)(1.0 / std::sqrt((double)D));
-  flash_attention_kernel<D><<<grid, THREADS, smem, st>>>(q, k, v, o, S, H,
-                                                         causal, scale);
+  flash_attention_kernel<D><<<grid, L::THREADS, L::BYTES, st>>>(
+      q, k, v, o, S, H, causal, scale);
   return (int)cudaGetLastError();
 }
 

@@ -8,90 +8,136 @@
 // 50 MB L2, so the split changes no device-memory bytes; the kernel keeps
 // the TPU kernel's order of work (the static panel first, then the dynamic
 // blocks in order, one f32 accumulator) and nothing else of its layout.
+// A (Ks, BN) static panel pinned in shared memory would not help either:
+// the time goes to arithmetic, not to weight bytes.
 //
 // Bound: by operations.  At the main path's shapes (K >= 256, N >= 128)
-// it does 2*M*N*K flops on (M*K + K*N + M*N) * 4 bytes, far above the f32
-// ridge point of the card, and plain f32 FMAs (no TF32, no tensor cores)
-// peak at 67 TFLOP/s.  Design: the classic register-blocked SGEMM.  A block
-// of 256 threads owns a 128x128 output tile; per step of 8 along K it
-// stages a 128x8 slice of x (transposed) and an 8x128 slice of the weight
-// in shared memory, and every thread accumulates an 8x8 sub-tile in
-// registers (two 4x4 quadrants 64 apart, so the shared-memory reads of a
-// warp hit distinct banks).  64 FMAs per 16 shared-memory loads.  The
-// wrapper pads M, N and both K parts to multiples of 128, so the kernel has
-// no edge cases.
+// it does 2*M*N*K flops on (M*K + K*N + M*N) * 4 bytes, far above the
+// card's ridge point.  Design: the tensor cores through the 3xTF32 split
+// of tf32x3.cuh (f32 accuracy at up to 165 TFLOP/s, against 67 for f32
+// FMAs).  A block of 8 warps owns a 128x128 output tile; each warp a 64x32
+// piece of it, 4x4 m16n8k8 fragments of f32 accumulators in registers.
+// The (128, 32) slice of x and the (32, 128) slice of the weight of each
+// K step come through a 3-stage cp.async ring in dynamic shared memory, so
+// two K steps are in flight while a third is multiplied; rows are padded
+// (36 and 136 floats) so that every fragment load of a warp hits 32
+// distinct banks.  A warp splits each operand as it loads the fragment.
+// 107,520 bytes of ring and at most 128 registers a thread fit two blocks
+// on an SM.
+//
+// Every output element is summed in one order, a function of K alone: the
+// K steps in order, within a step its four k8 slices in order, each as
+// mma_tf32x3's three products.  No split-K, no atomics, and the same tile
+// at every size, so a row's result does not depend on M, on its tile or on
+// the grid (the staged, pipelined and served paths are held bit for bit
+// against each other).  The wrapper pads M, N and both K parts to
+// multiples of 128, so the kernel has no edge cases and no K step
+// straddles the static panel and the dynamic blocks.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 8, THREADS = 256;
-static_assert((BM * BK + BK * BN) * sizeof(float) <= 48 * 1024,
-              "the staged slices exceed a block's static shared memory");
+constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
+constexpr int LDA = BK + 4;  // x slice row stride (floats)
+constexpr int LDB = BN + 8;  // weight slice row stride
+constexpr int STAGE_FLOATS = BM * LDA + BK * LDB;
+constexpr size_t SMEM_BYTES = STAGES * STAGE_FLOATS * sizeof(float);
+static_assert(SMEM_BYTES <= 227 * 1024, "the ring exceeds a block's smem");
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 streamed_matmul_kernel(const float* __restrict__ x,
                        const float* __restrict__ w_static,
                        const float* __restrict__ w_dyn, float* __restrict__ y,
-                       int64_t n, int64_t k, int64_t ks) {
-  __shared__ __align__(16) float xs[BK][BM];  // x slice, transposed
-  __shared__ __align__(16) float ws[BK][BN];
+                       int n, int k, int ks) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int64_t row0 = (int64_t)blockIdx.y * BM;
+  const int64_t col0 = (int64_t)blockIdx.x * BN;
+  const int ktiles = k / BK;
 
-  const int tid = threadIdx.x;
-  const int64_t row0 = (int64_t)blockIdx.y * BM, col0 = (int64_t)blockIdx.x * BN;
-  // loaders: x slice 128 rows x 8 cols, weight slice 8 rows x 128 cols,
-  // one float4 each per thread
-  const int xr = tid >> 1, xc = (tid & 1) * 4;
-  const int wr = tid >> 5, wc = (tid & 31) * 4;
-  // compute: a 16x16 thread grid, each thread rows {ty*4+i, 64+ty*4+i},
-  // cols {tx*4+j, 64+tx*4+j}
-  const int ty = tid >> 4, tx = tid & 15;
-
-  float acc[8][8];
+  // stage s of the ring: the x slice as[BM][LDA], then the weight slice
+  // bs[BK][LDB].  A thread copies 16 bytes of each of 4 rows of x (rows
+  // tid / 8 + 32 i) and of the weight (rows tid / 32 + 8 i).
+  constexpr int XR = THREADS / (BK / 4), WR = THREADS / (BN / 4);
+  const float* xg = x + (row0 + tid / (BK / 4)) * k + tid % (BK / 4) * 4;
+  const int wg = tid / (BN / 4) * n + (int)col0 + tid % (BN / 4) * 4;
+  const int xs = tid / (BK / 4) * LDA + tid % (BK / 4) * 4;
+  const int ws = tid / (BN / 4) * LDB + tid % (BN / 4) * 4;
+  auto load_tile = [&](int s, int kt) {
+    float* as = smem + s * STAGE_FLOATS;
+    float* bs = as + BM * LDA;
+    const int k0 = kt * BK;
+    const float* w = (k0 < ks ? w_static + (int64_t)k0 * n
+                              : w_dyn + (int64_t)(k0 - ks) * n) + wg;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < BM / XR; ++i)
+      tf32x3::cp_async16(as + xs + i * XR * LDA, xg + i * XR * k + k0);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int i = 0; i < BK / WR; ++i)
+      tf32x3::cp_async16(bs + ws + i * WR * LDB, w + i * WR * n);
+  };
 
-  const float* xrow = x + (row0 + xr) * k + xc;
-  for (int64_t k0 = 0; k0 < k; k0 += BK) {
-    const float* w = k0 < ks ? w_static + (k0 + wr) * n
-                             : w_dyn + (k0 - ks + wr) * n;
-    float4 a = *reinterpret_cast<const float4*>(xrow + k0);
-    float4 b = *reinterpret_cast<const float4*>(w + col0 + wc);
-    xs[xc + 0][xr] = a.x;
-    xs[xc + 1][xr] = a.y;
-    xs[xc + 2][xr] = a.z;
-    xs[xc + 3][xr] = a.w;
-    *reinterpret_cast<float4*>(&ws[wr][wc]) = b;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) load_tile(s, s);
+    tf32x3::cp_async_commit();
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    // tile kt has landed (one younger group may still be in flight), and
+    // every warp is done with the stage that the next load overwrites
+    tf32x3::cp_async_wait<STAGES - 2>();
     __syncthreads();
+    const int next = kt + STAGES - 1;
+    if (next < ktiles) load_tile(next % STAGES, next);
+    tf32x3::cp_async_commit();
+
+    const float* as = smem + (kt % STAGES) * STAGE_FLOATS;
+    const float* bs = as + BM * LDA;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&xs[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&ws[kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int kk = 0; kk < BK; kk += 8) {
+      tf32x3::FragB b[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 4; ++j) {
+        const float* p = bs + (kk + t) * LDB + wn + j * 8 + g;
+        b[j] = tf32x3::split_b(p[0], p[4 * LDB]);
+      }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int i = 0; i < 4; ++i) {
+        const float* p = as + (wm + i * 16 + g) * LDA + kk + t;
+        const tf32x3::FragA a =
+            tf32x3::split_a(p[0], p[8 * LDA], p[4], p[8 * LDA + 4]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tf32x3::mma_tf32x3(acc[i][j], a, b[j]);
+      }
     }
-    __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int64_t r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    float* out = y + r * n + col0;
-    *reinterpret_cast<float4*>(out + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(out + 64 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  for (int i = 0; i < 4; ++i) {
+    const int64_t r = row0 + wm + i * 16 + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* out = y + r * n + (col0 + wn + j * 8 + 2 * t);
+      *reinterpret_cast<float2*>(out) =
+          make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
   }
 }
 
@@ -103,11 +149,18 @@ extern "C" int smof_streamed_matmul(const void* x, const void* w_static,
                                     const void* w_dyn, void* y, int64_t m,
                                     int64_t n, int64_t k, int64_t ks,
                                     void* stream) {
+  // the kernel indexes a weight row, and offsets within a K step, in int
+  if (n > INT32_MAX / 128 || k > INT32_MAX / 128)
+    return (int)cudaErrorInvalidValue;
   if (m > 0 && n > 0) {
+    const cudaError_t err =
+        tf32x3::set_shared_memory<streamed_matmul_kernel>((int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
     dim3 grid((unsigned)(n / BN), (unsigned)(m / BM));
-    streamed_matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    streamed_matmul_kernel<<<grid, THREADS, SMEM_BYTES,
+                             (cudaStream_t)stream>>>(
         (const float*)x, (const float*)w_static, (const float*)w_dyn,
-        (float*)y, n, k, ks);
+        (float*)y, (int)n, (int)k, (int)ks);
   }
   return (int)cudaGetLastError();
 }

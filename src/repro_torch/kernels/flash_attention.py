@@ -38,9 +38,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         check_operand(f"flash_attention {name}", t, torch.float32)
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B * H = {B * H} exceeds the "
-                         f"grid's rows")
+    if -(-S // KERNEL_BQ) > 65535 or B * H > 2**31 - 1:
+        raise ValueError(f"flash_attention: S = {S} or B * H = {B * H} "
+                         f"exceeds the grid")
     o = torch.empty_like(q)
     launch("flash_attention", q, k, v, o, B, S, H, D, int(causal))
     return o

@@ -29,6 +29,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of ``csrc/tf32x3.cuh`` on f32 ``x``: ``hi`` is x
+    rounded to TF32's 10 mantissa bits, to nearest with ties away from zero
+    (``cvt.rna.tf32.f32``), ``lo`` the same rounding of the exact ``x -
+    hi``.  For finite x below f32's largest binade.  The kernels' product
+    ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` is emulated from these by the CPU
+    tests; no path calls it."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """1x1 channel mixing (conv/matmul/deconv): y = x @ w, in f32."""
     return torch.matmul(x, w)

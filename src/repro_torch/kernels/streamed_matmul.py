@@ -18,7 +18,9 @@ from .library import check_operand, launch
 
 TILE = 128                  # alignment of M, N and both K parts
 KERNEL_BM = KERNEL_BN = 128  # the CUDA kernel's output tile
-KERNEL_BK = 8                # its K step
+KERNEL_BK = 32               # its K step
+KERNEL_STAGES = 3            # K steps in its cp.async ring
+KERNEL_PAD_A, KERNEL_PAD_B = 4, 8  # floats of row padding (bank spread)
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -26,13 +28,15 @@ def _round_up(n: int, mult: int) -> int:
 
 
 def smem_bytes(bm: int = KERNEL_BM, bn: int = KERNEL_BN,
-               bk: int = KERNEL_BK, itemsize: int = 4) -> int:
-    """Shared-memory working set of one block of the kernel: the staged
-    ``(bm, bk)`` slice of x and ``(bk, bn)`` slice of the weight (the
-    on-chip working set that takes the place of the TPU kernel's VMEM claim;
-    the kernel's source asserts at compile time that it fits the 48 KB of
-    static shared memory a block may hold)."""
-    return (bm * bk + bk * bn) * itemsize
+               bk: int = KERNEL_BK, stages: int = KERNEL_STAGES,
+               itemsize: int = 4) -> int:
+    """Shared-memory working set of one block of the kernel: a ring of
+    ``stages`` K steps, each the ``(bm, bk)`` slice of x and the ``(bk,
+    bn)`` slice of the weight with their padded rows (the on-chip working
+    set that takes the place of the TPU kernel's VMEM claim; the kernel's
+    source asserts at compile time that it fits a block's 227 KB)."""
+    return stages * (bm * (bk + KERNEL_PAD_A)
+                     + bk * (bn + KERNEL_PAD_B)) * itemsize
 
 
 def streamed_matmul(x: torch.Tensor, w_static: torch.Tensor,

@@ -177,14 +177,47 @@ def test_bfp8_dequant_bit_exact(gen):
                        _bits(ref.bfp8_dequant_ref(man, exp)))
 
 
+# the last two: the UNet's ragged launches (22,080 rows padded to 22,144;
+# 11,040 to 11,136)
 @pytest.mark.parametrize("m,k,n,f", [(128, 256, 128, 0.0),
                                      (1000, 300, 200, 0.5),
-                                     (77, 1536, 130, 0.25)])
+                                     (77, 1536, 130, 0.25),
+                                     (22080, 1024, 512, 0.5),
+                                     (11040, 512, 1024, 0.25)])
 def test_streamed_matmul(gen, m, k, n, f):
     x = torch.randn(m, k, generator=gen, device="cuda")
     w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
     torch.testing.assert_close(streamed_matmul_padded(x, w, static_fraction=f),
                                ref.conv2d_ref(x, w), rtol=2e-4, atol=2e-4)
+
+
+def test_streamed_matmul_rows_do_not_depend_on_m(gen):
+    """A row's result is summed in an order set by K alone: the first half
+    of the rows on their own give the same bits as in the whole launch
+    (what the staged, pipelined and served paths' bit-equality rests on)."""
+    x = torch.randn(22272, 1024, generator=gen, device="cuda")
+    w = torch.randn(1024, 512, generator=gen, device="cuda") / 32.0
+    whole = streamed_matmul(x, w[:512], w[512:])
+    half = streamed_matmul(x[:11136].contiguous(), w[:512], w[512:])
+    assert torch.equal(_bits(whole[:11136]), _bits(half))
+
+
+@pytest.mark.parametrize("kind", ["streamed_matmul", "flash_attention"])
+def test_two_launches_are_bit_equal(gen, kind):
+    from repro_torch.kernels.flash_attention import flash_attention
+    if kind == "streamed_matmul":
+        x = torch.randn(22144, 1024, generator=gen, device="cuda")
+        w = torch.randn(1024, 512, generator=gen, device="cuda") / 32.0
+        run = lambda: streamed_matmul(x, w[:512], w[512:])     # noqa: E731
+    else:
+        q, k, v = (torch.randn(1, 512, 32, 128, generator=gen, device="cuda")
+                   for _ in range(3))
+        run = lambda: flash_attention(q, k, v)                 # noqa: E731
+    reset_launches()
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert launches()[kind] == 2
+    assert torch.equal(_bits(a), _bits(b))
 
 
 def test_wrappers_refuse_what_the_kernels_cannot_take(gen):
@@ -431,16 +464,23 @@ def test_raw_and_bfp8_crossings_of_one_producer_on_the_card(gen):
 
 # -- flash_attention -----------------------------------------------------------
 
-@pytest.mark.parametrize("S", [1, 63, 64, 300, 512])
-@pytest.mark.parametrize("D", [16, 64, 128])
+# (B, S, H, D): any S at B = 2, H = 3 (ragged tail rows and key tiles), 80
+# heads at every other head width, then the LM path's shapes (yi-6b: 32
+# heads of 128, prompts of 71 and 512)
+FLASH_SHAPES = ([(2, S, 3, D) for D in (16, 64, 128)
+                 for S in (1, 63, 64, 300, 512)]
+                + [(2, 300, 40, D) for D in (16, 32, 64)]
+                + [(1, 71, 32, 128), (1, 512, 32, 128)])
+
+
+@pytest.mark.parametrize("B,S,H,D", FLASH_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_against_its_plain_version(gen, S, D, causal):
-    """The kernel on any S (ragged tail rows and key tiles) against the
-    plain scan within rtol = atol = 2e-4 (the online softmax sums in
-    another order), one launch a call."""
+def test_flash_attention_against_its_plain_version(gen, B, S, H, D, causal):
+    """The kernel against the plain scan within rtol = atol = 2e-4 (the
+    online softmax sums in another order), one launch a call."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.attention import chunked_attention
-    q, k, v = (torch.randn(2, S, 3, D, generator=gen, device="cuda")
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                for _ in range(3))
     reset_launches()
     got = flash_attention(q, k, v, causal=causal)

@@ -151,7 +151,7 @@ def test_streamed_matmul_refuses_unaligned_operands():
                         torch.zeros(128, 128))
     y = streamed_matmul(x, torch.ones(128, 128), torch.ones(128, 128))
     assert y.shape == (128, 128)
-    assert smem_bytes() == 8192
+    assert smem_bytes() == 3 * (128 * 36 + 32 * 136) * 4
 
 
 # =============================================================================
