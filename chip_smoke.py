@@ -572,8 +572,8 @@ def kernel_phase(torch, timer, path_shapes):
             x, w = randn(m, k), randn(k, n) / math.sqrt(k)
             kern = lambda: SC.conv2d(x, w)                     # noqa: E731
             plain = lambda: ref.conv2d_ref(x, w)               # noqa: E731
-            return ((lambda: close(kind, kern(), plain(), MATMUL_TOL,
-                                   MATMUL_TOL)),
+            return ((lambda: close_and_repeatable(kind, kern, plain,
+                                                  MATMUL_TOL)),
                     kern, plain, lambda: torch.matmul(x, w),
                     4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
         if kind == "dwconv":
@@ -1621,6 +1621,7 @@ def main() -> int:
     print(f"build: {kl.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {kl.build_s:.2f} s)")
     source = kernel = ""
+    spills = []
     for line in kl.log.splitlines():
         if line.startswith("=="):
             source = line[2:].strip()
@@ -1630,11 +1631,15 @@ def main() -> int:
             print(f"  {line.strip()} [{kernel}]")
         elif line.startswith("==") or "spill" in line:
             print(f"  {line.strip()}")
-        # the 3xTF32 kernels keep their fragments in registers: no spills
-        if (source in ("streamed_matmul.cu", "flash_attention.cu")
+        # the 3xTF32 kernels and conv2d keep their tiles in registers: no
+        # spills
+        if (source in ("streamed_matmul.cu", "flash_attention.cu",
+                       "conv2d.cu")
                 and "spill" in line
                 and any(int(w) for w in line.split() if w.isdigit())):
-            raise AssertionError(f"{source} spills: {line.strip()}")
+            spills.append(f"{source} [{kernel}]: {line.strip()}")
+    if spills:
+        raise AssertionError("spills: " + "; ".join(spills))
 
     # -- 3. the main paths, one after the other -------------------------------
     runs = {p.name: run_path(torch, repro_torch, library, p) for p in PATHS}
@@ -1669,9 +1674,7 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on a path")
     for r in rows.values():
         name = r["name"]
-        if name == "conv2d":
-            tol = MATMUL_TOL
-        elif name == "streamed_matmul":
+        if name in ("conv2d", "streamed_matmul"):
             tol = f"{MATMUL_TOL}; two launches bit-exact"
         elif name == "flash_attention":
             tol = (f"rtol = atol = {FLASH_TOL} vs plain; two launches "

@@ -49,19 +49,38 @@ __device__ __forceinline__ int8_t bfp8_mantissa(float x, float scale) {
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
-// The payload of one 32-channel block held by a warp: lane l holds channel
-// 32*b + l of the block's value v (0 in the channels past c, as the spill's
-// channel padding quantises zeros).  The block's amax is a butterfly of
-// __shfl_xor_sync, lane l writes man_block[l] and lane 0 the exponent.
-// Every lane of the warp must call it.
+// The payload of one 32-channel block held by kLanes neighbouring lanes (an
+// aligned group of the warp), kVals values a lane, kLanes * kVals = 32: the
+// block's amax over each lane's own values, then a butterfly of
+// __shfl_xor_sync inside the group.  Writes the lane's mantissas to q and
+// returns the block's exponent.  Values in channels past c are 0, as the
+// spill's channel padding quantises zeros.  Every lane of the warp must
+// call it (with the same kLanes).
+template <int kLanes, int kVals>
+__device__ __forceinline__ int bfp8_encode_group(const float (&v)[kVals],
+                                                 int8_t (&q)[kVals]) {
+  static_assert(kLanes * kVals == kBfp8Block, "one group holds one block");
+  float amax = fabsf(v[0]);
+#pragma unroll
+  for (int i = 1; i < kVals; ++i) amax = bfp8_amax_step(amax, fabsf(v[i]));
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    amax = bfp8_amax_step(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const int e = bfp8_exponent(amax);
+  const float scale = bfp8_scale(e);
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) q[i] = bfp8_mantissa(v[i], scale);
+  return e;
+}
+
+// The group encode with a whole warp on one block: lane l holds channel
+// 32*b + l, writes man_block[l], and lane 0 the exponent.
 __device__ __forceinline__ void bfp8_encode_warp(float v, int8_t* man_block,
                                                  int8_t* exp_at, int lane) {
-  float amax = fabsf(v);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = bfp8_amax_step(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  int e = bfp8_exponent(amax);
-  man_block[lane] = bfp8_mantissa(v, bfp8_scale(e));
+  const float vs[1] = {v};
+  int8_t q[1];
+  const int e = bfp8_encode_group<kBfp8Block, 1>(vs, q);
+  man_block[lane] = q[0];
   if (lane == 0) *exp_at = static_cast<int8_t>(e);
 }
 
@@ -69,8 +88,14 @@ __device__ __forceinline__ void bfp8_encode_warp(float v, int8_t* man_block,
 // bfp8_dequant kernel and every fused ingress decode call this, so fused and
 // unfused decodes give the same bits.  __fmul_rn keeps nvcc from contracting
 // the product into an FMA with the caller's next addition (a pool's sum).
+// bfp8_decode_scaled takes the block's bfp8_scale(exp), for a kernel that
+// decodes many values of one block.
+__device__ __forceinline__ float bfp8_decode_scaled(int8_t man, float scale) {
+  return __fmul_rn(static_cast<float>(man), scale);
+}
+
 __device__ __forceinline__ float bfp8_decode(int8_t man, int8_t exp) {
-  return __fmul_rn(static_cast<float>(man), bfp8_scale(exp));
+  return bfp8_decode_scaled(man, bfp8_scale(exp));
 }
 
 // A kernel's (rows, c) input: an f32 stripe (x, row stride c) or, with

@@ -11,23 +11,33 @@
 // per 1 + 1/32 bytes read, and pool one addition per 4 bytes (or per payload
 // byte) read.  The designs therefore aim at full-width, coalesced loads and
 // stores, and at enough blocks in flight:
-//  * act_relu (plain): four values per thread, 16-byte loads and stores;
-//    the thread at the end of a ragged n takes the n % 4 left one by one;
+//  * act_relu (plain): kActUnroll 16-byte loads in flight a thread (64
+//    bytes), one pass of a grid that covers each row block; the fewer than
+//    4 values at either end of a row block that no aligned float4 holds
+//    are taken one by one.  A grid capped to the blocks the SMs hold (each
+//    block walking the rest) and __ldcs / __stcs streaming hints were each
+//    slower than this on the H100, and torch.relu was level with it;
 //  * act_relu with the ingress decode alone: four channels of a row per
 //    thread, one 4-byte load of mantissas (char4; the payload's rows are
 //    nb * 32 bytes, so every group of four lies inside the row and inside
 //    one 32-channel block, under one exponent) and one 16-byte store where
 //    c % 4 == 0; for other c the thread stores its channels below c one by
 //    one, so the payload's padding channels never reach y;
-//  * act_relu and pool (egress encode, and act_relu's decode -> relu ->
-//    encode): one warp per (row, 32-channel block).  Lane l owns channel
-//    32*b + l, the block's amax is a butterfly of __shfl_xor_sync, and the
-//    f32 output, the mantissas and the block's exponent are written from the
-//    same registers, so the payload costs 1 + 1/32 extra bytes per value and
-//    no second pass over the output.  With the ingress decode lane l reads
-//    mantissa 32*b + l (the warp's 32 bytes are contiguous) and the block's
-//    exponent, and decodes them with bfp8_decode (bfp8.cuh), the standalone
-//    decode's own arithmetic;
+//  * act_relu with the egress encode, and its decode -> relu -> encode:
+//    kActLanes = 8 lanes per (row, 32-channel block), 4 channels a lane, so
+//    a warp covers four blocks.  A lane makes one 16-byte load (with the
+//    decode one char4 of mantissas and the block's exponent, decoded with
+//    bfp8_decode, the standalone decode's arithmetic), the block's amax
+//    comes from the lane's 4 values and 3 shuffle steps
+//    (smof::bfp8_encode_group), and the lane stores one float4 of y and
+//    one char4 of mantissas, the group's first lane the exponent.  The
+//    payload costs 1 + 1/32 extra bytes per value and no second pass over
+//    the output.  Where c % 4 != 0 (or an input is not aligned for the
+//    wide access) a lane takes its channels one by one, and only those
+//    below c reach y;
+//  * pool with the egress encode: one warp per (row, 32-channel block),
+//    lane l channel 32*b + l, the block's amax a butterfly of
+//    __shfl_xor_sync (bfp8_encode_warp);
 //  * pool over few rows (k <= kPoolSerialMaxK, the 2:1 downsampling): one
 //    thread per output value sums its k rows in order (one warp per (row,
 //    block) when it also encodes); neighbouring threads take neighbouring
@@ -89,24 +99,42 @@ __device__ __forceinline__ int64_t block_rows(int64_t m, int64_t rb,
 // and -0.0 pass through unchanged.
 __device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
 
-// Four values of the row block per thread, as one 16-byte load and store
-// where they are whole and aligned, else one by one.
-__global__ void act_relu_kernel(const float* __restrict__ x,
-                                float* __restrict__ y, int64_t m, int64_t c,
-                                int64_t rb) {
+constexpr int kActThreads = 256;
+constexpr int kActUnroll = 4;  // float4s in flight a thread
+constexpr int kActLanes = 8;   // lanes of one (row, block) in the encodes
+
+__device__ __forceinline__ float4 relu4(float4 v) {
+  return make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w));
+}
+
+// Row block blockIdx.y: its whole aligned float4s (x and y are 16-byte
+// aligned), kActUnroll a thread over the grid's x blocks, and the fewer
+// than 4 values at either end one by one.
+__global__ void __launch_bounds__(kActThreads)
+act_relu_kernel(const float* __restrict__ x, float* __restrict__ y,
+                int64_t m, int64_t c, int64_t rb) {
   int64_t r0;
   const int64_t rows = block_rows(m, rb, &r0);
-  const int64_t end = (r0 + rows) * c;
-  int64_t i = r0 * c + (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) * 4;
-  if (i >= end) return;
-  if (i + 4 <= end && (i & 3) == 0) {
-    float4 v = *reinterpret_cast<const float4*>(x + i);
-    *reinterpret_cast<float4*>(y + i) =
-        make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w));
-  } else {
-    for (const int64_t stop = i + 4 < end ? i + 4 : end; i < stop; ++i)
-      y[i] = relu(x[i]);
+  const int64_t begin = r0 * c, end = begin + rows * c;
+  const int64_t q0 = (begin + 3) / 4, q1 = end / 4;  // float4s [q0, q1)
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    const int j = threadIdx.x & 3;
+    const int64_t i = threadIdx.x < 4 ? begin + j : 4 * q1 + j;
+    const int64_t lo = threadIdx.x < 4 ? begin : (q1 > q0 ? 4 * q1 : 4 * q0);
+    const int64_t hi = threadIdx.x < 4 ? (4 * q0 < end ? 4 * q0 : end) : end;
+    if (i >= lo && i < hi) y[i] = relu(x[i]);
   }
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* y4 = reinterpret_cast<float4*>(y);
+  const int64_t q =
+      q0 + (int64_t)blockIdx.x * kActThreads * kActUnroll + threadIdx.x;
+  float4 v[kActUnroll];
+#pragma unroll
+  for (int u = 0; u < kActUnroll; ++u)
+    if (q + u * kActThreads < q1) v[u] = x4[q + u * kActThreads];
+#pragma unroll
+  for (int u = 0; u < kActUnroll; ++u)
+    if (q + u * kActThreads < q1) y4[q + u * kActThreads] = relu4(v[u]);
 }
 
 // Four channels 4q .. 4q + 3 of row r per thread, q < q4 = ceil(c / 4):
@@ -139,28 +167,72 @@ __global__ void act_relu_decode_kernel(const int8_t* __restrict__ man,
   }
 }
 
-// One warp per (row, block) of an (m, c) input; the payload has nb blocks a
-// row.
+// kActLanes lanes per (row, block) of an (m, c) input, channels 4 sub ..
+// 4 sub + 3 of the block in lane sub; the payload has nb blocks a row.
+// in_vec: the input's rows may be read 16 bytes (f32) or 4 bytes (the
+// mantissas) at a time; c4: c % 4 == 0, so y's rows take float4 stores.
 template <bool kDecode>
-__global__ void act_relu_encode_kernel(Stripe<kDecode> in,
-                                       float* __restrict__ y,
-                                       int8_t* __restrict__ man,
-                                       int8_t* __restrict__ exp, int64_t m,
-                                       int64_t nb, int64_t rb) {
+__global__ void __launch_bounds__(256)
+act_relu_encode_kernel(Stripe<kDecode> in, float* __restrict__ y,
+                       int8_t* __restrict__ man, int8_t* __restrict__ exp,
+                       int64_t m, int64_t nb, int64_t rb, bool in_vec,
+                       bool c4) {
   int64_t r0;
   const int64_t rows = block_rows(m, rb, &r0);
-  int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) / 32;
-  int lane = threadIdx.x & 31;
-  if (warp >= rows * nb) return;  // whole warps leave together
-  warp += r0 * nb;
-  int64_t row = warp / nb, b = warp - row * nb;
-  int64_t col = b * smof::kBfp8Block + lane;
-  float v = 0.0f;
-  if (col < in.c) {
-    v = relu(in.at(row, col));
-    y[row * in.c + col] = v;
+  const int64_t gid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  const int64_t pairs = rows * nb;
+  // whole warps leave together; a warp's groups past the end encode zeros
+  if (gid / 32 * (32 / kActLanes) >= pairs) return;
+  const int sub = threadIdx.x % kActLanes;
+  const bool live = gid / kActLanes < pairs;
+  const int64_t pair = gid / kActLanes + r0 * nb;
+  const int64_t row = pair / nb, b = pair - row * nb, c = in.c;
+  const int64_t ch = b * smof::kBfp8Block + sub * 4;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (live) {
+    if constexpr (kDecode) {
+      const int8_t* mp = in.man + row * nb * smof::kBfp8Block + ch;
+      const float scale = smof::bfp8_scale(in.exp[pair]);
+      int8_t q[4];
+      if (in_vec) {
+        const char4 mv = *reinterpret_cast<const char4*>(mp);
+        q[0] = mv.x, q[1] = mv.y, q[2] = mv.z, q[3] = mv.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) q[j] = mp[j];
+      }
+      // the payload's padding channels never reach y
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (ch + j < c) v[j] = relu(smof::bfp8_decode_scaled(q[j], scale));
+    } else if (in_vec && c4) {
+      if (ch < c) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(in.x + row * c + ch);
+        v[0] = relu(xv.x), v[1] = relu(xv.y), v[2] = relu(xv.z),
+        v[3] = relu(xv.w);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (ch + j < c) v[j] = relu(in.x[row * c + ch + j]);
+    }
   }
-  smof::bfp8_encode_warp(v, man + warp * smof::kBfp8Block, exp + warp, lane);
+  int8_t q[4];
+  const int e = smof::bfp8_encode_group<kActLanes, 4>(v, q);
+  if (!live) return;
+  float* out = y + row * c + ch;
+  if (c4) {
+    if (ch < c) *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1],
+                                                              v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (ch + j < c) out[j] = v[j];
+  }
+  *reinterpret_cast<char4*>(man + pair * smof::kBfp8Block + sub * 4) =
+      make_char4(q[0], q[1], q[2], q[3]);
+  if (sub == 0) exp[pair] = static_cast<int8_t>(e);
 }
 
 // Mean of rows o k .. o k + k - 1 of channel ch, summed in order from 0.
@@ -248,6 +320,10 @@ unsigned grid_for(int64_t work, int threads) {
   return (unsigned)((work + threads - 1) / threads);
 }
 
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // One tree pass from `in` into `out`; the encode only where `last`.
 template <bool kDecode, bool kEncode>
 int tree_pass(Stripe<kDecode> in, float* out, int8_t* man, int8_t* exp,
@@ -308,16 +384,19 @@ int run_pool(Stripe<kDecode> in, float* y, int8_t* man, int8_t* exp,
   return err;
 }
 
-// One warp per (row, block) of an (m, c) output: payload nb * 32 wide.
+// kActLanes lanes per (row, block) of an (m, c) output: payload nb * 32
+// wide.
 template <bool kDecode>
 int run_act_relu_encode(Stripe<kDecode> in, void* y, void* man, void* exp,
                         int64_t m, int64_t bm, cudaStream_t st) {
   const int64_t nb = (in.c + smof::kBfp8Block - 1) / smof::kBfp8Block;
   if (m * nb > 0) {
     const RowTiles t = row_tiles(m, bm);
-    act_relu_encode_kernel<kDecode><<<dim3(grid_for(t.rb * nb * 32, 256),
-                                           t.n), 256, 0, st>>>(
-        in, (float*)y, (int8_t*)man, (int8_t*)exp, m, nb, t.rb);
+    const bool in_vec = kDecode ? aligned(in.man, 4) : aligned(in.x, 16);
+    act_relu_encode_kernel<kDecode><<<dim3(grid_for(t.rb * nb * kActLanes,
+                                                    256), t.n), 256, 0, st>>>(
+        in, (float*)y, (int8_t*)man, (int8_t*)exp, m, nb, t.rb, in_vec,
+        in.c % 4 == 0);
   }
   return (int)cudaGetLastError();
 }
@@ -329,7 +408,9 @@ extern "C" int smof_act_relu(const void* x, void* y, int64_t m, int64_t c,
                              int64_t bm, void* stream) {
   if (m * c > 0) {
     const RowTiles t = row_tiles(m, bm);
-    act_relu_kernel<<<dim3(grid_for((t.rb * c + 3) / 4, 256), t.n), 256, 0,
+    // a row block holds at most rb c / 4 whole float4s
+    const unsigned bx = grid_for(t.rb * c / 4, kActThreads * kActUnroll);
+    act_relu_kernel<<<dim3(bx > 0 ? bx : 1, t.n), kActThreads, 0,
                       (cudaStream_t)stream>>>((const float*)x, (float*)y, m,
                                               c, t.rb);
   }

@@ -322,6 +322,111 @@ def test_conv2d_decode_variants(gen, m, k, n, encode):
                                atol=2e-4)
 
 
+def _offset_view(t, elems):
+    """A contiguous copy of t whose data starts ``elems`` elements into its
+    storage: for f32 a base 4 bytes past 16-byte alignment, for int8 one
+    byte past."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+CONV_K, CONV_N = (3, 5, 216, 384), (1, 33, 48, 96, 128)
+
+
+@pytest.mark.parametrize("m", [1, 31, 3200])
+@pytest.mark.parametrize("variant", ["", "_encode", "_decode",
+                                     "_decode_encode"])
+def test_conv2d_variants_at_ragged_shapes(gen, m, variant):
+    """Every conv2d variant at every k in CONV_K and n in CONV_N, ragged
+    (k % 4 != 0, n % 32 != 0) and at m = 1: inputs whose rows are not
+    16-byte aligned (a row-offset view at odd k, a base offset at every
+    k, a mantissa base one byte off) give the aligned launch's bits, as
+    do three column tiles a block (bc = 96); y is within 2e-4 of the
+    plain version, the encodes' y bit for bit the plain kernel's (on the
+    decode kernel's output with the decode) and their payload the codec's
+    of that y."""
+    dec, enc = "_decode" in variant, variant.endswith("_encode")
+    for k in CONV_K:
+        for n in CONV_N:
+            w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+            if dec:
+                pay = _codec_payload(gen, m, k)
+                xd = bfp8_dequant(*pay)[:, :k].contiguous()
+                shifted = [(_offset_view(pay[0], 1), pay[1])]
+
+                def run(p, bc=0):
+                    return SC.conv2d(None, w, payload=p, encode=enc, bc=bc)
+                got = run(pay)
+                tiled3 = run(pay, 96)
+            else:
+                xd = torch.randn(m + 1, k, generator=gen, device="cuda")
+                shifted = [xd[1:], _offset_view(xd[1:], 1)]
+                xd = xd[1:].contiguous()
+
+                def run(h, bc=0):
+                    return SC.conv2d(h, w, encode=enc, bc=bc)
+                got = run(xd)
+                tiled3 = run(xd, 96)
+            y, ypay = _split(got, enc)
+            torch.testing.assert_close(y, ref.conv2d_ref(xd, w), rtol=2e-4,
+                                       atol=2e-4)
+            if dec or enc:
+                assert torch.equal(_bits(y), _bits(SC.conv2d(xd, w))), (k, n)
+            if enc:
+                _assert_payload(ypay, _codec(y))
+            for out in [run(other) for other in shifted] + [tiled3]:
+                o, opay = _split(out, enc)
+                assert torch.equal(_bits(o), _bits(y)), (k, n)
+                if enc:
+                    _assert_payload(opay, ypay)
+
+
+def _specials(gen, m, c):
+    """A random (m, c) stripe with NaN, +-inf and -0.0 in some blocks and
+    whole blocks of -0.0."""
+    x = torch.randn(m, c, generator=gen, device="cuda") * 3
+    x[::3, 0] = float("nan")
+    x[1::5, c - 1] = float("inf")
+    x[2::7, c // 2] = -float("inf")
+    x[3::4, : min(c, 32)] = -0.0
+    x[::2, c // 3] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("c", [1, 3, 33, 64])
+@pytest.mark.parametrize("m", [1, 77, 4099])
+def test_act_relu_family_bit_exact_with_specials(gen, m, c):
+    """relu, relu -> encode and decode -> relu -> encode at ragged c and
+    m, with NaN, inf and -0.0 blocks: y bit for bit the plain version's
+    (NaN and -0.0 pass through) at every row tile, payloads bit for bit
+    the standalone codec's; an input not aligned for the wide loads gives
+    the same bits."""
+    x = _specials(gen, m, c)
+    want = ref.act_relu_ref(x)
+    for bm in SC.TILE_BM_CHOICES:   # row blocks that start or end mid-float4
+        assert torch.equal(_bits(SC.act_relu(x, bm=bm)), _bits(want))
+    for xin in (x, _offset_view(x, 1)):
+        y, ypay = SC.act_relu(xin, encode=True)
+        assert torch.equal(_bits(y), _bits(want))
+        pman, pexp = bfp8_quant(torch.nn.functional.pad(want,
+                                                        (0, (-c) % 32)))
+        _assert_payload(ypay, (pman, pexp))
+        _assert_payload(ypay, _codec(want))
+    pay = _codec_payload(gen, m, c)
+    pay[1][::5] = torch.tensor([-128, 0, 127], dtype=torch.int8,
+                               device="cuda").repeat(
+                                   pay[1].shape[1])[:pay[1].shape[1]]
+    wy, wpay = SC._plain(ref.act_relu_ref, None, c, pay, True, 32)
+    for p in (pay, (_offset_view(pay[0], 1), pay[1])):
+        y, ypay = SC.act_relu(None, c=c, payload=p, encode=True)
+        assert torch.equal(_bits(y), _bits(wy))
+        _assert_payload(ypay, wpay)
+        dec = bfp8_dequant(*pay)[:, :c].contiguous()
+        assert torch.equal(_bits(y), _bits(SC.act_relu(dec, encode=True)[0]))
+
+
 @pytest.mark.parametrize("m,c,taps", [(1, 24, 3), (77, 40, 3),
                                       (4099, 48, 3), (300, 3, 5)])
 @pytest.mark.parametrize("variant", ["encode", "decode", "decode_encode"])

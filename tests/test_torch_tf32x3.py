@@ -10,9 +10,13 @@ three terms one after the other into one f32 accumulator; each TF32
 product is exact in f32) and held to the plain f32 product, and to the
 reference package's, within rtol = atol = 2e-4 (``MATMUL_TOL`` and
 ``FLASH_TOL`` of ``chip_smoke.py``), at the UNet's launch shapes cut to
-2048 rows and at the attention's two products at S = 512, D = 128.  One
-TF32 product, ``a_hi b_hi`` alone, breaks that bound at every one of
-those shapes, which is why the split exists.
+2048 rows, at the attention's two products at S = 512, D = 128, and at
+conv2d's launch shapes cut to 2048 rows (K from 3 to 384, N from 24 to
+128, one A operand decoded from its BFP8 payload), where the split holds
+that bound too (``csrc/conv2d.cu`` is still an f32 FMA chain; ROADMAP.md
+says what keeps it there).  One TF32 product, ``a_hi b_hi`` alone,
+breaks that bound at every one of those shapes, which is why the split
+exists.
 """
 import numpy as np
 import pytest
@@ -86,14 +90,46 @@ def _attention(product):
     return torch.from_numpy(a), torch.from_numpy(b), want_j
 
 
+# K x N of conv2d's launches (M cut to ROWS): X3D-M's stem (K < 8, one
+# slice of 8 mostly zeros), the YOLO head, the 3-stage plan's conv_12,
+# X3D-M's classifier head, and an N that is no multiple of the 32-column
+# tile; "dec": x is the decode of its BFP8 payload (48 channels, 16 of
+# padding), as the decoding variants read it
+CONV = [(3, 24), (64, 64), (384, 128), (216, 32), (96, 48)]
+
+
+def _conv(K, N, decoded=False):
+    rng = np.random.default_rng(1000 + K + N + decoded)
+    x = rng.standard_normal((ROWS, K), dtype=np.float32)
+    w = rng.standard_normal((K, N), dtype=np.float32) / np.float32(K ** 0.5)
+    if not decoded:
+        want_j = np.asarray(jref.conv2d_ref(jnp.asarray(x), jnp.asarray(w)))
+        return torch.from_numpy(x), torch.from_numpy(w), want_j
+    xp = np.pad(x * np.float32(2), ((0, 0), (0, (-K) % 32)))
+    man, exp = jref.bfp8_quant_ref(jnp.asarray(xp))
+    xd_j = jref.bfp8_dequant_ref(man, exp)[:, :K]
+    xd = ref.bfp8_dequant_ref(torch.from_numpy(np.array(man)),
+                              torch.from_numpy(np.array(exp)))[:, :K]
+    assert np.array_equal(xd.numpy(), np.asarray(xd_j))
+    want_j = np.asarray(jref.conv2d_ref(xd_j, jnp.asarray(w)))
+    return xd.contiguous(), torch.from_numpy(w), want_j
+
+
 CASES = ([pytest.param(("unet", K, N), id=f"unet-K{K}-N{N}")
           for K, N in UNET]
          + [pytest.param(("attn", p), id=f"attn-{p}-S512-D128")
-            for p in ("qk", "pv")])
+            for p in ("qk", "pv")]
+         + [pytest.param(("conv", K, N), id=f"conv-K{K}-N{N}")
+            for K, N in CONV]
+         + [pytest.param(("conv-dec", 48, 96), id="conv-dec-K48-N96")])
 
 
 def _operands(case):
-    return _unet(*case[1:]) if case[0] == "unet" else _attention(case[1])
+    if case[0] == "unet":
+        return _unet(*case[1:])
+    if case[0] == "attn":
+        return _attention(case[1])
+    return _conv(*case[1:], decoded=case[0] == "conv-dec")
 
 
 @pytest.mark.parametrize("case", CASES)
