@@ -18,8 +18,10 @@
 //   B (8 x 8, k x n):      b[0] (t, g), b[1] (t + 4, g);
 //   C (16 x 8, f32):       c[0] (g, 2t), c[1] (g, 2t + 1), c[2] (g + 8, 2t),
 //                          c[3] (g + 8, 2t + 1).
-// A kernel loads a fragment's f32 values from shared memory and splits
-// them there (split_a / split_b); mma_tf32x3 issues the three products.
+// A kernel either loads a fragment's f32 values from shared memory and
+// splits them there (split_a / split_b), or splits every staged value once
+// into hi and lo planes in shared memory and loads fragments of the planes
+// (ldmatrix_x4); mma_tf32x3 issues the three products.
 // Only the CUDA toolkit's own headers are needed.
 #pragma once
 
@@ -107,6 +109,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// copy 4 bytes (both addresses 4-byte aligned), zero-filled as cp_async16:
+// the route for rows whose start is not 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in_bounds = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(in_bounds ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -115,6 +127,24 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int n>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
+}
+
+// -- fragments of split operands from shared memory -------------------------
+
+// Four 8 x 4 tiles of 32-bit words, one register each: lane l gives the
+// address of row l % 8 of tile l / 8 (16 bytes, 16-byte aligned) and gets
+// word (l / 4, l % 4) of every tile, which is where mma.m16n8k8 .tf32 wants
+// A's and B's operands (see the top of this file) when the tiles are
+// picked as the caller's note says.  A kernel that splits its operands
+// once, into hi and lo planes in shared memory, loads each fragment of a
+// plane with one of these.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3,
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(smem_addr(row)));
 }
 
 // -- launch ---------------------------------------------------------------

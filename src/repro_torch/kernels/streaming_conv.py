@@ -9,10 +9,10 @@ the codec block with zeros, bitwise what ``bfp8_spill_encode`` gives).
 
 On the CPU every variant runs its plain version (decode -> op -> encode).
 On a CUDA tensor a wrapper launches its kernel or raises.  Every variant of
-``conv2d`` (``csrc/conv2d.cu``), ``dwconv`` (``csrc/dwconv.cu``) and
-``pool`` and ``act_relu`` (``csrc/streaming_conv.cu``) has a kernel,
-named ``<op>``, ``<op>_encode``, ``<op>_decode`` and
-``<op>_decode_encode``.
+``conv2d`` (``csrc/conv2d.cuh``; ``conv2d.cu``, ``conv2d_decode.cu``),
+``dwconv`` (``csrc/dwconv.cu``) and ``pool`` and ``act_relu``
+(``csrc/streaming_conv.cu``) has a kernel, named ``<op>``,
+``<op>_encode``, ``<op>_decode`` and ``<op>_decode_encode``.
 
 Every fused egress payload, on both devices, leaves through
 :func:`_egress_payload`, so a test can plant a fault in the fused encode
@@ -27,10 +27,12 @@ changes a result (each output is summed in the same order whatever the
 tile):
 
 * ``conv2d*``: ``bm`` picks the kernel instance by its row tile, 32, 64 or
-  128 rows (0 is 128; a ``bm`` below 32 rounds up to 32, one between two
-  instances up to the larger, one above 128 down to 128); ``bc``, a
-  multiple of 32, sets the output columns a block covers, ``bc / 32``
-  tiles of the 32-column codec block one after the other (0 is 32);
+  128 rows (0: the largest whose blocks number at least the card's SMs,
+  else 32; a ``bm`` below 32 rounds up to 32, one between two instances up
+  to the larger, one above 128 down to 128); ``bc``, a multiple of 32,
+  sets the output columns a block covers, at most 128 (0: ``n`` rounded
+  up to the 32-column codec block and cut into the fewest blocks of at
+  most 128 columns, as evenly as 32-column steps allow);
 * ``dwconv*``: ``bm`` is the rows a block owns (0: about 2048 values'
   worth), cut down to what a block's shared memory holds with the halo;
 * ``act_relu*`` and ``pool*``: ``bm`` rows a row block, which the grid's
@@ -50,7 +52,7 @@ from .library import check_operand, launch
 from .streamed_matmul import _round_up
 
 BFP8_BLOCK = 32
-CONV2D_BN = 32            # the conv2d kernel's output columns per block
+CONV2D_BN = 32            # conv2d's bc granularity: one codec block
 POOL_SERIAL_MAX_K = 8     # pool sums up to this many rows in one thread
 POOL_CHUNK = 256          # rows per block of a pool tree pass
 # the reference autotuner's tile choices (src/repro/optim/autotune.py)

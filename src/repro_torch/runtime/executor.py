@@ -523,7 +523,10 @@ class LoweredPipeline:
     """An executable form of one ExecutionPlan.
 
     ``fn(params, x)`` runs the whole streaming pipeline; ``report`` is the
-    static off-chip traffic accounting the lowering derived from the plan.
+    static off-chip traffic accounting the lowering derived from the plan;
+    ``graph`` and ``analysis`` are what the lowering ran on, so that a check
+    can apply one vertex's plain version to another route's values
+    (``testing.oracle.vertex_parity``).
     """
     fn: Callable[[dict, torch.Tensor], torch.Tensor]
     params: dict[str, torch.Tensor]
@@ -532,6 +535,8 @@ class LoweredPipeline:
     graph_name: str
     device: torch.device
     values_fn: Callable[[dict, torch.Tensor], dict]
+    graph: Graph
+    analysis: PlanAnalysis
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.fn(self.params, x)
@@ -670,7 +675,8 @@ def lower_plan(g: Graph, plan: ExecutionPlan | None = None, *,
     return LoweredPipeline(fn=forward,
                            params=init_params(g, seed=seed, device=device),
                            report=an.report(), plan=plan, graph_name=g.name,
-                           device=device, values_fn=forward_values)
+                           device=device, values_fn=forward_values,
+                           graph=g, analysis=an)
 
 
 def reference_pipeline(g: Graph, *, seed: int = 0,

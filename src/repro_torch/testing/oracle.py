@@ -30,15 +30,21 @@ torch device it is given (the card by default):
                         kernel route against the staged reference route,
                         per frame.  On the CPU the kernel route runs the
                         kernels' plain versions: bit for bit.  On the card
-                        it runs the CUDA kernels, and ``conv2d``'s SGEMM
-                        (and the pool's tree) sums in another order than
-                        ``torch.matmul`` (and ``mean``); one ulp before a
-                        BFP8 encode can move a mantissa by one step of its
-                        block's scale.  So there the two are held within
-                        :data:`KERNEL_PARITY_TOL` x max|reference| (the
-                        tolerance ``chip_smoke.py`` holds every main path to
-                        against reference mode), naming the first vertex
-                        past it.
+                        it runs the CUDA kernels, which sum in other orders
+                        than ``torch.matmul`` and ``mean`` (the 3xTF32
+                        products, the pool's tree); one ulp before a BFP8
+                        encode can move a mantissa by one step of its
+                        block's scale, and chained encodes compound such
+                        steps.  So there two checks hold, as in
+                        ``chip_smoke.py``: every vertex against its plain
+                        version on the kernel route's own inputs
+                        (:func:`vertex_parity`, within
+                        :data:`VERTEX_PARITY_TOL`), and the frame against
+                        the reference route within :func:`frame_bound`
+                        (:data:`KERNEL_PARITY_TOL` x max|reference|, or
+                        twice the reference's own change under a one-ulp
+                        move of its input where that is larger), naming the
+                        first vertex past it.
 ``traced_parity``       the tick-by-tick traced run returns bit-exact
                         outputs vs the tick loop of ``run``.
 ``modelcheck``          the traced run's :class:`ModelCheck` gates pass:
@@ -83,11 +89,17 @@ import torch
 from .gen import FuzzCase
 
 __all__ = ["OracleViolation", "CaseReport", "check_case", "inject_fault",
-           "FAULTS", "KERNEL_PARITY_TOL", "replay_json"]
+           "FAULTS", "FrameHold", "KERNEL_PARITY_TOL", "VERTEX_PARITY_TOL",
+           "frame_bound", "hold_to_reference", "replay_json",
+           "stream_bounds", "vertex_parity"]
 
-#: kernel_parity on the card: max|kernel route - reference route| <= this
-#: x max|reference route| per frame (see the module docstring)
+#: the frame check on the card: max|kernel route - reference route| <= this
+#: x max|reference route| per frame, or the frame's :func:`frame_bound`
 KERNEL_PARITY_TOL = 2e-2
+#: the vertex check (:func:`vertex_parity`): every vertex within this x
+#: max(1, max|plain|) of its plain version on the same inputs, the kernels'
+#: own tolerance against their plain versions (f32 sums in another order)
+VERTEX_PARITY_TOL = 2e-4
 
 
 class OracleViolation(AssertionError):
@@ -136,6 +148,135 @@ def _first_divergence(ref, other, x, tol: float = 0.0) -> str:
             return (f"first divergence at vertex {name!r} "
                     f"(max abs diff {diff:.3g})")
     return "no intermediate divergence found (outputs differ only)"
+
+
+def vertex_parity(kernel_exec, plain_exec, x, *,
+                  tol: float = VERTEX_PARITY_TOL,
+                  values: dict | None = None) -> tuple[float, str | None]:
+    """Hold every vertex of ``kernel_exec`` (a staged ``LoweredPipeline`` on
+    the kernel route) to its plain version on the kernel route's own
+    inputs, teacher-forced: each vertex's plain body (``apply_vertex`` on
+    ``plain_exec``, the same plan lowered in reference mode) gets the kernel
+    route's values of its predecessors, a spilled edge through the plain
+    route's spill numerics (a BFP8 edge: the plain codec's round trip of
+    the producer's kernel-route value, bit for bit what the kernel route's
+    consumer decodes; a lossless one: identity).  So no error compounds
+    from one vertex to the next.
+
+    Each vertex must meet max|kernel - plain| <= ``tol`` x max(1,
+    max|plain|).  Raises :class:`OracleViolation` (``vertex_parity``)
+    naming the first vertex in topological order that does not; returns
+    (the worst ratio of error to limit, its vertex) otherwise.  On the CPU
+    the kernel route runs the plain versions, so every ratio is 0.0.
+    ``values``: the kernel route's values of every vertex for ``x``
+    (``kernel_exec.run_intermediates(x)``) where the caller has them; else
+    they are computed here."""
+    from ..runtime.executor import apply_vertex
+    g, an = plain_exec.graph, plain_exec.analysis
+    kan = kernel_exec.analysis
+    if an.use_kernels or not kan.use_kernels:
+        raise ValueError("vertex_parity holds a kernel-route executor to a "
+                         "reference-mode one")
+    if an.topo != kan.topo or set(an.spill_fn) != set(kan.spill_fn):
+        raise ValueError("vertex_parity needs both executors lowered from "
+                         "the same graph and plan")
+    got = kernel_exec.run_intermediates(x) if values is None else values
+    worst, where = 0.0, None
+    for name in an.topo:
+        v = g.vertex(name)
+        ins = [an.spill_fn[(e.src, name)](got[e.src])
+               if (e.src, name) in an.spill_fn else got[e.src]
+               for e in g.in_edges(name)]
+        want = apply_vertex(v, ins, kernel_exec.params, x, an)
+        y = got[name]
+        lim = tol * max(1.0, _max_abs(want))
+        err = _max_abs(y - want) if y.shape == want.shape else float("inf")
+        ratio = err / lim
+        if not ratio <= 1.0:                    # NaN fails too
+            raise OracleViolation(
+                "vertex_parity",
+                f"vertex {name!r} ({v.kind}): max|kernel - plain| {err:.3e} "
+                f"on the kernel route's inputs, beyond {tol} x max(1, "
+                f"max|plain|) = {lim:.3e}")
+        if ratio > worst:
+            worst, where = ratio, name
+    return worst, where
+
+
+def _bound(y_ref: torch.Tensor, y_up: torch.Tensor) -> tuple[float, float]:
+    s = _max_abs(y_up - y_ref)
+    return max(KERNEL_PARITY_TOL * _max_abs(y_ref), 2.0 * s), s
+
+
+def _one_ulp_up(x: torch.Tensor) -> torch.Tensor:
+    return torch.nextafter(x, torch.full_like(x, float("inf")))
+
+
+def frame_bound(ref_exec, x, y_ref) -> tuple[float, float]:
+    """The bound a frame on the kernel route is held to against reference
+    mode: (max(:data:`KERNEL_PARITY_TOL` x max|y_ref|, 2 S), S), with S =
+    max|ref_exec(x one ulp up) - y_ref| the reference's own change when
+    every input element moves one ulp up (``torch.nextafter(x, +inf)``).
+    ``ref_exec`` is the reference route on the frame ``x``,
+    ``y_ref = ref_exec(x)``.
+
+    Why 2 S: the kernel route and reference mode each stand one rounding
+    perturbation from the same computation, so they may part by twice what
+    one perturbation moves.  S comes from reference mode alone, not from
+    the kernel under test; where BFP8 encodes are chained a one-ulp change
+    before an encode moves a mantissa by one step of its block, and the
+    steps compound down the chain.  Where S is below half of
+    :data:`KERNEL_PARITY_TOL` x max|y_ref|, the bound is that tolerance."""
+    return _bound(y_ref, ref_exec(_one_ulp_up(x)))
+
+
+def stream_bounds(ref_exec, xs, ys_ref) -> list[tuple[float, float]]:
+    """:func:`frame_bound` of every microbatch of a stream: ``ref_exec``
+    takes the stream ``xs`` (B, m, c) and gives ``ys_ref`` (B, L); one
+    reference pass moves the whole stream one ulp up."""
+    ys_up = ref_exec(_one_ulp_up(xs))
+    return [_bound(ys_ref[b], ys_up[b]) for b in range(len(ys_ref))]
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameHold:
+    """What :func:`hold_to_reference` read on a frame that passed."""
+    err: float            # max|y - y_ref|
+    bound: float          # the frame's bound, max(tol, 2 s)
+    s: float              # reference mode's change one ulp up (frame_bound)
+    tol: float            # KERNEL_PARITY_TOL x max|y_ref|
+    worst: float          # the worst vertex's ratio to its vertex_parity limit
+    where: str | None     # that vertex
+
+
+def hold_to_reference(kernel_exec, plain_exec, ref_run, x, y, y_ref, *,
+                      bound: tuple[float, float] | None = None,
+                      values: dict | None = None) -> FrameHold:
+    """The kernel route's two checks against reference mode on one frame
+    (or microbatch) ``x`` on the card: every vertex of ``kernel_exec``
+    within :data:`VERTEX_PARITY_TOL` of its plain version on the kernel
+    route's own inputs (:func:`vertex_parity` against ``plain_exec``, the
+    same plan in reference mode, staged; ``values`` as there), and the
+    output ``y`` finite, of ``y_ref``'s shape and within the frame's bound
+    of reference mode's ``y_ref``: ``bound`` = (bound, S) where the caller
+    has it (a stream's :func:`stream_bounds`), else :func:`frame_bound` of
+    ``ref_run``.  Raises :class:`OracleViolation` (``vertex_parity`` naming
+    the vertex, or ``frame_bound``)."""
+    worst, where = vertex_parity(kernel_exec, plain_exec, x, values=values)
+    if y.shape != y_ref.shape or not bool(torch.isfinite(y).all()):
+        raise OracleViolation("frame_bound",
+                              f"bad output {tuple(y.shape)}, expected a "
+                              f"finite {tuple(y_ref.shape)}")
+    lim, s = frame_bound(ref_run, x, y_ref) if bound is None else bound
+    tol = KERNEL_PARITY_TOL * _max_abs(y_ref)
+    err = _max_abs(y - y_ref)
+    if not err <= lim:
+        raise OracleViolation(
+            "frame_bound",
+            f"max|y - ref| {err:.3e} beyond the bound {lim:.3e} "
+            f"(max({KERNEL_PARITY_TOL} x max|ref| = {tol:.3e}, 2 S), "
+            f"S = {s:.3e})")
+    return FrameHold(err, lim, s, tol, worst, where)
 
 
 def _lossless_twin(plan):
@@ -269,21 +410,31 @@ def check_case(case: FuzzCase, *, resident_limit: int = 2,
         c_ker = api.compile(api.CompileSpec(
             mode="staged", plan=plan,
             **{**base, "kernel_mode": api.kernel_route(torch_device)}))
-        tol = KERNEL_PARITY_TOL if xs.is_cuda else 0.0
         for b in range(B):
-            y = c_ker.run(xs[b])
             want = staged_ys[b]
-            ok = (_eq(y, want) if tol == 0.0 else
-                  y.shape == want.shape and bool(torch.isfinite(y).all())
-                  and _max_abs(y - want) <= tol * _max_abs(want))
-            if not ok:
-                within = "" if tol == 0.0 else f" beyond {tol} x max|ref|"
-                raise OracleViolation(
-                    "kernel_parity",
-                    f"staged kernel route != staged reference on frame {b}"
-                    f"{within}: "
-                    + _first_divergence(c_staged.executor, c_ker.executor,
-                                        xs[b], tol))
+            if not xs.is_cuda:
+                if not _eq(c_ker.run(xs[b]), want):
+                    raise OracleViolation(
+                        "kernel_parity",
+                        f"staged kernel route != staged reference on frame "
+                        f"{b}: " + _first_divergence(
+                            c_staged.executor, c_ker.executor, xs[b]))
+                continue
+            # one run of the kernel route a frame, every vertex kept: the
+            # frame's output is its last vertex's
+            vals = c_ker.executor.run_intermediates(xs[b])
+            try:
+                hold_to_reference(c_ker.executor, c_staged.executor,
+                                  c_staged.run, xs[b],
+                                  vals[c_ker.executor.analysis.topo[-1]],
+                                  want, values=vals)
+            except OracleViolation as e:
+                free = ("" if e.oracle == "vertex_parity" else
+                        "; free-running: " + _first_divergence(
+                            c_staged.executor, c_ker.executor, xs[b],
+                            KERNEL_PARITY_TOL))
+                raise OracleViolation("kernel_parity",
+                                      f"frame {b}: {e}{free}") from e
         del c_ker
         ran.append("kernel_parity")
 

@@ -23,6 +23,7 @@ from repro_torch.kernels.bfp8 import (bfp8_dequant,         # noqa: E402
 from repro_torch.kernels.library import launches, reset_launches  # noqa: E402
 from repro_torch.kernels.streamed_matmul import (           # noqa: E402
     streamed_matmul, streamed_matmul_padded)
+from repro_torch.testing import oracle                      # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -43,6 +44,14 @@ def gen():
 
 def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _hold_to_reference(main, refc, x, y, yr):
+    """As chip_smoke.py's phase 3 (oracle.hold_to_reference on the staged
+    executors of the same plan): every vertex of the kernel route held to
+    its plain version on its own inputs, the output to frame_bound."""
+    oracle.hold_to_reference(main.executor, refc.executor, refc.run, x, y,
+                             yr)
 
 
 @pytest.mark.parametrize("m,c", [(77, 45), (256, 64), (1000, 512)])
@@ -252,7 +261,7 @@ def test_staged_executor_on_the_card(gen):
     torch.cuda.synchronize()
     assert counts["act_relu_encode"] == 2 and counts["bfp8_dequant"] == 2
     assert counts["streamed_matmul"] > 0 and counts["pool"] == 2
-    assert float((y - yr).abs().max()) <= 2e-2 * float(yr.abs().max())
+    _hold_to_reference(main, refc, x, y, yr)
 
 
 def test_x3d_frame_on_the_card(gen):
@@ -276,7 +285,7 @@ def test_x3d_frame_on_the_card(gen):
     assert counts["conv2d"] == 4 and counts["dwconv"] == 5
     assert counts["pool_encode"] == 1 and counts["bfp8_quant"] == 2
     assert counts["bfp8_dequant"] == 4 and counts["pool"] == 3
-    assert float((y - yr).abs().max()) <= 2e-2 * float(yr.abs().max())
+    _hold_to_reference(main, refc, x, y, yr)
 
 
 def _codec(y):
@@ -332,7 +341,7 @@ def _offset_view(t, elems):
     return out
 
 
-CONV_K, CONV_N = (3, 5, 216, 384), (1, 33, 48, 96, 128)
+CONV_K, CONV_N = (3, 5, 216, 384), (1, 24, 33, 48, 96, 128)
 
 
 @pytest.mark.parametrize("m", [1, 31, 3200])
@@ -343,10 +352,10 @@ def test_conv2d_variants_at_ragged_shapes(gen, m, variant):
     (k % 4 != 0, n % 32 != 0) and at m = 1: inputs whose rows are not
     16-byte aligned (a row-offset view at odd k, a base offset at every
     k, a mantissa base one byte off) give the aligned launch's bits, as
-    do three column tiles a block (bc = 96); y is within 2e-4 of the
-    plain version, the encodes' y bit for bit the plain kernel's (on the
-    decode kernel's output with the decode) and their payload the codec's
-    of that y."""
+    do three column tiles a block (bc = 96) and a second launch on the
+    same inputs; y is within 2e-4 of the plain version, the codec
+    variants' y bit for bit the plain kernel's (on the decode kernel's
+    output with the decode) and their payload the codec's of that y."""
     dec, enc = "_decode" in variant, variant.endswith("_encode")
     for k in CONV_K:
         for n in CONV_N:
@@ -376,7 +385,8 @@ def test_conv2d_variants_at_ragged_shapes(gen, m, variant):
                 assert torch.equal(_bits(y), _bits(SC.conv2d(xd, w))), (k, n)
             if enc:
                 _assert_payload(ypay, _codec(y))
-            for out in [run(other) for other in shifted] + [tiled3]:
+            again = run(pay if dec else xd)
+            for out in [run(other) for other in shifted] + [tiled3, again]:
                 o, opay = _split(out, enc)
                 assert torch.equal(_bits(o), _bits(y)), (k, n)
                 if enc:
@@ -518,13 +528,16 @@ def test_hand_cut_x3d_from_an_artifact_on_the_card(gen, tmp_path, thresh):
     fused = {k: n for k, n in counts.items() if "decode" in k or k in (
         "conv2d_encode", "dwconv_encode")}
     assert sum(fused.values()) > 0
-    assert float((y - yr).abs().max()) <= 2e-2 * float(yr.abs().max())
+    _hold_to_reference(main, refc, x, y, yr)
 
 
 def test_pipelined_stream_on_the_card(gen):
     """A small YOLO head under a 3-stage plan that evicts its skips through
     BFP8, pipelined: every microbatch equals the staged executor on the
-    same plan bit for bit, and the conv2d egress encode ran."""
+    same plan bit for bit, the conv2d egress encode ran, and each
+    microbatch holds against pipelined reference mode as chip_smoke.py's
+    phase 3 holds it (vertices on the staged executor, the microbatch
+    within its stream_bounds bound)."""
     import repro_torch
     from repro_torch.core import build_yolo_head_exec, hand_cut_plan
     g = build_yolo_head_exec(positions=256, widths=(32, 64, 128), head=32)
@@ -534,7 +547,12 @@ def test_pipelined_stream_on_the_card(gen):
     pipe = repro_torch.compile(repro_torch.CompileSpec(
         **spec, mode="pipelined", microbatches=4))
     staged = repro_torch.compile(repro_torch.CompileSpec(**spec))
-    staged.executor.params = pipe.executor.params
+    pref = repro_torch.compile(repro_torch.CompileSpec(
+        **spec, mode="pipelined", microbatches=4, kernel_mode="reference"))
+    sref = repro_torch.compile(repro_torch.CompileSpec(
+        **spec, kernel_mode="reference"))
+    for c in (staged, pref, sref):
+        c.executor.params = pipe.executor.params
     xs = torch.randn((4,) + pipe.input_shape(), generator=gen,
                      device="cuda")
     reset_launches()
@@ -542,8 +560,15 @@ def test_pipelined_stream_on_the_card(gen):
     counts = launches()
     torch.cuda.synchronize()
     assert counts["conv2d_encode"] > 0
+    yrs = pref.run(xs)
+    bounds = oracle.stream_bounds(pref.run, xs, yrs)
+    last = staged.executor.analysis.topo[-1]
     for b in range(4):
-        assert torch.equal(_bits(ys[b]), _bits(staged.run(xs[b])))
+        vals = staged.executor.run_intermediates(xs[b])
+        assert torch.equal(_bits(ys[b]), _bits(vals[last]))
+        oracle.hold_to_reference(staged.executor, sref.executor, sref.run,
+                                 xs[b], ys[b], yrs[b], bound=bounds[b],
+                                 values=vals)
 
 
 def test_raw_and_bfp8_crossings_of_one_producer_on_the_card(gen):

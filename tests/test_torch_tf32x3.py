@@ -1,8 +1,9 @@
 """The numerics of the 3xTF32 split (``src/repro_torch/csrc/tf32x3.cuh``)
 on the CPU.
 
-``streamed_matmul`` and ``flash_attention`` run their products on the
-tensor cores in TF32, whose operands keep 10 of f32's 23 mantissa bits.
+``streamed_matmul``, ``flash_attention`` and ``conv2d`` run their
+products on the tensor cores in TF32, whose operands keep 10 of f32's 23
+mantissa bits.
 Each f32 operand is split into ``hi + lo`` (``ref.tf32_split``) and a
 product is taken as ``a_lo b_hi + a_hi b_lo + a_hi b_hi``.  Here that
 product is emulated in the kernels' order (per slice of 8 along K, the
@@ -13,8 +14,7 @@ reference package's, within rtol = atol = 2e-4 (``MATMUL_TOL`` and
 2048 rows, at the attention's two products at S = 512, D = 128, and at
 conv2d's launch shapes cut to 2048 rows (K from 3 to 384, N from 24 to
 128, one A operand decoded from its BFP8 payload), where the split holds
-that bound too (``csrc/conv2d.cu`` is still an f32 FMA chain; ROADMAP.md
-says what keeps it there).  One TF32 product, ``a_hi b_hi`` alone,
+that bound too.  One TF32 product, ``a_hi b_hi`` alone,
 breaks that bound at every one of those shapes, which is why the split
 exists.
 """
