@@ -60,7 +60,10 @@ and prints no result line):
    40 for the codec variants, payloads with random padding bytes) and the
    edge cases (the BFP8 exponent's, 'same'-padding rows and +-0.0 for
    dwconv); a codec variant's y also bit for bit the un-fused kernel's on
-   the decode kernel's output, its payload the codec's of that y;
+   the decode kernel's output, its payload the codec's of that y; a pool
+   over more than 8 rows (one launch, its sum order fixed) within POOL_TOL
+   of the plain mean and a second launch bit for bit the first; each pool
+   launch shape against ``view(...).mean``;
    flash_attention at the LM path's shapes and at ragged S with head widths
    16-128, causal and not; every tile
    choice of every tiled kernel bit for bit its untiled launch; and time
@@ -435,11 +438,24 @@ def kernel_phase(torch, timer, path_shapes):
             raise AssertionError(f"{name}: global pool outside "
                                  f"{POOL_TOL} x mean|x|")
 
+    def flat(out):
+        """A wrapper's outputs as a list: y, or y and its payload."""
+        return [out] if isinstance(out, torch.Tensor) else [out[0], *out[1]]
+
+    def repeatable(name, kern, got):
+        """A second launch bit for bit the first's outputs ``got``."""
+        for a, b in zip(flat(kern()), flat(got)):
+            exact(name, a, b)
+
     def check_pool(x, m_out):
+        kern = lambda: SC.pool(x, m_out)                       # noqa: E731
         if x.shape[0] // m_out == 2:
-            exact("pool", SC.pool(x, m_out), ref.pool_ref(x, m_out))
-        else:
-            pool_close("pool", SC.pool(x, m_out), x, m_out)
+            exact("pool", kern(), ref.pool_ref(x, m_out))
+            return
+        got = kern()
+        pool_close("pool", got, x, m_out)
+        if x.shape[0] // m_out > SC.POOL_SERIAL_MAX_K:
+            repeatable("pool", kern, got)
 
     def check_dwconv(x, w):
         exact("dwconv", SC.dwconv(x, w), ref.dwconv_ref(x, w))
@@ -489,9 +505,10 @@ def kernel_phase(torch, timer, path_shapes):
     def check_variant(kind, x, pay, c, m_out=None, w=None, nan_bits=True):
         """y bit for bit the un-fused kernel's on the input (the standalone
         decode kernel's output, for a decoding variant) and the payload bit
-        for bit the codec's of that y, a conv2d variant's second launch bit
-        for bit its first; y within MATMUL_TOL (conv2d) or
-        POOL_TOL (pool, k > 2) of the plain version, else bit for bit."""
+        for bit the codec's of that y, a conv2d variant's and a pool's over
+        more than POOL_SERIAL_MAX_K rows second launch bit for bit its
+        first; y within MATMUL_TOL (conv2d) or POOL_TOL (pool, k > 2) of the
+        plain version, else bit for bit."""
         kern, plain, unfused = variant(kind, c, m_out, w)
         enc = kind.endswith("_encode")
         got, want = kern(x, pay), plain(x, pay)
@@ -499,10 +516,7 @@ def kernel_phase(torch, timer, path_shapes):
                                  else ((got, None), (want, None)))
         if kind in TF32X3_KERNELS:
             # the tensor-core kernels: a second launch bit for bit the first
-            def flat(out):
-                return (out[0], *out[1]) if enc else (out,)
-            for a, b in zip(flat(kern(x, pay)), flat(got)):
-                exact(kind, a, b)
+            repeatable(kind, lambda: kern(x, pay), got)
         xin = x if pay is None else bfp8_dequant(*pay)[:, :c].contiguous()
         exact(kind, y, unfused(xin), nan_bits)
         if enc:
@@ -512,6 +526,8 @@ def kernel_phase(torch, timer, path_shapes):
             close(kind, y, py, MATMUL_TOL, MATMUL_TOL)
         elif kind.startswith("pool") and xin.shape[0] // m_out > 2:
             pool_close(kind, y, xin, m_out)
+            if xin.shape[0] // m_out > SC.POOL_SERIAL_MAX_K:
+                repeatable(kind, lambda: kern(x, pay), got)
         else:
             exact(kind, y, py, nan_bits)
         if enc:
@@ -610,7 +626,7 @@ def kernel_phase(torch, timer, path_shapes):
             return ((lambda: exact(kind, kern(), plain())), kern, plain,
                     lambda: torch.relu(x), 8.0 * m * c, m * c)
         if kind == "pool":
-            (m, c), (m_out, _), _ = arg_shapes
+            (m, c), (m_out, _), *_ = arg_shapes
             x = randn(m, c)
             kern = lambda: SC.pool(x, m_out)                   # noqa: E731
             plain = lambda: ref.pool_ref(x, m_out)             # noqa: E731
@@ -642,12 +658,16 @@ def kernel_phase(torch, timer, path_shapes):
     union = collections.Counter()
     for shapes in path_shapes.values():
         union.update(shapes)
+    pool_shapes = []        # (input, m_out, bytes, ms, library ms, launches)
     for key in sorted(union):
         kind, arg_shapes = key
         check, kern, plain, lib, nbytes, ops = case(kind, arg_shapes)
         check()
         t_kern, t_plain = timer(kern), timer(plain)
         t_lib = None if lib is None else timer(lib)
+        if kind == "pool":
+            pool_shapes.append((arg_shapes[0], arg_shapes[1][0], nbytes,
+                                t_kern, t_lib, union[key]))
         b, bound_by = bound_ms(nbytes, ops)
         b3 = (bound_tf32x3_ms(nbytes, ops) if kind in TF32X3_KERNELS
               else None)
@@ -680,6 +700,14 @@ def kernel_phase(torch, timer, path_shapes):
             p["bound_ms"] += n * b
             if t_lib is not None:
                 p["library_ms"] += n * t_lib
+    print("  pool against view(...).mean, per launch shape (input -> output "
+          "rows, MB moved, ms, library ms, ratio, launches on the paths):")
+    for shape, m_out, nbytes, t_kern, t_lib, n in sorted(
+            pool_shapes, key=lambda r: -r[2]):
+        print(f"    {shape} -> {m_out}: {nbytes / 1e6:.2f} MB, ms "
+              f"{t_kern:.4f}, library {t_lib:.4f}, ratio "
+              f"{t_kern / t_lib:.3f}, x{n}"
+              f"{' SLOWER' if t_kern > t_lib else ''}")
 
     # -- ragged shapes and edge cases ----------------------------------------
     for m, k, n, f in ((1000, 300, 200, 0.0), (77, 1536, 130, 0.5),
@@ -792,7 +820,7 @@ def kernel_phase(torch, timer, path_shapes):
                   w=torch.eye(64, device="cuda"))
     for m, c, m_out in ((4096, 96, 1), (3 * 70001, 40, 3)):
         g = randn(m, c)
-        pool_close("pool", SC.pool(g, m_out), g, m_out)
+        check_pool(g, m_out)
     man, exp = randi8(-128, 127, 300, 96), randi8(-128, 127, 300, 3)
     exact("bfp8_dequant", bfp8_dequant(man, exp),
           ref.bfp8_dequant_ref(man, exp))
@@ -1684,9 +1712,11 @@ def main() -> int:
             print(f"  {line.strip()} [{kernel}]")
         elif line.startswith("==") or "spill" in line:
             print(f"  {line.strip()}")
-        # the 3xTF32 kernels keep their tiles in registers: no spills
+        # the 3xTF32 kernels keep their tiles in registers, the pool and
+        # dwconv families their sums and tap windows: no spills
         if (source in ("streamed_matmul.cu", "flash_attention.cu",
-                       "conv2d.cu", "conv2d_decode.cu")
+                       "conv2d.cu", "conv2d_decode.cu", "streaming_conv.cu",
+                       "dwconv.cu")
                 and "spill" in line
                 and any(int(w) for w in line.split() if w.isdigit())):
             spills.append(f"{source} [{kernel}]: {line.strip()}")

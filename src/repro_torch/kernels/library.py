@@ -45,20 +45,20 @@ SIGNATURES = {
     "streamed_matmul": "ppppiiii",
     "act_relu": "ppiii",
     "act_relu_encode": "ppppiii",
-    "pool": "pppiiii",
+    "pool": "ppppiiii",
     "bfp8_dequant": "pppii",
     "conv2d": "pppiiiii",
     "dwconv": "pppiiii",
     "bfp8_quant": "pppii",
-    "pool_encode": "pppppiiii",
+    "pool_encode": "ppppppiiii",
     "conv2d_encode": "pppppiiiii",
     "conv2d_decode": "ppppiiiii",
     "conv2d_decode_encode": "ppppppiiiii",
     "dwconv_encode": "pppppiiii",
     "dwconv_decode": "ppppiiii",
     "dwconv_decode_encode": "ppppppiiii",
-    "pool_decode": "ppppiiii",
-    "pool_decode_encode": "ppppppiiii",
+    "pool_decode": "pppppiiii",
+    "pool_decode_encode": "pppppppiiii",
     "act_relu_decode_encode": "pppppiii",
     "act_relu_decode": "pppiii",
     "flash_attention": "ppppiiiii",

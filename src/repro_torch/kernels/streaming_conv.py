@@ -33,13 +33,13 @@ tile):
   sets the output columns a block covers, at most 128 (0: ``n`` rounded
   up to the 32-column codec block and cut into the fewest blocks of at
   most 128 columns, as evenly as 32-column steps allow);
-* ``dwconv*``: ``bm`` is the rows a block owns (0: about 2048 values'
-  worth), cut down to what a block's shared memory holds with the halo;
+* ``dwconv*``: ``bm`` is the run of output rows a thread slides its tap
+  window down, at most 64 (0: 16);
 * ``act_relu*`` and ``pool*``: ``bm`` rows a row block, which the grid's
   blocks share (0: one row block of all rows; a ``bm`` that would need
-  more than 65535 row blocks grows to ``ceil(m / 65535)``).  The tree
-  passes of a pool over more than 8 rows give each block one output row
-  whatever ``bm`` is.
+  more than 65535 row blocks grows to ``ceil(m / 65535)``).  A pool over
+  more than 8 rows gives each block a chunk of one output row whatever
+  ``bm`` is.
 """
 from __future__ import annotations
 
@@ -54,7 +54,13 @@ from .streamed_matmul import _round_up
 BFP8_BLOCK = 32
 CONV2D_BN = 32            # conv2d's bc granularity: one codec block
 POOL_SERIAL_MAX_K = 8     # pool sums up to this many rows in one thread
-POOL_CHUNK = 256          # rows per block of a pool tree pass
+# the pool over more rows (csrc/streaming_conv.cu, pool_layout): blocks of
+# POOL_THREADS threads, a channel tile of at most POOL_TILE_QUADS quads,
+# each of the block's row lanes summing POOL_LANE_ROWS rows of a chunk
+POOL_THREADS = 256
+POOL_TILE_QUADS = 64
+POOL_LANE_ROWS = 32
+DWCONV_MAX_TAPS = 7       # the taps csrc/dwconv.cu is built for
 # the reference autotuner's tile choices (src/repro/optim/autotune.py)
 TILE_BM_CHOICES = (0, 8, 16, 32, 64, 128)
 TILE_BC_CHOICES = (0, 32, 64, 128)
@@ -176,8 +182,9 @@ def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK,
     _check_tiles("dwconv", bm)
     check_operand("dwconv w", w, torch.float32, align=4)
     taps, c = w.shape
-    if taps < 1:
-        raise ValueError(f"dwconv: w {tuple(w.shape)} has no taps")
+    if not 1 <= taps <= DWCONV_MAX_TAPS:
+        raise ValueError(f"dwconv: w {tuple(w.shape)}: the kernel takes 1 "
+                         f"to {DWCONV_MAX_TAPS} taps")
     src, m = _input_operands("dwconv", x, payload, c)
     y = torch.empty((m, c), dtype=torch.float32, device=w.device)
     name = _kernel_name("dwconv", payload, encode)
@@ -189,15 +196,52 @@ def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK,
     return y, _egress_payload(*out)
 
 
+def pool_layout(k: int, c: int) -> tuple[int, int, int, int, int]:
+    """``(tiles, tq, lanes, chunk, chunks)`` of a pool over k >
+    POOL_SERIAL_MAX_K rows, as ``pool_layout`` in
+    ``csrc/streaming_conv.cu`` computes it: channel tiles of tq quads
+    (4 channels), row lanes a block, input rows a block (a chunk) and
+    chunks an output row."""
+    q4 = -(-c // 4)
+    tiles = -(-q4 // POOL_TILE_QUADS)
+    tq = -(-q4 // tiles)
+    if tiles > 1:
+        tq = _round_up(tq, 8)       # a tile holds whole codec blocks
+    lanes = POOL_THREADS // tq
+    chunk = lanes * POOL_LANE_ROWS
+    return tiles, tq, lanes, chunk, -(-k // chunk)
+
+
 def pool_scratch_size(m_out: int, k: int, c: int) -> int:
-    """f32 values of partial sums the pool kernels need: none for the
-    serial path (k <= POOL_SERIAL_MAX_K) or a single tree pass, else one
-    buffer per tree pass, ping-ponged (``run_pool`` in
-    ``csrc/streaming_conv.cu`` lays them out the same way)."""
-    chunks = -(-k // POOL_CHUNK)
-    if k <= POOL_SERIAL_MAX_K or chunks == 1:
+    """f32 words of partial sums the pool kernels need beside their outputs:
+    none for the serial path (k <= POOL_SERIAL_MAX_K) or one chunk an
+    output row, else the chunks' partials, (m_out, chunks, c) (``run_pool``
+    in ``csrc/streaming_conv.cu`` lays them out the same way)."""
+    if k <= POOL_SERIAL_MAX_K:
         return 0
-    return m_out * (chunks + -(-chunks // POOL_CHUNK)) * c
+    _, _, _, _, chunks = pool_layout(k, c)
+    return 0 if chunks == 1 else m_out * chunks * c
+
+
+def pool_counters(m_out: int, k: int, c: int) -> int:
+    """The counters a pool launch uses, one an (output row, channel tile)
+    where its chunks' partials are summed (else none)."""
+    tiles = pool_layout(k, c)[0]
+    return m_out * tiles if pool_scratch_size(m_out, k, c) else 0
+
+
+# One zeroed int32 buffer per device that the pool launches share: a launch
+# finds its last block by counting up to its chunks, and that block sets the
+# counter back to 0, so the buffer is zero between launches on a stream.
+_POOL_COUNTERS: dict = {}
+
+
+def _counter_buffer(n: int, device) -> torch.Tensor:
+    buf = _POOL_COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _POOL_COUNTERS[device] = buf
+    return buf[:n]
 
 
 def pool(x, m_out: int, *, c: int | None = None, payload=None, encode=False,
@@ -221,12 +265,13 @@ def pool(x, m_out: int, *, c: int | None = None, payload=None, encode=False,
     y = torch.empty((m_out, c), dtype=torch.float32, device=device)
     scratch = torch.empty(pool_scratch_size(m_out, k, c), dtype=torch.float32,
                           device=device)
+    count = _counter_buffer(pool_counters(m_out, k, c), device)
     name = _kernel_name("pool", payload, encode)
     if not encode:
-        launch(name, *src, y, scratch, m_out, k, c, bm)
+        launch(name, *src, y, scratch, count, m_out, k, c, bm)
         return y
     out = _empty_payload(m_out, c, device)
-    launch(name, *src, y, *out, scratch, m_out, k, c, bm)
+    launch(name, *src, y, *out, scratch, count, m_out, k, c, bm)
     return y, _egress_payload(*out)
 
 

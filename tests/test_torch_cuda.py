@@ -502,6 +502,100 @@ def test_act_relu_decode_bit_exact(gen, m, c):
     assert torch.equal(_bits(y), _bits(SC.act_relu(dec)))
 
 
+RAGGED_M = (1, 31, 4099)
+RAGGED_C = (1, 3, 24, 45, 48, 96, 384)
+POOL_K = (2, 3, 8, 9, 257, "m")     # "m": all m rows to one output row
+DW_TAPS = (1, 2, 3, 5)
+POOL_TOL = 1e-5                     # chip_smoke.py's, of mean |x|
+
+
+def _serial_mean(x, m_out):
+    """The pool kernels' order over k <= 8 rows: each channel summed in
+    order from 0, then divided by k.  The divisor is a tensor, so the card
+    divides; by a Python number it would multiply by the reciprocal."""
+    k = x.shape[0] // m_out
+    xv = x.view(m_out, k, x.shape[1])
+    s = torch.zeros_like(xv[:, 0])
+    for j in range(k):
+        s = s + xv[:, j]
+    return s / torch.full_like(s, float(k))
+
+
+def _flat(out):
+    return [out] if isinstance(out, torch.Tensor) else [out[0], *out[1]]
+
+
+@pytest.mark.parametrize("kind", [op + var for op in ("pool", "dwconv")
+                                  for var in ("", "_encode", "_decode",
+                                              "_decode_encode")])
+def test_pool_and_dwconv_variants_at_ragged_shapes(gen, kind):
+    """Every pool and dwconv variant at m in RAGGED_M and c in RAGGED_C,
+    pool at k in POOL_K (m output rows of k, or all m rows to one) and
+    dwconv at taps in DW_TAPS.  Inputs whose rows are not 16-byte aligned
+    (a row-offset view, a base-offset view, a mantissa base one byte off),
+    read one by one, give the aligned launch's bits, and so does a second
+    launch.  y is bit for bit the plain version's (dwconv; pool at k <= 8,
+    whose order is the serial sum from 0, the plain mean's bits at k = 2),
+    or within POOL_TOL x mean |x| per channel of the plain mean (pool at
+    k > 8); a decoding variant's y is bit for bit the un-fused kernel's on
+    the standalone decode's output, an encoding variant's payload the
+    codec's of its y."""
+    op = kind.split("_")[0]
+    dec, enc = "_decode" in kind, kind.endswith("_encode")
+    for m in RAGGED_M:
+        for c in RAGGED_C:
+            for arg in POOL_K if op == "pool" else DW_TAPS:
+                if op == "pool":
+                    m_out, k = (1, m) if arg == "m" else (m, arg)
+                    rows = m_out * k
+
+                    def run(xin, pay, m_out=m_out, c=c, enc=enc):
+                        return SC.pool(xin, m_out, c=c, payload=pay,
+                                       encode=enc)
+                else:
+                    rows = m
+                    w = torch.randn(arg, c, generator=gen, device="cuda")
+
+                    def run(xin, pay, w=w, enc=enc):
+                        return SC.dwconv(xin, w, payload=pay, encode=enc)
+                if dec:
+                    pay = _codec_payload(gen, rows, c)
+                    x = bfp8_dequant(*pay)[:, :c].contiguous()
+                    forms = [(None, pay),
+                             (None, (_offset_view(pay[0], 1), pay[1]))]
+                else:
+                    buf = torch.randn(rows + 1, c, generator=gen,
+                                      device="cuda") + 0.1
+                    x = buf[1:].clone()
+                    forms = [(x, None), (buf[1:], None),
+                             (_offset_view(x, 1), None)]
+                got = run(*forms[0])
+                for xin, p in forms[1:] + forms[:1]:
+                    for a, b in zip(_flat(run(xin, p)), _flat(got)):
+                        assert torch.equal(_bits(a), _bits(b)), (m, c, arg)
+                y, ypay = _split(got, enc)
+                if enc:
+                    _assert_payload(ypay, _codec(y))
+                if op == "dwconv":
+                    want = ref.dwconv_ref(x, w)
+                    if dec:
+                        assert torch.equal(_bits(y), _bits(SC.dwconv(x, w)))
+                elif k <= SC.POOL_SERIAL_MAX_K:
+                    want = _serial_mean(x, m_out)
+                    if k == 2:
+                        assert torch.equal(_bits(y),
+                                           _bits(ref.pool_ref(x, m_out)))
+                else:
+                    want = ref.pool_ref(x, m_out)
+                    lim = POOL_TOL * x.abs().reshape(m_out, k, c).mean(1)
+                    assert bool(((y - want).abs() <= lim).all()), (m, c, k)
+                    want = None
+                if op == "pool" and dec:
+                    assert torch.equal(_bits(y), _bits(SC.pool(x, m_out)))
+                if want is not None:
+                    assert torch.equal(_bits(y), _bits(want)), (m, c, arg)
+
+
 @pytest.mark.parametrize("thresh", [512.0, 64.0, 0.0])
 def test_hand_cut_x3d_from_an_artifact_on_the_card(gen, tmp_path, thresh):
     """The small X3D under a hand-cut one-stage plan, compiled on the CPU,
