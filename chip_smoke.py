@@ -63,7 +63,10 @@ and prints no result line):
    the decode kernel's output, its payload the codec's of that y; a pool
    over more than 8 rows (one launch, its sum order fixed) within POOL_TOL
    of the plain mean and a second launch bit for bit the first; each pool
-   launch shape against ``view(...).mean``;
+   launch shape against ``view(...).mean``, and each launch shape of the
+   standalone codec (an (r, c) stripe and its 32 ceil(c / 32)-wide
+   payload, no padded copy) against its bound; dwconv over 9 and 11 taps
+   (more than its window kernel is built for);
    flash_attention at the LM path's shapes and at ragged S with head widths
    16-128, causal and not; every tile
    choice of every tiled kernel bit for bit its untiled launch; and time
@@ -465,8 +468,8 @@ def kernel_phase(torch, timer, path_shapes):
         """The codec's payload of a random (m, c) stripe, with random bytes
         in its padding channels: the kernels and the plain versions read
         only the first c."""
-        man, exp = bfp8_quant_values(F.pad(randn(m, c) * 2, (0, (-c) % 32)),
-                                     block=32)
+        man, exp = bfp8_quant_values(randn(m, c) * 2, block=32,
+                                     width=32 * -(-c // 32))
         if c % 32:
             man[:, c:] = randi8(-127, 127, m, man.shape[1] - c)
         return man, exp
@@ -517,11 +520,11 @@ def kernel_phase(torch, timer, path_shapes):
         if kind in TF32X3_KERNELS:
             # the tensor-core kernels: a second launch bit for bit the first
             repeatable(kind, lambda: kern(x, pay), got)
-        xin = x if pay is None else bfp8_dequant(*pay)[:, :c].contiguous()
+        xin = x if pay is None else bfp8_dequant(*pay, c=c)
         exact(kind, y, unfused(xin), nan_bits)
         if enc:
-            ppay = bfp8_quant_values(F.pad(y, (0, (-y.shape[1]) % 32)),
-                                     block=32)
+            ppay = bfp8_quant_values(y, block=32,
+                                     width=32 * -(-y.shape[1] // 32))
         if kind.startswith("conv2d"):
             close(kind, y, py, MATMUL_TOL, MATMUL_TOL)
         elif kind.startswith("pool") and xin.shape[0] // m_out > 2:
@@ -633,22 +636,26 @@ def kernel_phase(torch, timer, path_shapes):
             return ((lambda: check_pool(x, m_out)), kern, plain,
                     lambda: x.view(m_out, m // m_out, c).mean(1),
                     4.0 * (m * c + m_out * c), m * c)
+        # the codec: an (r, c) stripe and its payload, w = 32 nb wide; the
+        # quant reads the stripe and writes the whole payload, the dequant
+        # reads the c mantissas a row it decodes and writes the stripe
         if kind == "bfp8_quant":
-            (r, c), _, (_, nb) = arg_shapes
+            (r, c), (_, w), (_, nb) = arg_shapes
             x = randn(r, c) * 4
-            kern = lambda: bfp8_quant(x)                       # noqa: E731
-            plain = lambda: bfp8_quant_values(x, block=32)     # noqa: E731
+            kern = lambda: bfp8_quant(x, width=w)              # noqa: E731
+            plain = lambda: bfp8_quant_values(                 # noqa: E731
+                x, block=32, width=w)
 
             def check():
                 (man, exp), (pman, pexp) = kern(), plain()
                 exact(kind, man, pman)
                 exact(kind, exp, pexp)
-            return (check, kern, plain, None, 5.0 * r * c + r * nb,
+            return (check, kern, plain, None, 4.0 * r * c + r * (w + nb),
                     6.0 * r * c)
-        (r, c), (_, nb), _ = arg_shapes                        # bfp8_dequant
-        man, exp = randi8(-127, 127, r, c), randi8(-30, 20, r, nb)
-        kern = lambda: bfp8_dequant(man, exp)                  # noqa: E731
-        plain = lambda: ref.bfp8_dequant_ref(man, exp)         # noqa: E731
+        (r, w), (_, nb), (_, c) = arg_shapes                   # bfp8_dequant
+        man, exp = randi8(-127, 127, r, w), randi8(-30, 20, r, nb)
+        kern = lambda: bfp8_dequant(man, exp, c=c)             # noqa: E731
+        plain = lambda: ref.bfp8_dequant_ref(man, exp, c=c)    # noqa: E731
         return ((lambda: exact(kind, kern(), plain())), kern, plain, None,
                 5.0 * r * c + r * nb, r * c)
 
@@ -659,6 +666,7 @@ def kernel_phase(torch, timer, path_shapes):
     for shapes in path_shapes.values():
         union.update(shapes)
     pool_shapes = []        # (input, m_out, bytes, ms, library ms, launches)
+    codec_shapes = []       # (kind, stripe, width, bytes, ms, bound, launches)
     for key in sorted(union):
         kind, arg_shapes = key
         check, kern, plain, lib, nbytes, ops = case(kind, arg_shapes)
@@ -669,6 +677,12 @@ def kernel_phase(torch, timer, path_shapes):
             pool_shapes.append((arg_shapes[0], arg_shapes[1][0], nbytes,
                                 t_kern, t_lib, union[key]))
         b, bound_by = bound_ms(nbytes, ops)
+        if kind in ("bfp8_quant", "bfp8_dequant"):
+            stripe, payload = ((arg_shapes[0], arg_shapes[1]) if kind ==
+                               "bfp8_quant" else (arg_shapes[2],
+                                                  arg_shapes[0]))
+            codec_shapes.append((kind, stripe, payload[1], nbytes, t_kern, b,
+                                 union[key]))
         b3 = (bound_tf32x3_ms(nbytes, ops) if kind in TF32X3_KERNELS
               else None)
         print(f"  {kind} {arg_shapes}: ms {t_kern:.4f} plain {t_plain:.4f} "
@@ -708,6 +722,12 @@ def kernel_phase(torch, timer, path_shapes):
               f"{t_kern:.4f}, library {t_lib:.4f}, ratio "
               f"{t_kern / t_lib:.3f}, x{n}"
               f"{' SLOWER' if t_kern > t_lib else ''}")
+    print("  the standalone codec per launch shape (stripe, payload width, "
+          "MB moved, ms, bound ms, ratio, launches on the paths):")
+    for kind, stripe, w, nbytes, t_kern, b, n in sorted(
+            codec_shapes, key=lambda r: (r[0], -r[3])):
+        print(f"    {kind} {stripe} w {w}: {nbytes / 1e6:.2f} MB, ms "
+              f"{t_kern:.4f}, bound {b:.4f}, ratio {t_kern / b:.2f}, x{n}")
 
     # -- ragged shapes and edge cases ----------------------------------------
     for m, k, n, f in ((1000, 300, 200, 0.0), (77, 1536, 130, 0.5),
@@ -770,7 +790,7 @@ def kernel_phase(torch, timer, path_shapes):
     # +-0.0 in x and w (the plain tap sum starts from 0 + w0 x0, so a -0.0
     # product becomes +0.0), taps other than 3
     for m, c, taps in ((1, 24, 3), (2, 48, 3), (86, 24, 3), (4097, 384, 3),
-                       (300, 40, 5), (77, 96, 2)):
+                       (300, 40, 5), (77, 96, 2), (300, 40, 9)):
         x, w = randn(m, c), randn(taps, c)
         x[0, :4] = -0.0
         x[-1, 4:8] = 0.0
@@ -801,6 +821,16 @@ def kernel_phase(torch, timer, path_shapes):
     pman, pexp = bfp8_quant_values(x, block=32)
     exact("bfp8_quant", man, pman)
     exact("bfp8_quant", exp, pexp)
+    # the same rows cut to c % 32 != 0 (45: float4 loads; 43: one by one),
+    # quantised into the 64-wide payload, and decoded back to c channels
+    for c in (45, 43):
+        xc = x[:, :c].contiguous()
+        cman, cexp = bfp8_quant(xc, width=64)
+        pman, pexp = bfp8_quant_values(xc, block=32, width=64)
+        exact("bfp8_quant", cman, pman)
+        exact("bfp8_quant", cexp, pexp)
+        exact("bfp8_dequant", bfp8_dequant(cman, cexp, c=c),
+              ref.bfp8_dequant_ref(cman, cexp, c=c))
     check_variant("pool_encode", x.repeat_interleave(2, dim=0), None, 64,
                   x.shape[0], nan_bits=False)
     # the same blocks as payloads: the decode of every exponent from the
@@ -824,6 +854,15 @@ def kernel_phase(torch, timer, path_shapes):
     man, exp = randi8(-128, 127, 300, 96), randi8(-128, 127, 300, 3)
     exact("bfp8_dequant", bfp8_dequant(man, exp),
           ref.bfp8_dequant_ref(man, exp))
+    for c in (77, 40, 1):       # rows cut inside a block, c % 4 != 0
+        exact("bfp8_dequant", bfp8_dequant(man, exp, c=c),
+              ref.bfp8_dequant_ref(man, exp, c=c))
+    # dwconv over more taps than the window kernel's instances: the
+    # any-taps route, all four variants
+    for taps in (9, 11):
+        for kind in ("dwconv_decode", "dwconv_decode_encode"):
+            check_variant(kind, None, payload_of(300, 40), 40,
+                          w=randn(taps, 40))
     # the decode alone at the shape the YOLO head's acts run at, beside its
     # siblings there (no path launches it at this shape)
     check, kern, plain, _, nbytes, ops = case(
@@ -846,14 +885,13 @@ def tile_checks(torch, SC, randn, exact) -> None:
     tree passes at k = 300), every TILE_BM_CHOICES x TILE_BC_CHOICES value
     it takes gives output bit for bit that of tile 0."""
     from repro_torch.kernels.bfp8 import bfp8_quant_values
-    F = torch.nn.functional
     n_cases = 0
     for op in ("conv2d", "dwconv", "pool", "pool_tree", "act_relu"):
         for dec in (False, True):
             for enc in (False, True):
                 m, c = (900 if op == "pool_tree" else 300), 40
                 x = randn(m, c) * 3
-                pay = (bfp8_quant_values(F.pad(x, (0, (-c) % 32)), block=32)
+                pay = (bfp8_quant_values(x, block=32, width=64)
                        if dec else None)
                 kw = dict(payload=pay, encode=enc)
                 xin = None if dec else x
@@ -1713,10 +1751,11 @@ def main() -> int:
         elif line.startswith("==") or "spill" in line:
             print(f"  {line.strip()}")
         # the 3xTF32 kernels keep their tiles in registers, the pool and
-        # dwconv families their sums and tap windows: no spills
+        # dwconv families their sums and tap windows, the codec its blocks:
+        # no spills
         if (source in ("streamed_matmul.cu", "flash_attention.cu",
                        "conv2d.cu", "conv2d_decode.cu", "streaming_conv.cu",
-                       "dwconv.cu")
+                       "dwconv.cu", "bfp8.cu")
                 and "spill" in line
                 and any(int(w) for w in line.split() if w.isdigit())):
             spills.append(f"{source} [{kernel}]: {line.strip()}")

@@ -88,17 +88,6 @@ __device__ __forceinline__ int bfp8_encode_group(const float (&v)[kVals],
   return e;
 }
 
-// The group encode with a whole warp on one block: lane l holds channel
-// 32*b + l, writes man_block[l], and lane 0 the exponent.
-__device__ __forceinline__ void bfp8_encode_warp(float v, int8_t* man_block,
-                                                 int8_t* exp_at, int lane) {
-  const float vs[1] = {v};
-  int8_t q[1];
-  const int e = bfp8_encode_group<kBfp8Block, 1>(vs, q);
-  man_block[lane] = q[0];
-  if (lane == 0) *exp_at = static_cast<int8_t>(e);
-}
-
 // One payload element back to f32, man * 2^(exp-6): the standalone
 // bfp8_dequant kernel and every fused ingress decode call this, so fused and
 // unfused decodes give the same bits.  __fmul_rn keeps nvcc from contracting

@@ -34,6 +34,13 @@
 //    one smof::bfp8_encode_group<8, 4> (channels c <= ch < 32 nb hold
 //    zeros, as the spill's padding quantises them); each stores one float4
 //    of y, one char4 of mantissas, the group's first thread the exponent.
+//  * the window kernel is instantiated for 1 to kMaxTaps taps.  Over more
+//    taps (no path launches one; the reference takes any count) the count
+//    is a runtime value: dwconv_any_taps_kernel gives a thread one quad of
+//    one output row and reads each tap's input and weight quads in turn,
+//    so it needs no instance a tap count and no register window whose size
+//    the compiler must know.  It re-reads each input row once a tap from
+//    the caches, which only matters for a speed no path asks of it.
 //
 // Numerics: y is bit for bit the plain version's (kernels/ref.py,
 // dwconv_ref), which sums the taps in Python `sum` order, ((0 + w0 x0) +
@@ -53,7 +60,7 @@ constexpr int kThreads = 256;
 constexpr int kRun = 16;      // output rows a thread, bm 0
 constexpr int kMaxRun = 64;   // the most rows a bm gives a thread
 constexpr int kGroup = 4;     // input rows loaded together
-constexpr int kMaxTaps = 7;   // taps the kernel is built for
+constexpr int kMaxTaps = 7;   // taps the window kernel is built for
 
 __device__ __forceinline__ float4 zero4() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -157,6 +164,72 @@ dwconv_kernel(smof::Stripe<kDecode> in, const float* __restrict__ w,
   }
 }
 
+// More than kMaxTaps taps: the tap count is a runtime value, so the
+// window cannot live in registers.  Thread (row, quad g) of m * qp threads
+// walks the taps of one output row in order, reading each tap's input quad
+// (through L1 and L2: each input row is read once for every tap it
+// meets) and weight quad, with the window kernel's quads, codec and
+// numerics.
+template <bool kDecode, bool kEncode>
+__global__ void __launch_bounds__(kThreads)
+dwconv_any_taps_kernel(smof::Stripe<kDecode> in, const float* __restrict__ w,
+                       float* __restrict__ y, int8_t* __restrict__ man,
+                       int8_t* __restrict__ exp, int64_t m, int taps, int qp,
+                       bool vec, bool wvec) {
+  const int c = (int)in.c;
+  const int64_t gid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  // with the encode, whole warps leave together: their groups must shuffle
+  if ((kEncode ? gid / 32 * 32 : gid) >= m * qp) return;
+  const bool live = gid < m * qp;
+  const int64_t row = gid / qp;
+  const int g = (int)(gid - row * qp), ch = g * 4;
+  const bool has = live && ch < c;  // the thread holds channels of y
+  const int pad = taps / 2;
+  const smof::Stripe<kDecode> s = in.from_row(row);
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (has) {
+    for (int t = 0; t < taps; ++t) {
+      const int64_t r = row + t - pad;
+      const float4 xv = r >= 0 && r < m ? s.quad(t - pad, ch, vec) : zero4();
+      const float* wp = w + (int64_t)t * c + ch;
+      float4 wv;
+      if (wvec) {
+        wv = *reinterpret_cast<const float4*>(wp);
+      } else {
+        float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (ch + j < c) u[j] = wp[j];
+        wv = make_float4(u[0], u[1], u[2], u[3]);
+      }
+      v[0] = tap(v[0], wv.x, xv.x);
+      v[1] = tap(v[1], wv.y, xv.y);
+      v[2] = tap(v[2], wv.z, xv.z);
+      v[3] = tap(v[3], wv.w, xv.w);
+    }
+  }
+  if constexpr (kEncode) {
+    const int nb = (c + smof::kBfp8Block - 1) / smof::kBfp8Block;
+    int8_t q[4];
+    const int e = smof::bfp8_encode_group<8, 4>(v, q);
+    if (live) {
+      *reinterpret_cast<char4*>(man + row * nb * smof::kBfp8Block + ch) =
+          make_char4(q[0], q[1], q[2], q[3]);
+      if (g % 8 == 0) exp[row * nb + g / 8] = static_cast<int8_t>(e);
+    }
+  }
+  if (has) {
+    float* yp = y + row * c + ch;
+    if ((c & 3) == 0) {
+      *reinterpret_cast<float4*>(yp) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (ch + j < c) yp[j] = v[j];
+    }
+  }
+}
+
 bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -171,18 +244,19 @@ void launch_taps(smof::Stripe<kDecode> in, const float* w, float* y,
 
 // A thread's run: bm (the plan's tile_bm) rows where it is > 0, at most
 // kMaxRun, else kRun.  The run never changes a result: each output is its
-// own tap sum.
+// own tap sum.  Above kMaxTaps taps, dwconv_any_taps_kernel, one row a
+// thread.
 template <bool kDecode, bool kEncode>
 int run_dwconv(smof::Stripe<kDecode> in, const void* w, void* y, void* man,
                void* exp, int64_t m, int64_t taps, int64_t bm,
                void* stream) {
   const int64_t c = in.c;
   if (m <= 0 || c <= 0) return (int)cudaGetLastError();
-  if (taps < 1 || taps > kMaxTaps) return (int)cudaErrorInvalidValue;
+  if (taps < 1) return (int)cudaErrorInvalidValue;
   const int run = (int)(bm > 0 ? (bm < kMaxRun ? bm : kMaxRun) : kRun);
   const int64_t nb = (c + smof::kBfp8Block - 1) / smof::kBfp8Block;
   const int qp = (int)(kEncode ? nb * 8 : (c + 3) / 4);
-  const int64_t threads = (m + run - 1) / run * qp;
+  const int64_t threads = (taps > kMaxTaps ? m : (m + run - 1) / run) * qp;
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
   const bool vec = c % 4 == 0 && (kDecode ? aligned(in.man, 4)
                                           : aligned(in.x, 16));
@@ -192,6 +266,11 @@ int run_dwconv(smof::Stripe<kDecode> in, const void* w, void* y, void* man,
   auto* mi = (int8_t*)man;
   auto* ei = (int8_t*)exp;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (taps > kMaxTaps) {
+    dwconv_any_taps_kernel<kDecode, kEncode><<<blocks, kThreads, 0, st>>>(
+        in, wf, yf, mi, ei, m, (int)taps, qp, vec, wvec);
+    return (int)cudaGetLastError();
+  }
   switch (taps) {
     case 1: launch_taps<kDecode, kEncode, 1>(in, wf, yf, mi, ei, m, run, qp,
                                              vec, wvec, blocks, st); break;
@@ -213,7 +292,7 @@ int run_dwconv(smof::Stripe<kDecode> in, const void* w, void* y, void* man,
 
 }  // namespace
 
-// x, y: (m, c); w: (taps, c), 1 <= taps <= 7.  With the encode, man: (m,
+// x, y: (m, c); w: (taps, c), taps >= 1.  With the encode, man: (m,
 // nb * 32) and exp: (m, nb), nb = ceil(c / 32); with the decode the input is
 // its payload of the same shapes.
 extern "C" int smof_dwconv(const void* x, const void* w, void* y, int64_t m,

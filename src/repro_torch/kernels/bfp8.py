@@ -45,65 +45,92 @@ def bfp8_scale(exp: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float32)
 
 
-def bfp8_quant_values(x: torch.Tensor, *, block: int):
-    """(R, C) f32 with ``C % block == 0`` -> (int8 mantissas (R, C), int8
-    shared exponents (R, C // block))."""
+def bfp8_quant_values(x: torch.Tensor, *, block: int,
+                      width: int | None = None):
+    """(R, C) f32 -> (int8 mantissas (R, W), int8 shared exponents (R, W //
+    block)), W = ``width`` (a multiple of ``block``, at least C; default C,
+    then a multiple of ``block``): the payload of x with its channel axis
+    padded with zeros to W."""
     x = x.to(torch.float32)
     R, C = x.shape
-    xb = x.reshape(R, C // block, block)
+    W = C if width is None else width
+    if W % block or W < C:
+        raise ValueError(f"bfp8 width {W} is not a multiple of {block} "
+                         f"holding {C} channels")
+    if W != C:
+        x = torch.nn.functional.pad(x, (0, W - C))
+    xb = x.reshape(R, W // block, block)
     exp = bfp8_exponent(xb.abs().amax(dim=-1))
     q = torch.round(xb / bfp8_scale(exp)[..., None])
     man = torch.where(torch.isnan(q), 0.0, q).clamp(-127, 127)
-    return man.reshape(R, C).to(torch.int8), exp.to(torch.int8)
+    return man.reshape(R, W).to(torch.int8), exp.to(torch.int8)
 
 
 def bfp8_dequant_values(man: torch.Tensor, exp: torch.Tensor, *, block: int,
+                        c: int | None = None,
                         dtype=torch.float32) -> torch.Tensor:
-    """Inverse layout of :func:`bfp8_quant_values`: ``man * 2^(exp-6)``."""
-    R, C = man.shape
-    out = (man.to(torch.float32).reshape(R, C // block, block)
-           * bfp8_scale(exp)[..., None])
-    return out.reshape(R, C).to(dtype)
+    """Inverse layout of :func:`bfp8_quant_values`: ``man * 2^(exp-6)`` in
+    the first ``c`` channels (default all W), as an (R, c) stripe."""
+    R, W = man.shape
+    out = (man.to(torch.float32).reshape(R, W // block, block)
+           * bfp8_scale(exp)[..., None]).reshape(R, W).to(dtype)
+    return out if c is None or c == W else out[:, :c].contiguous()
 
 
-def bfp8_quant(x: torch.Tensor, *, block: int = 32):
-    """x: (R, C) f32, C % block == 0 -> (mantissa int8 (R, C), exponent int8
-    (R, C // block)).  The standalone encode of an evicted stream whose
-    producer cannot emit the payload from its own launch: the executor's
-    ``_lower_vertex`` fuses the encode only into an act, a pool, a dwconv or
-    a conv whose weight is not fragmented, so the output of an ``add`` (or
-    another op without a kernel) or of a fragmented conv is encoded here.
-    A CUDA tensor goes through the ``bfp8_quant`` kernel, a CPU one through
-    the plain version."""
-    if x.shape[1] % block:
-        raise ValueError(f"bfp8_quant needs C % {block} == 0, got {x.shape}")
+def _payload_width(name: str, c: int, width: int, block: int) -> None:
+    if width % block or not 0 <= c <= width:
+        raise ValueError(f"{name}: a payload {width} wide does not carry "
+                         f"{c} channels in blocks of {block}")
+
+
+def bfp8_quant(x: torch.Tensor, *, block: int = 32,
+               width: int | None = None):
+    """x: (R, c) f32 -> (mantissa int8 (R, W), exponent int8 (R, W //
+    block)), W = ``width``, a multiple of ``block`` and at least c: the
+    channels past c quantise as zeros, as if x were padded to W.  Without
+    ``width`` c itself must be a multiple of ``block``.  The standalone
+    encode of an evicted stream whose producer cannot emit the payload from
+    its own launch: the executor's ``_lower_vertex`` fuses the encode only
+    into an act, a pool, a dwconv or a conv whose weight is not fragmented,
+    so the output of an ``add`` (or another op without a kernel) or of a
+    fragmented conv is encoded here.  A CUDA tensor goes through the
+    ``bfp8_quant`` kernel, a CPU one through the plain version."""
+    R, c = x.shape
+    if width is None:
+        if c % block:
+            raise ValueError(f"bfp8_quant needs C % {block} == 0 without a "
+                             f"width, got {tuple(x.shape)}")
+        width = c
+    _payload_width("bfp8_quant", c, width, block)
     if not x.is_cuda:
-        return bfp8_quant_values(x, block=block)
+        return bfp8_quant_values(x, block=block, width=width)
     if block != 32:
         raise ValueError("the bfp8_quant kernel takes block=32")
     check_operand("bfp8_quant x", x, torch.float32, align=4)
-    R, C = x.shape
-    man = torch.empty((R, C), dtype=torch.int8, device=x.device)
-    exp = torch.empty((R, C // block), dtype=torch.int8, device=x.device)
-    launch("bfp8_quant", x, man, exp, R, C)
+    man = torch.empty((R, width), dtype=torch.int8, device=x.device)
+    exp = torch.empty((R, width // block), dtype=torch.int8, device=x.device)
+    launch("bfp8_quant", x, man, exp, R, c, width)
     return man, exp
 
 
 def bfp8_dequant(man: torch.Tensor, exp: torch.Tensor, *, block: int = 32,
-                 dtype=torch.float32) -> torch.Tensor:
-    """Payload (R, C) int8 + (R, C // block) int8 -> (R, C) f32.  A CUDA
-    payload goes through the ``bfp8_dequant`` kernel, a CPU one through the
-    plain version."""
-    R, C = man.shape
-    if C % block or tuple(exp.shape) != (R, C // block):
+                 c: int | None = None, dtype=torch.float32) -> torch.Tensor:
+    """Payload (R, W) int8 + (R, W // block) int8 -> the (R, c) f32 stripe
+    it carries, its first c channels (default all W).  A CUDA payload goes
+    through the ``bfp8_dequant`` kernel, a CPU one through the plain
+    version."""
+    R, W = man.shape
+    c = W if c is None else c
+    _payload_width("bfp8_dequant", c, W, block)
+    if tuple(exp.shape) != (R, W // block):
         raise ValueError(f"bfp8 payload shapes {tuple(man.shape)} / "
                          f"{tuple(exp.shape)} do not match block {block}")
     if not man.is_cuda:
-        return bfp8_dequant_values(man, exp, block=block, dtype=dtype)
+        return bfp8_dequant_values(man, exp, block=block, c=c, dtype=dtype)
     if block != 32 or dtype != torch.float32:
         raise ValueError("the bfp8_dequant kernel takes block=32 and f32")
-    check_operand("bfp8_dequant man", man, torch.int8, align=4)
+    check_operand("bfp8_dequant man", man, torch.int8, align=1)
     check_operand("bfp8_dequant exp", exp, torch.int8, align=1)
-    y = torch.empty((R, C), dtype=torch.float32, device=man.device)
-    launch("bfp8_dequant", man, exp, y, R, C)
+    y = torch.empty((R, c), dtype=torch.float32, device=man.device)
+    launch("bfp8_dequant", man, exp, y, R, c, W)
     return y

@@ -46,10 +46,10 @@ SIGNATURES = {
     "act_relu": "ppiii",
     "act_relu_encode": "ppppiii",
     "pool": "ppppiiii",
-    "bfp8_dequant": "pppii",
+    "bfp8_dequant": "pppiii",
     "conv2d": "pppiiiii",
     "dwconv": "pppiiii",
-    "bfp8_quant": "pppii",
+    "bfp8_quant": "pppiii",
     "pool_encode": "ppppppiiii",
     "conv2d_encode": "pppppiiiii",
     "conv2d_decode": "ppppiiiii",

@@ -81,12 +81,15 @@ def act_relu_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0, 0.0, x)
 
 
-def bfp8_quant_ref(x: torch.Tensor, block: int = 32):
+def bfp8_quant_ref(x: torch.Tensor, block: int = 32,
+                   width: int | None = None):
     """Block floating point: int8 mantissas + per-block exponent.
-    x: (R, C) with C % block == 0.  Returns (mantissa i8, exponent i8)."""
-    return bfp8_quant_values(x, block=block)
+    x: (R, C); the payload is ``width`` wide (default C, then C % block ==
+    0), its channels past C zeros.  Returns (mantissa i8, exponent i8)."""
+    return bfp8_quant_values(x, block=block, width=width)
 
 
 def bfp8_dequant_ref(man: torch.Tensor, exp: torch.Tensor, block: int = 32,
-                     dtype=torch.float32) -> torch.Tensor:
-    return bfp8_dequant_values(man, exp, block=block, dtype=dtype)
+                     dtype=torch.float32,
+                     c: int | None = None) -> torch.Tensor:
+    return bfp8_dequant_values(man, exp, block=block, c=c, dtype=dtype)

@@ -34,7 +34,8 @@ tile):
   up to the 32-column codec block and cut into the fewest blocks of at
   most 128 columns, as evenly as 32-column steps allow);
 * ``dwconv*``: ``bm`` is the run of output rows a thread slides its tap
-  window down, at most 64 (0: 16);
+  window down, at most 64 (0: 16), for 1 to 7 taps; over more taps a
+  thread takes one output row and ``bm`` has nothing to set;
 * ``act_relu*`` and ``pool*``: ``bm`` rows a row block, which the grid's
   blocks share (0: one row block of all rows; a ``bm`` that would need
   more than 65535 row blocks grows to ``ceil(m / 65535)``).  A pool over
@@ -44,7 +45,6 @@ tile):
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from . import ref
 from .bfp8 import bfp8_dequant_values, bfp8_quant_values
@@ -60,7 +60,6 @@ POOL_SERIAL_MAX_K = 8     # pool sums up to this many rows in one thread
 POOL_THREADS = 256
 POOL_TILE_QUADS = 64
 POOL_LANE_ROWS = 32
-DWCONV_MAX_TAPS = 7       # the taps csrc/dwconv.cu is built for
 # the reference autotuner's tile choices (src/repro/optim/autotune.py)
 TILE_BM_CHOICES = (0, 8, 16, 32, 64, 128)
 TILE_BC_CHOICES = (0, 32, 64, 128)
@@ -77,13 +76,12 @@ def _decode(payload, c: int, block: int) -> torch.Tensor:
     if man.shape[1] != _round_up(c, block):
         raise ValueError(f"payload width {man.shape[1]} does not pad "
                          f"{c} channels to the {block} block")
-    return bfp8_dequant_values(man, exp, block=block)[:, :c]
+    return bfp8_dequant_values(man, exp, block=block, c=c)
 
 
 def _encode(y: torch.Tensor, block: int):
-    c = y.shape[1]
-    return bfp8_quant_values(F.pad(y, (0, _round_up(c, block) - c)),
-                             block=block)
+    return bfp8_quant_values(y, block=block,
+                             width=_round_up(y.shape[1], block))
 
 
 def _plain(op, x, c, payload, encode, block):
@@ -182,9 +180,8 @@ def dwconv(x, w, *, payload=None, encode=False, block: int = BFP8_BLOCK,
     _check_tiles("dwconv", bm)
     check_operand("dwconv w", w, torch.float32, align=4)
     taps, c = w.shape
-    if not 1 <= taps <= DWCONV_MAX_TAPS:
-        raise ValueError(f"dwconv: w {tuple(w.shape)}: the kernel takes 1 "
-                         f"to {DWCONV_MAX_TAPS} taps")
+    if taps < 1:
+        raise ValueError(f"dwconv: w {tuple(w.shape)} has no taps")
     src, m = _input_operands("dwconv", x, payload, c)
     y = torch.empty((m, c), dtype=torch.float32, device=w.device)
     name = _kernel_name("dwconv", payload, encode)
@@ -230,18 +227,24 @@ def pool_counters(m_out: int, k: int, c: int) -> int:
     return m_out * tiles if pool_scratch_size(m_out, k, c) else 0
 
 
-# One zeroed int32 buffer per device that the pool launches share: a launch
-# finds its last block by counting up to its chunks, and that block sets the
-# counter back to 0, so the buffer is zero between launches on a stream.
+# The zeroed int32 buffers the pool launches count in, by (device, stream):
+# a launch finds its last block by counting up to its chunks, and that
+# block sets the counter back to 0, so a buffer is zero between launches on
+# its own stream, and launches on two streams never count into one buffer.
+# A buffer that a launch outgrows is kept, not freed: work queued on its
+# stream (or a graph captured there) may still count in it.  Each new
+# buffer at least doubles the last, so the kept ones hold fewer words than
+# the newest.
 _POOL_COUNTERS: dict = {}
 
 
 def _counter_buffer(n: int, device) -> torch.Tensor:
-    buf = _POOL_COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _POOL_COUNTERS[device] = buf
-    return buf[:n]
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    bufs = _POOL_COUNTERS.setdefault(key, [])
+    if not bufs or bufs[-1].numel() < n:
+        size = max(n, 1024, 2 * bufs[-1].numel() if bufs else 0)
+        bufs.append(torch.zeros(size, dtype=torch.int32, device=device))
+    return bufs[-1][:n]
 
 
 def pool(x, m_out: int, *, c: int | None = None, payload=None, encode=False,

@@ -153,24 +153,24 @@ def params_from_numpy(arrays: dict, device: str | torch.device = "cpu"
 
 
 def bfp8_spill_encode(x: torch.Tensor, *, use_kernels: bool):
-    """Encode a (m, c) stripe to (mantissas, exponents), padding the channel
-    axis to the codec block — the spill buffers that cross off-chip."""
-    c = x.shape[1]
-    xp = torch.nn.functional.pad(x, (0, _round_up(c, BFP8_BLOCK) - c))
+    """Encode a (m, c) stripe to (mantissas, exponents), its channel axis
+    padded with zeros to the codec block — the spill buffers that cross
+    off-chip.  The kernel quantises the stripe in place of a padded copy."""
+    width = _round_up(x.shape[1], BFP8_BLOCK)
     if use_kernels:
-        return bfp8_quant(xp, block=BFP8_BLOCK)
-    return kref.bfp8_quant_ref(xp, block=BFP8_BLOCK)
+        return bfp8_quant(x, block=BFP8_BLOCK, width=width)
+    return kref.bfp8_quant_ref(x, block=BFP8_BLOCK, width=width)
 
 
 def bfp8_spill_decode(payload, c: int, *, use_kernels: bool,
                       dtype=torch.float32) -> torch.Tensor:
-    """Decode spill buffers back to a (m, c) stripe (drops block padding)."""
+    """Decode spill buffers back to a (m, c) stripe (drops block padding);
+    the kernel writes the c channels alone, with no cut copy."""
     man, exp = payload
     if use_kernels:
-        out = bfp8_dequant(man, exp, block=BFP8_BLOCK, dtype=dtype)
-    else:
-        out = kref.bfp8_dequant_ref(man, exp, block=BFP8_BLOCK, dtype=dtype)
-    return out[:, :c].contiguous()
+        return bfp8_dequant(man, exp, block=BFP8_BLOCK, c=c, dtype=dtype)
+    return kref.bfp8_dequant_ref(man, exp, block=BFP8_BLOCK, c=c,
+                                 dtype=dtype)
 
 
 def _bfp8_roundtrip(x: torch.Tensor, *, use_kernels: bool) -> torch.Tensor:

@@ -596,6 +596,100 @@ def test_pool_and_dwconv_variants_at_ragged_shapes(gen, kind):
                     assert torch.equal(_bits(y), _bits(want)), (m, c, arg)
 
 
+CODEC_C = (1, 3, 24, 40, 48, 64, 96)
+CODEC_ROWS = (1, 77, 4099)
+
+
+def _codec_specials(gen, r, c):
+    """A random (r, c) stripe with subnormal rows, all-zero blocks, NaN and
+    +-inf in some blocks."""
+    x = torch.randn(r, c, generator=gen, device="cuda") * 3
+    x[::4] *= 2.0 ** -130
+    x[1::5, : min(c, 32)] = 0.0
+    x[2::7, c // 2] = float("nan")
+    x[3::6, c - 1] = float("inf")
+    x[3::6, 0] = -float("inf")
+    return x
+
+
+@pytest.mark.parametrize("c", CODEC_C)
+def test_bfp8_stripe_forms_bit_exact(gen, c):
+    """bfp8_quant(x, width=w) of an (r, c) stripe and bfp8_dequant(man,
+    exp, c=c) bit for bit their plain versions at r in CODEC_ROWS, widths
+    w and w + 32 (a block of padding alone), with the edge-case blocks;
+    a stripe or payload not aligned for the wide accesses, read one by one,
+    gives the same bits; random payload bytes (any exponent, random
+    padding mantissas) decode as the plain version decodes them."""
+    for r in CODEC_ROWS:
+        x = _codec_specials(gen, r, c)
+        for width in (32 * -(-c // 32), 32 * -(-c // 32) + 32):
+            want = bfp8_quant_values(x, block=32, width=width)
+            for xin in (x, _offset_view(x, 1)):
+                _assert_payload(bfp8_quant(xin, width=width), want)
+            rand = (torch.randint(-128, 128, (r, width), generator=gen,
+                                  device="cuda", dtype=torch.int8),
+                    torch.randint(-128, 128, (r, width // 32), generator=gen,
+                                  device="cuda", dtype=torch.int8))
+            for man, exp in (want, rand):
+                wy = ref.bfp8_dequant_ref(man, exp, c=c)
+                for m in (man, _offset_view(man, 1)):
+                    y = bfp8_dequant(m, exp, c=c)
+                    assert y.shape == (r, c)
+                    assert torch.equal(_bits(y), _bits(wy)), (r, c, width)
+
+
+@pytest.mark.parametrize("taps", [9, 11])
+@pytest.mark.parametrize("variant", ["", "_encode", "_decode",
+                                     "_decode_encode"])
+def test_dwconv_over_many_taps_bit_exact(gen, variant, taps):
+    """More taps than the window kernel's instances (csrc/dwconv.cu,
+    dwconv_any_taps_kernel): every variant bit for bit the plain version at
+    m in RAGGED_M, c in RAGGED_C, with +-0.0 inputs and weights; a decoding
+    variant's y the plain dwconv kernel's on the standalone decode."""
+    dec, enc = "_decode" in variant, variant.endswith("_encode")
+    for m in RAGGED_M:
+        for c in RAGGED_C:
+            w = torch.randn(taps, c, generator=gen, device="cuda")
+            w[:, 0] = -0.0
+            pay = _codec_payload(gen, m, c) if dec else None
+            x = None
+            if not dec:
+                x = torch.randn(m, c, generator=gen, device="cuda")
+                x[0, : min(c, 4)] = -0.0
+            got = _split(SC.dwconv(x, w, payload=pay, encode=enc), enc)
+            want = _split(SC._plain(lambda h: ref.dwconv_ref(h, w), x, c,
+                                    pay, enc, 32), enc)
+            assert torch.equal(_bits(got[0]), _bits(want[0])), (m, c)
+            if enc:
+                _assert_payload(got[1], want[1])
+            if dec:
+                xd = bfp8_dequant(*pay, c=c)
+                assert torch.equal(_bits(got[0]), _bits(SC.dwconv(xd, w)))
+
+
+def test_pools_on_two_streams_count_apart(gen):
+    """Two pools over more than 8 rows (each finds its last block by the
+    counters) launched at once on two CUDA streams, many times over: each
+    result bit for bit its serial launch on the default stream."""
+    xs = [torch.randn(m_out * k, c, generator=gen, device="cuda")
+          for m_out, k, c in ((3, 70001, 40), (1, 262144, 48))]
+    m_outs = (3, 1)
+    serial = [SC.pool(x, m) for x, m in zip(xs, m_outs)]
+    streams = [torch.cuda.Stream() for _ in xs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, (x, m) in enumerate(zip(xs, m_outs)):
+            with torch.cuda.stream(streams[i]):
+                outs[i].append(SC.pool(x, m))
+    torch.cuda.synchronize()
+    for want, got in zip(serial, outs):
+        for y in got:
+            assert torch.equal(_bits(y), _bits(want))
+    keys = {k for k in SC._POOL_COUNTERS if k[0] == xs[0].device}
+    assert {s.cuda_stream for s in streams} <= {k[1] for k in keys}
+
+
 @pytest.mark.parametrize("thresh", [512.0, 64.0, 0.0])
 def test_hand_cut_x3d_from_an_artifact_on_the_card(gen, tmp_path, thresh):
     """The small X3D under a hand-cut one-stage plan, compiled on the CPU,
