@@ -84,7 +84,15 @@ and prints no result line):
    share in one profiled frame (for the YOLO head: ms per microbatch
    pipelined and staged, peak memory of one stream, the 3-stage plan's
    measured stage latencies, one profiled stream);
-6. one JSON line of per-kernel numbers, then the result line.
+6. the autotuned path: ``GraphStreamServer.autotuned`` on the same YOLO
+   head (the closed-loop search, ``repro_torch.optim.autotune``: 12
+   candidates from the u200 DSE plan, each lowered and measured over a
+   stream of 8 on the kernel route); the trajectory, baseline and best
+   fps, the calibration, the search's seconds and peak device memory; the
+   winner's staged frames held to its launch table and to reference mode,
+   20 served frames bit for bit the staged executor's, and its artifact
+   saved and loaded;
+7. one JSON line of per-kernel numbers, then the result line.
 
 Imports nothing of JAX and nothing of the ``repro`` package.
 """
@@ -232,6 +240,14 @@ SERVE_ROUNDS = 3            # timed flushes of SERVE_FRAMES, fresh server
 # the SLO the served path is scored against: submit -> result of 20 frames
 # queued at once, three streams deep
 SERVE_SLO = dict(p50_target_s=0.25, p99_target_s=0.5)
+
+# the autotuned path: the closed-loop search (GraphStreamServer.autotuned)
+# on the YOLO head at YOLOv8n's neck widths, planned on the u200 sheet, 12
+# candidates (the seed DSE plan, then SA moves, tile moves among them) each
+# measured over a stream of 8 microbatches on the kernel route
+AUTOTUNE = dict(n_candidates=12, microbatches=8, seed=0, repeats=3,
+                warmup=1, kernel_mode="cuda")
+AUTOTUNE_SERVED = 20
 
 # the LM serving path: yi-6b at its published widths (32 layers, d_model
 # 4096, 32 heads, 4 KV heads of 128, d_ff 11008, vocab 64000; f32, about
@@ -1589,6 +1605,185 @@ def lm_serve_phase(torch, library):
     return counts, shapes
 
 
+def autotune_phase(torch, repro_torch, library) -> None:
+    """The autotuned path: ``GraphStreamServer.autotuned`` on the YOLO head
+    (one search through the façade, every candidate lowered and measured
+    on the card), then the winner: FRAMES seeded staged frames, each
+    launching exactly ``launch_table`` of its plan, every vertex and the
+    frame held to reference mode as phase 3 holds a frame;
+    AUTOTUNE_SERVED seeded frames through the server, one flush, every
+    result bit for bit the staged executor's and every kernel of the table
+    launched; ``Compiled.save`` of the design and ``Compiled.load``, bit for
+    bit on one frame, its strategy and digest kept.  Prints the trajectory,
+    the calibration, the search's seconds and peak device memory.  Runs
+    after phase 5: phase 4 replays none of its launches."""
+    from repro_torch.api import CompileSpec, Compiled
+    from repro_torch.core import builders, exec_input_shape
+    from repro_torch.optim import autotune as AT
+    from repro_torch.runtime.executor import launch_table
+    from repro_torch.serving import GraphStreamServer
+    t_phase = time.perf_counter()
+    g = builders.build_yolo_head_exec(**YOLO)
+    cfg = AT.AutotuneConfig(**AUTOTUNE)
+    # every candidate's plan, in the order the search lowers them (the
+    # records carry no tiles)
+    lowered, lower = [], AT.lower_plan_pipelined
+
+    def recording(graph, plan, **kw):
+        lowered.append(plan)
+        return lower(graph, plan, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    library.reset_launches()
+    AT.lower_plan_pipelined = recording
+    t0 = time.perf_counter()
+    try:
+        srv = GraphStreamServer.autotuned(g, "u200", autotune_cfg=cfg,
+                                          kernel_mode="cuda")
+        torch.cuda.synchronize()
+    finally:
+        AT.lower_plan_pipelined = lower
+    search_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    search_launches = library.launches()
+    res = srv.autotune_result
+    cal = res.calibration
+    best = res.best_plan
+    traj = res.trajectory
+    print(f"[autotune] search (seed DSE, {len(traj)} candidates lowered and "
+          f"measured, the winner lowered for the server): {search_s:.2f} s "
+          f"host clock; peak device memory {peak} bytes ({peak - held} "
+          f"above the {held} held before it)")
+    if len(lowered) != len(traj):
+        raise AssertionError(f"[autotune] {len(lowered)} lowerings for "
+                             f"{len(traj)} candidates")
+    for r, p in zip(traj, lowered):
+        print(f"[autotune] candidate {r.index:2d} {r.move:8s} accepted "
+              f"{str(r.accepted):5s} stages {r.n_stages} evicted "
+              f"{r.n_evicted} fragged {r.n_fragged} tiles (bm {p.tile_bm}, "
+              f"bc {p.tile_bc}) fps measured {r.fps_measured:.2f} "
+              f"calibrated Eq. 6 {r.fps_eq6_cal:.2f} bottleneck stage "
+              f"{r.bottleneck_stage}")
+    print(f"[autotune] baseline {res.baseline_fps:.2f} fps, best "
+          f"{res.best_fps:.2f} fps (pipelined, CUDA events, ticks over the "
+          f"best of {cfg.repeats} streams of {cfg.microbatches}); "
+          f"s_per_cycle {cal.s_per_cycle:.6e}; Eq. 6 error |log(pred / "
+          f"meas)| before calibration {cal.pre_err:.4f}, after "
+          f"{cal.post_err:.4f} (improved: {cal.improved})")
+    fragged = {n: lp.weight_static_fraction for n, lp in best.layers.items()
+               if lp.weight_static_fraction < 1.0}
+    print(f"[autotune] winner: {json.dumps(res.summary())}; tiles (bm "
+          f"{best.tile_bm}, bc {best.tile_bc}); evicted "
+          f"{[(s.src, s.dst) for s in best.streams if s.evicted]}; "
+          f"fragmented {fragged}")
+    # the tile move always applies on the card, so _propose never ends the
+    # search early: exactly n_candidates
+    if traj[0].move != "seed" or res.best_fps < res.baseline_fps:
+        raise AssertionError("[autotune] the seed is not candidate 0 or the "
+                             "winner is slower than it")
+    if not (math.isfinite(cal.s_per_cycle) and cal.s_per_cycle > 0):
+        raise AssertionError(f"[autotune] s_per_cycle {cal.s_per_cycle}")
+    if len(traj) != cfg.n_candidates:
+        raise AssertionError(f"[autotune] {len(traj)} candidates, expected "
+                             f"{cfg.n_candidates}")
+    # the seed was measured first: the seed and the winner again, in turns
+    # (seed, winner, winner, seed), each lowered afresh, so a gain that is
+    # only the first candidate's start-up shows
+    again = {"seed": [], "winner": []}
+    xs = torch.randn((cfg.microbatches,) + exec_input_shape(g),
+                     generator=torch.Generator().manual_seed(500)).cuda()
+    for label in ("seed", "winner", "winner", "seed"):
+        sx = lower(g, lowered[0] if label == "seed" else best,
+                   microbatches=cfg.microbatches, kernel_mode="cuda",
+                   device="cuda")
+        again[label].append(AT.measure_pipelined_fps(
+            sx, xs, repeats=cfg.repeats, warmup=cfg.warmup))
+        del sx
+    print(f"[autotune] measured again after the search, in turns: seed "
+          f"{again['seed'][0]:.2f}, {again['seed'][1]:.2f} fps; winner "
+          f"{again['winner'][0]:.2f}, {again['winner'][1]:.2f} fps")
+    table = {k: n for k, n in launch_table(g, best).items()
+             if k != "plain_dot"}
+    if any(search_launches[k] == 0 for k in table):
+        raise AssertionError(f"[autotune] the search launched "
+                             f"{search_launches}, not every kernel of the "
+                             f"winner's table {table}")
+
+    # -- the winner, staged: launches, vertices, frame bound -----------------
+    staged = repro_torch.compile(CompileSpec(
+        model=g, device="u200", strategy="manual-plan", plan=best,
+        kernel_mode="cuda"))
+    refc = repro_torch.compile(CompileSpec(
+        model=g, device="u200", strategy="manual-plan", plan=best,
+        kernel_mode="reference"))
+    staged.executor.params = refc.executor.params = srv.executor.params
+    expected = dict.fromkeys(library.SIGNATURES, 0) | table
+    m, c = staged.input_shape()
+    for f in range(FRAMES):
+        xd = torch.randn((m, c), generator=torch.Generator().manual_seed(
+            300 + f)).cuda()
+        torch.cuda.synchronize()
+        library.reset_launches()
+        y = staged.run(xd)
+        torch.cuda.synchronize()
+        if library.launches() != expected:
+            raise AssertionError(f"[autotune] staged frame {f}: launches "
+                                 f"{library.launches()}, expected "
+                                 f"{expected}")
+        yr = refc.run(xd)
+        summary, _ = hold_frame(torch, f"[autotune] staged frame {f}",
+                                staged.executor, refc.executor, refc.run,
+                                xd, y, yr)
+        print(f"[autotune] staged frame {f}: launches {table}; {summary}")
+
+    # -- the winner, served ---------------------------------------------------
+    frames = [torch.randn((m, c), generator=torch.Generator().manual_seed(
+        400 + i)) for i in range(AUTOTUNE_SERVED)]
+    tickets = [srv.submit(f) for f in frames]
+    torch.cuda.synchronize()
+    library.reset_launches()
+    t0 = time.perf_counter()
+    srv.flush()
+    torch.cuda.synchronize()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    served = library.launches()
+    missing = [k for k in table if served[k] == 0]
+    if missing:
+        raise AssertionError(f"[autotune] served flush launched none of "
+                             f"{missing}")
+    for t, f in zip(tickets, frames):
+        if not bit_equal(torch, srv.result(t), staged.run(f.cuda())):
+            raise AssertionError(f"[autotune] served ticket {t} is not the "
+                                 f"staged executor's result")
+    print(f"[autotune] {AUTOTUNE_SERVED} frames served in one flush "
+          f"({flush_ms:.3f} ms host clock, launches counted): every result "
+          f"bit-equal to the staged executor; launches "
+          f"{ {k: n for k, n in served.items() if n} }")
+
+    # -- the winner, saved and loaded -----------------------------------------
+    design = Compiled(spec=CompileSpec(
+        model=g, device="u200", strategy="autotune", mode="pipelined",
+        kernel_mode="cuda", microbatches=cfg.microbatches, seed=0,
+        autotune_cfg=cfg), graph=g, device="u200", plan=best,
+        executor=srv.executor, autotune_result=res)
+    with tempfile.TemporaryDirectory() as tmp:
+        art = design.save(pathlib.Path(tmp) / "yolo-autotuned.smof.json")
+        loaded = Compiled.load(art)
+    x = frames[0].cuda()
+    digest = best.provenance["autotune_digest"]
+    if (loaded.strategy != "autotune"
+            or loaded.plan.provenance.get("autotune_digest") != digest
+            or not bit_equal(torch, loaded.run(x), design.run(x))):
+        raise AssertionError("[autotune] the loaded artifact lost its "
+                             "strategy or digest, or its output")
+    print(f"[autotune] artifact saved and loaded: strategy "
+          f"{loaded.strategy}, digest {digest}, one frame bit-equal; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def profile_device(torch, label: str, fn, ms: float) -> None:
     """``fn`` once under ``torch.profiler``: the device-side events'
     busy time against ``ms``, the median unprofiled time of the same work
@@ -1832,6 +2027,9 @@ def main() -> int:
         main_c, staged, refc, _, _ = streams[p.name]
         stream_phase(torch, repro_torch, p, main_c, staged, refc)
     print(f"phases 2-5: {time.perf_counter() - t_start:.1f} s")
+
+    # -- the autotuned path (after phase 5: phase 4 replays none of it) -------
+    autotune_phase(torch, repro_torch, library)
 
     # -- 6. results -------------------------------------------------------------
     print(json.dumps({"kernels": list(rows.values())}))

@@ -36,11 +36,20 @@ Spec knobs
 ``kernel_mode``  ``auto`` (kernels on a CUDA device, their plain versions
                  on the CPU), ``cuda`` (``auto`` that refuses the CPU) or
                  ``reference`` (plain bodies only).
-``strategy``     ``dse`` (Algorithm 1) or ``manual-plan``.
+``strategy``     ``dse`` (Algorithm 1), ``autotune`` (the closed-loop
+                 search of ``optim/autotune.py``: every candidate plan runs
+                 through the pipelined streamer on ``torch_device``, the
+                 best measured one wins) or ``manual-plan``.
 ``mode``         ``reference`` (dense baseline), ``staged`` (the
                  sequential executor, Eq. 5) or ``pipelined`` (the 1F1B
                  streamer over a microbatch stream, Eq. 6).
-``microbatches`` recorded in the plan; the pipelined stream depth B.
+``microbatches`` recorded in the plan; the pipelined stream depth B (an
+                 ``autotune_cfg`` overrides it with the depth the search
+                 measured at).
+``autotune_cfg`` the search's knobs
+                 (:class:`~repro_torch.optim.autotune.AutotuneConfig`);
+                 by default the spec's microbatches, kernel mode, seed and
+                 torch device.
 ``placement``    chooses nothing yet: it exists so that artifacts and the
                  reference façade stay in step until ROADMAP.md Queue 1,
                  item 10 ports the multi-GPU placement.  ``auto`` and
@@ -57,20 +66,23 @@ Spec knobs
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import pathlib
+from typing import Any
 
 import numpy as np
 import torch
 
-from .core.builders import exec_input_shape, get_model
+from .core.builders import (EXEC_MODELS, PAPER_MODELS, exec_input_shape,
+                            get_model)
 from .core.dse import DSEConfig, run_dse
 from .core.graph import Graph
 from .core.plan import ExecutionPlan, PLAN_SCHEMA_VERSION, plan_from_dse
-from .core.resources import Device, get_device
-from .memory import ChannelConfig
+from .core.resources import ALL_DEVICES, Device, get_device
+from .memory import POLICIES, ChannelConfig
 from .obs.metrics import MetricsRegistry
-from .obs.trace import ObsConfig, TraceRecorder
+from .obs.trace import NULL_RECORDER, ObsConfig, TraceRecorder
 from .runtime.executor import (KERNEL_MODES, LoweredPipeline, lower_plan,
                                reference_pipeline)
 from .runtime.streamer import (PLACEMENTS, StreamingExecutor,
@@ -111,13 +123,14 @@ class CompileSpec:
     """
     model: str | Graph
     device: str | Device = "u200"
-    strategy: str = "dse"              # dse | manual-plan
+    strategy: str = "dse"              # dse | autotune | manual-plan
     mode: str = "staged"               # reference | staged | pipelined
     kernel_mode: str = "auto"          # auto | cuda | reference
     microbatches: int = 8              # pipelined stream depth B
     seed: int = 0
     plan: ExecutionPlan | None = None  # strategy="manual-plan" input
     dse: DSEConfig | None = None       # strategy="dse" knobs
+    autotune_cfg: Any = None           # optim.autotune.AutotuneConfig
     torch_device: str = "cuda"
     placement: str = "auto"            # chooses nothing yet (see above)
     #: opt-in off-chip channel model (``repro_torch.memory``): arbitration
@@ -140,10 +153,6 @@ class CompileSpec:
             raise NotImplementedError(
                 'placement="shard_map" (one stage per GPU) is not ported '
                 "yet; see ROADMAP.md, Queue 1, item 10")
-        if self.strategy == "autotune":
-            raise NotImplementedError(
-                'strategy="autotune" is not ported yet; see ROADMAP.md, '
-                "Queue 1")
         if self.kernel_mode not in KERNEL_MODES:
             raise ValueError(f"unknown kernel_mode {self.kernel_mode!r}; "
                              f"pick one of {KERNEL_MODES}")
@@ -175,17 +184,36 @@ def _device_name(spec: CompileSpec, plan: ExecutionPlan | None) -> str:
     return spec.device
 
 
-def build_plan(spec: CompileSpec, graph: Graph | None = None
-               ) -> ExecutionPlan | None:
-    """Resolve the spec's decision vector (``None`` for
-    ``mode="reference"``), stamped with its provenance."""
+def _autotune_digest(result) -> str:
+    """Stable short digest of the search trajectory (provenance stamp)."""
+    payload = json.dumps(result.trajectory_rows(), sort_keys=True)
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def _search(spec: CompileSpec, graph: Graph | None = None, *,
+            metrics: MetricsRegistry | None = None):
+    """The spec's decision vector and, for ``strategy="autotune"``, the
+    search's :class:`~repro_torch.optim.autotune.AutotuneResult`:
+    ``(plan, result)``; ``(None, None)`` for ``mode="reference"``.  The plan
+    carries its provenance (for an autotuned plan also the calibration
+    ``s_per_cycle`` and a digest of the measured trajectory)."""
     spec.validate()
     g = graph if graph is not None else _resolve_graph(spec)
     if spec.mode == "reference":
-        return None
+        return None, None
+    result = cfg = None
     if spec.strategy == "manual-plan":
         plan = spec.plan
         plan.validate()
+    elif spec.strategy == "autotune":
+        from .optim.autotune import AutotuneConfig, autotune
+        cfg = spec.autotune_cfg or AutotuneConfig(
+            microbatches=spec.microbatches, kernel_mode=spec.kernel_mode,
+            seed=spec.seed, torch_device=spec.torch_device)
+        rec = TraceRecorder() if spec.obs.enabled else NULL_RECORDER
+        result = autotune(g, _resolve_device(spec), cfg, recorder=rec,
+                          metrics=metrics)
+        plan = result.best_plan
     else:                                     # "dse": Algorithm 1
         dev = _resolve_device(spec)
         res = run_dse(g, dev, spec.dse or _DEFAULT_DSE)
@@ -195,15 +223,40 @@ def build_plan(spec: CompileSpec, graph: Graph | None = None
             "strategy": spec.strategy,
             "device": _device_name(spec, plan),
             "seed": spec.seed}
+    if result is not None:
+        prov.update({
+            "s_per_cycle": result.calibration.s_per_cycle,
+            "autotune_digest": _autotune_digest(result),
+            "autotune_candidates": len(result.trajectory),
+            # the search's own knobs — a caller-supplied cfg may differ
+            # from the spec's, and provenance records what actually ran
+            "autotune_seed": cfg.seed,
+            "autotune_kernel_mode": cfg.kernel_mode,
+            "baseline_fps": result.baseline_fps,
+            "best_fps": result.best_fps,
+        })
     for k, v in prov.items():
         plan.provenance.setdefault(k, v)
-    return plan
+    return plan, result
+
+
+def build_plan(spec: CompileSpec, graph: Graph | None = None
+               ) -> ExecutionPlan | None:
+    """Resolve the spec's decision vector (``None`` for
+    ``mode="reference"``), stamped with its provenance.  For
+    ``strategy="autotune"`` this runs the whole measured search; the
+    result itself comes with :func:`compile` (``Compiled.autotune_result``).
+    """
+    return _search(spec, graph)[0]
 
 
 def compile(spec: CompileSpec) -> "Compiled":
     """The toolflow entry point: resolve, search, lower — one call."""
     g = _resolve_graph(spec)
-    plan = build_plan(spec, g)
+    # one registry per artifact: the autotune search, traced runs and any
+    # server built from this compile all land on the same scrape surface
+    registry = MetricsRegistry()
+    plan, autotune_result = _search(spec, g, metrics=registry)
     if spec.mode == "reference":
         executor = reference_pipeline(g, seed=spec.seed,
                                       device=spec.torch_device)
@@ -211,17 +264,21 @@ def compile(spec: CompileSpec) -> "Compiled":
         executor = lower_plan(g, plan, kernel_mode=spec.kernel_mode,
                               seed=spec.seed, device=spec.torch_device)
     else:                                     # "pipelined"
+        B = spec.microbatches
+        if autotune_result is not None:       # serve at the measured depth
+            B = autotune_result.microbatches
         try:
             dev = _resolve_device(spec)
         except (KeyError, ValueError):
             dev = None
         executor = lower_plan_pipelined(
-            g, plan, microbatches=spec.microbatches,
+            g, plan, microbatches=B,
             kernel_mode=spec.kernel_mode, seed=spec.seed,
             placement=spec.placement, channel=spec.channel,
             channel_device=dev, device=spec.torch_device)
     return Compiled(spec=spec, graph=g, device=_device_name(spec, plan),
-                    plan=plan, executor=executor)
+                    plan=plan, executor=executor,
+                    autotune_result=autotune_result, registry=registry)
 
 
 @dataclasses.dataclass
@@ -238,6 +295,8 @@ class Compiled:
     device: str
     plan: ExecutionPlan | None
     executor: LoweredPipeline | StreamingExecutor
+    #: the search's trajectory and calibration (strategy="autotune")
+    autotune_result: object = None   # optim.autotune.AutotuneResult
     model_check: object = None       # obs.ModelCheck, set by trace()
     recorder: object = None          # obs.TraceRecorder, set by trace()
     # one scrape surface per artifact: trace() and serve() both feed it
@@ -293,6 +352,8 @@ class Compiled:
         }
         if self.plan is not None:
             out["provenance"] = dict(self.plan.provenance)
+        if self.autotune_result is not None:
+            out["autotune"] = self.autotune_result.summary()
         if self.model_check is not None:
             out["model_check"] = self.model_check.summary()
         return out
@@ -401,6 +462,7 @@ class Compiled:
                 plan=self.plan, **kw)).executor
         srv = GraphStreamServer(executor=sx, metrics=self.registry,
                                 resident_limit=resident_limit)
+        srv.autotune_result = self.autotune_result
         if self.spec.obs.slo is not None:
             try:
                 bw = _resolve_device(self.spec).offchip_gbps
@@ -490,3 +552,65 @@ class Compiled:
             obs=ObsConfig.from_dict(d.get("obs") or {}),
             torch_device=torch_device)
         return compile(spec)
+
+
+# =============================================================================
+# Shared CLI surface (the autotune entry point)
+# =============================================================================
+
+def add_compile_args(ap, *, default_model: str | None = "unet_exec",
+                     default_device: str = "u200",
+                     default_mode: str = "staged",
+                     models: dict | None = None,
+                     modes: tuple[str, ...] = MODES):
+    """Attach the canonical ``--model/--device/--mode`` flags to ``ap``,
+    with the port's ``--kernel-mode`` and ``--torch-device``.
+
+    Choices come from the registries (``EXEC_MODELS`` + ``PAPER_MODELS``
+    by default, or the narrower ``models`` dict), never from hand-kept
+    lists.  ``modes`` narrows the ``--mode`` choices for CLIs where some
+    modes make no sense (e.g. the plan-free "reference" mode in the
+    autotune CLI)."""
+    names = sorted(models if models is not None
+                   else {**EXEC_MODELS, **PAPER_MODELS})
+    ap.add_argument("--model", default=default_model, choices=names,
+                    help=f"model registry name (default: {default_model})")
+    ap.add_argument("--device", default=default_device,
+                    choices=sorted(ALL_DEVICES),
+                    help=f"DSE target sheet (default: {default_device})")
+    ap.add_argument("--mode", default=default_mode, choices=list(modes),
+                    help=f"execution mode (default: {default_mode})")
+    ap.add_argument("--kernel-mode", default="auto",
+                    choices=list(KERNEL_MODES),
+                    help="kernel dispatch: cuda = the hand-written kernels "
+                         "(refuses the CPU), reference = the plain bodies "
+                         "only, auto = the kernels on a CUDA device and "
+                         "their plain versions on the CPU (default)")
+    ap.add_argument("--torch-device", default="cuda",
+                    help="where the tensors live (default: cuda; cpu runs "
+                         "the kernels' plain versions)")
+    ap.add_argument("--channel", default=None, choices=list(POLICIES),
+                    help="model the shared off-chip channel with this "
+                         "arbitration policy (default: off)")
+    ap.add_argument("--channel-gbps", default=None, type=float,
+                    help="override the device's off-chip bandwidth for "
+                         "the channel model (implies --channel "
+                         "round-robin when --channel is not given)")
+    return ap
+
+
+def spec_from_args(args, **overrides) -> CompileSpec:
+    """Build a :class:`CompileSpec` from ``add_compile_args`` output."""
+    kw: dict[str, Any] = {"model": args.model, "device": args.device,
+                          "mode": args.mode}
+    if getattr(args, "kernel_mode", None) is not None:
+        kw["kernel_mode"] = args.kernel_mode
+    if getattr(args, "torch_device", None) is not None:
+        kw["torch_device"] = args.torch_device
+    policy = getattr(args, "channel", None)
+    gbps = getattr(args, "channel_gbps", None)
+    if policy is not None or gbps is not None:
+        kw["channel"] = ChannelConfig(policy=policy or "round-robin",
+                                      gbps=gbps)
+    kw.update(overrides)
+    return CompileSpec(**kw)

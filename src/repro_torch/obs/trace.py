@@ -44,10 +44,9 @@ class ObsConfig:
     """The observability knobs a :class:`~repro_torch.api.CompileSpec`
     carries.
 
-    ``enabled`` is the reference's switch for tracing inside its autotune
-    loop, kept so the artifact round-trips (the port has no autotuner
-    yet); ``trace_path`` is where ``Compiled.trace`` writes the Chrome
-    trace JSON when set.  ``slo``
+    ``enabled`` switches tracing on inside the autotune loop (one span
+    per candidate, ``optim.autotune``); ``trace_path`` is where
+    ``Compiled.trace`` writes the Chrome trace JSON when set.  ``slo``
     carries the :class:`~repro_torch.obs.slo.SloConfig` targets the serving
     layer scores against; ``flight_capacity`` > 0 makes ``Compiled.trace``
     record into a bounded :class:`~repro_torch.obs.flight.FlightRecorder`

@@ -34,6 +34,7 @@ same composition.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -385,6 +386,38 @@ def _lower_vertex(g: Graph, name: str, an: PlanAnalysis) -> VertexLowering:
     return VertexLowering(fuse_in=fuse_in,
                           fuse_out=fusable and needs_payload,
                           needs_payload=needs_payload)
+
+
+def launch_table(g: Graph, plan: ExecutionPlan) -> dict[str, int]:
+    """Launches per frame of each kernel on the kernel route of the staged
+    executor, read from the lowering (``analyze_plan`` / ``_lower_vertex``)
+    without running it: a vertex that decodes its input edge or encodes
+    its output inside its own launch counts under ``<kernel>_decode``,
+    ``<kernel>_encode`` or ``<kernel>_decode_encode``; ``plain_dot`` is the
+    ``torch.matmul`` of a fragmented layer whose K pads to 128 or less,
+    which launches no kernel.  Kernels that a frame does not launch are
+    left out."""
+    an = analyze_plan(g, plan, use_kernels=True)
+    counts: collections.Counter = collections.Counter()
+    for name in an.topo:
+        v, lv = g.vertex(name), _lower_vertex(g, name, an)
+        fused = (("_decode" if lv.fuse_in else "")
+                 + ("_encode" if lv.fuse_out else ""))
+        counts["bfp8_dequant"] += sum(
+            (e.src, name) in an.bfp8_edges and (e.src, name) != lv.fuse_in
+            for e in g.in_edges(name))
+        if lv.needs_payload and not lv.fuse_out:
+            counts["bfp8_quant"] += 1
+        if v.kind in WEIGHT_KINDS and an.frac[name] < 1.0:
+            counts["streamed_matmul" if v.meta["exec"]["cin"] > 128
+                   else "plain_dot"] += 1
+        elif v.kind in WEIGHT_KINDS:
+            counts["conv2d" + fused] += 1
+        elif v.kind in TEMPORAL_KINDS + ("pool",):
+            counts[v.kind + fused] += 1
+        elif v.kind == "act":
+            counts["act_relu" + fused] += 1
+    return dict(+counts)
 
 
 def apply_vertex_fused(v, ins, params, x, analysis: PlanAnalysis, *,

@@ -21,7 +21,9 @@ streaming executor (``runtime/streamer``).  On a CUDA device a stream's
 frames are stacked into one tensor on the card, and the host waits for the
 stream's results before it reads the clock for the latency histogram and
 the SLO window: without that wait the clock would read the launches, not
-the work.
+the work.  ``GraphStreamServer.autotuned`` runs the closed-loop autotuner
+(``repro_torch.optim.autotune``) first, every candidate through the
+pipelined streamer, and serves the measured-best plan.
 """
 from __future__ import annotations
 
@@ -410,6 +412,7 @@ class GraphStreamServer:
         # same LatencyHistogram the registry histogram exposes
         self.latency = self._h_latency.labels().hist
         self.slo = None                      # obs.slo.SloEvaluator | None
+        self.autotune_result = None          # set by .autotuned()
         self.flight = None                   # obs.flight.FlightRecorder | None
         # per stream executed, every spill record moves offchip_bits once
         # per microbatch in each direction (evict + restore) — the window
@@ -436,11 +439,29 @@ class GraphStreamServer:
         self._next_ticket = 0
 
     @classmethod
-    def autotuned(cls, *args, **kwargs) -> "GraphStreamServer":
-        """Serve the autotuner's measured-best plan: not ported yet."""
-        raise NotImplementedError(
-            "GraphStreamServer.autotuned needs the closed-loop autotuner, "
-            "which is not ported yet; see ROADMAP.md, Queue 1, item 8")
+    def autotuned(cls, g, dev, *, autotune_cfg=None, **lower_kw
+                  ) -> "GraphStreamServer":
+        """Serve the *measured-best* plan instead of the default DSE plan.
+
+        Compiles ``strategy="autotune"`` through the façade: the closed
+        loop (``repro_torch.optim.autotune``) executes every candidate
+        through the pipelined streamer on ``autotune_cfg.torch_device``, and
+        the server is built around the winning plan at the autotuner's
+        microbatch depth.  ``lower_kw`` are further
+        :class:`~repro_torch.api.CompileSpec` fields (``kernel_mode``,
+        ``torch_device``, ``seed``, ...); without ``autotune_cfg`` the
+        search takes the spec's depth, kernel mode, seed and torch device,
+        as the façade's default does.  The full
+        :class:`~repro_torch.optim.autotune.AutotuneResult` (trajectory +
+        calibration report) is kept on ``server.autotune_result``.
+        """
+        from ..api import CompileSpec, compile as smof_compile
+        spec = CompileSpec(model=g, device=dev, strategy="autotune",
+                           mode="pipelined", autotune_cfg=autotune_cfg,
+                           **lower_kw)
+        if autotune_cfg is not None:
+            spec.microbatches = autotune_cfg.microbatches
+        return smof_compile(spec).serve()
 
     @property
     def report(self):

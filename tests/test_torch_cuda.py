@@ -910,3 +910,64 @@ def test_every_tile_gives_the_untiled_result(gen, kind):
         for bc in bcs:
             for g, w in zip(call(bm, bc), want):
                 assert torch.equal(_bits(g), _bits(w)), (kind, bm, bc)
+
+
+# -- the closed-loop autotuner ------------------------------------------------
+
+def test_measure_pipelined_fps_times_with_cuda_events(gen, monkeypatch):
+    """On the card a stream is timed by two CUDA events a run (warm-up
+    included), and the rate is ticks over the best run."""
+    import repro_torch
+    from repro_torch.core import build_yolo_head_exec
+    from repro_torch.optim.autotune import measure_pipelined_fps
+    made, real = [], torch.cuda.Event
+
+    def Event(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
+    c = repro_torch.compile(repro_torch.CompileSpec(
+        model=build_yolo_head_exec(positions=256), mode="pipelined",
+        microbatches=4, torch_device="cuda"))
+    xs = torch.randn((4,) + c.input_shape(), generator=gen, device="cuda")
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    fps = measure_pipelined_fps(c.executor, xs, repeats=2, warmup=1)
+    assert len(made) == 2 * 3
+    assert math.isfinite(fps) and fps > 0
+
+
+def test_autotuned_server_on_the_card(gen):
+    """GraphStreamServer.autotuned with the kernel route on the card: every
+    candidate ran its kernels, a staged frame of the winner launches
+    exactly ``launch_table``, and every served result is the staged
+    executor's on the same plan, bit for bit."""
+    import repro_torch
+    from repro_torch.core import build_yolo_head_exec
+    from repro_torch.optim.autotune import AutotuneConfig
+    from repro_torch.runtime.executor import launch_table
+    from repro_torch.serving import GraphStreamServer
+    g = build_yolo_head_exec(positions=256, widths=(32, 64, 128), head=32)
+    cfg = AutotuneConfig(n_candidates=4, microbatches=4, repeats=1,
+                         warmup=1, kernel_mode="cuda")
+    reset_launches()
+    srv = GraphStreamServer.autotuned(g, "u200", autotune_cfg=cfg,
+                                      kernel_mode="cuda")
+    assert launches()["conv2d"] > 0
+    res = srv.autotune_result
+    assert len(res.trajectory) == 4 and res.best_fps >= res.baseline_fps
+    assert srv.executor.plan is res.best_plan and srv.microbatches == 4
+    staged = repro_torch.compile(repro_torch.CompileSpec(
+        model=g, strategy="manual-plan", plan=res.best_plan,
+        kernel_mode="cuda"))
+    staged.executor.params = srv.executor.params
+    frames = [torch.randn(staged.input_shape(), generator=gen,
+                          device="cuda") for _ in range(6)]
+    reset_launches()
+    staged.run(frames[0])
+    torch.cuda.synchronize()
+    table = {k: n for k, n in launch_table(g, res.best_plan).items()
+             if k != "plain_dot"}
+    assert {k: n for k, n in launches().items() if n} == table
+    tickets = [srv.submit(f) for f in frames]
+    srv.flush()
+    for t, f in zip(tickets, frames):
+        assert torch.equal(_bits(srv.result(t)), _bits(staged.run(f)))

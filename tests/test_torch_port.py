@@ -109,14 +109,16 @@ def test_import_leaves_jax_and_repro_out():
                                     "repro_torch.testing",
                                     "repro_torch.models",
                                     "repro_torch.configs",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.optim",
+                                    "repro_torch.optim.autotune"])
 def test_streamer_packages_leave_jax_and_repro_out(module):
     """The pipelined streamer, its copies of the reference's memory and obs
     layers (the metrics registry, SLO scoring and flight recorder among
     them), the serving front ends (the LM engine among them), the
-    conformance harness, the LM stack, its configs and the serving
-    launcher, each imported first in a fresh interpreter, with its
-    submodules."""
+    conformance harness, the LM stack, its configs, the serving launcher
+    and the autotuner, each imported first in a fresh interpreter, with
+    its submodules."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         mod = importlib.import_module({module!r})
@@ -255,7 +257,8 @@ def test_main_path_launches_four_kernels(paper_unet_plans):
 
 @pytest.mark.parametrize("kw,err", [
     (dict(mode="pipelined", placement="shard_map"), NotImplementedError),
-    (dict(strategy="autotune"), NotImplementedError),
+    (dict(strategy="autotune", mode="pipelined", kernel_mode="cuda",
+          torch_device="cpu"), ValueError),
     (dict(kernel_mode="pallas"), ValueError),
     (dict(mode="bogus"), ValueError),
     (dict(strategy="manual-plan"), ValueError),

@@ -44,7 +44,6 @@ from repro_torch.obs import metrics as tmetrics             # noqa: E402
 from repro_torch.obs import slo as tslo                     # noqa: E402
 from repro_torch.obs import trace as ttrace                 # noqa: E402
 from repro_torch.runtime.executor import params_from_numpy  # noqa: E402
-from repro_torch.serving import GraphStreamServer           # noqa: E402
 
 YOLO = dict(positions=256, widths=(16, 32, 64), head=16)
 B = 4
@@ -268,11 +267,6 @@ def test_serve_attaches_the_slo_evaluator_and_flight_recorder(tmp_path):
     verdicts = {k: v for k, v in comp.metrics().items()
                 if k.startswith("smof_server_slo_evaluations_total")}
     assert sum(verdicts.values()) == 3
-
-
-def test_autotuned_server_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        GraphStreamServer.autotuned(None, "u200")
 
 
 # =============================================================================

@@ -12,7 +12,6 @@
 * the plain versions of the kernels this slice adds against
   ``repro.kernels.ref`` and the Pallas kernels in interpret mode.
 """
-import collections
 import dataclasses
 
 import numpy as np
@@ -46,6 +45,7 @@ from repro_torch.kernels import ref as tref                 # noqa: E402
 from repro_torch.kernels import streaming_conv as TSC       # noqa: E402
 from repro_torch.kernels.bfp8 import bfp8_quant             # noqa: E402
 from repro_torch.runtime import executor as tex             # noqa: E402
+from repro_torch.runtime.executor import launch_table      # noqa: E402
 from repro_torch.runtime.executor import params_from_numpy  # noqa: E402
 
 _TINY = dict(name="tiny_stream", compute_units=4096, onchip_bits=300_000,
@@ -75,40 +75,6 @@ def _frame(shape, seed=0):
 def _rand(seed, *shape, scale=1.0):
     return (np.random.default_rng(seed).normal(size=shape) * scale
             ).astype(np.float32)
-
-
-def launch_table(g, plan) -> dict[str, int]:
-    """Launches per frame of each kernel on the kernel route, read from the
-    lowering (``analyze_plan`` / ``_lower_vertex``) without running it:
-    a vertex that decodes its input edge or encodes its output inside its
-    own launch counts under ``<kernel>_decode``, ``<kernel>_encode`` or
-    ``<kernel>_decode_encode``; ``plain_dot`` is the ``torch.matmul`` of a
-    fragmented layer whose K pads to 128 or less."""
-    an = tex.analyze_plan(g, plan, use_kernels=True)
-    counts = collections.Counter()
-    for name in an.topo:
-        v, lv = g.vertex(name), tex._lower_vertex(g, name, an)
-        fused = (("_decode" if lv.fuse_in else "")
-                 + ("_encode" if lv.fuse_out else ""))
-        counts["bfp8_dequant"] += sum(
-            (e.src, name) in an.bfp8_edges and (e.src, name) != lv.fuse_in
-            for e in g.in_edges(name))
-        if lv.needs_payload and not lv.fuse_out:
-            counts["bfp8_quant"] += 1
-        if v.kind in tex.WEIGHT_KINDS:
-            if an.frac[name] == 1.0:
-                counts["conv2d" + fused] += 1
-            else:
-                assert not fused
-                counts["streamed_matmul" if v.meta["exec"]["cin"] > 128
-                       else "plain_dot"] += 1
-        elif v.kind in ("dwconv", "pool"):
-            counts[v.kind + fused] += 1
-        elif v.kind == "act":
-            counts["act_relu" + fused] += 1
-        else:
-            assert v.kind in ("input", "add", "mul", "concat", "output")
-    return dict(counts)
 
 
 # =============================================================================
