@@ -7,7 +7,10 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. the card: name and power limit from ``nvidia-smi``; no CUDA device is a
-   failure;
+   failure; the H100 sheets (``H100_KERNEL``, ``H100_RUNTIME``) beside what
+   the card reports (multiprocessors, shared memory a multiprocessor,
+   ``total_memory``, the maximum SM clock), a failure where a sheet claims
+   more, and a 256 MiB pinned copy each way beside the sheet's host link;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``;
 3. the main paths, one after the other, on the u200 sheet.  Staged (one
    frame at a
@@ -54,7 +57,13 @@ and prints no result line):
    same weights (first-token logits, KV pages, then the token streams), a
    parked restore bit for bit and a host restore within the BFP8 bound;
    prefill and decode times, decode against its byte bound, one profiled
-   prefill and decode step, peak memory; then the model is released;
+   prefill and decode step, peak memory; then the model is released.
+   Then olmoe-1b-7b at its published widths (about 6.92 B parameters, 64
+   experts top 8) the same way, 16 x 8 flash_attention launches, with the
+   router's choices of every prefill and decode step held on both routes:
+   a flip (another expert or queue slot) only at a plain-route near-tie
+   (``testing.routing.hold_routing``), the token streams in lockstep until
+   the routes part, the dropped (token, k) pairs printed;
 4. hold each kernel against its plain PyTorch version on the card, at every
    shape a path launched it with in phase 3 plus ragged shapes (c = 3, 24,
    40 for the codec variants, payloads with random padding bytes) and the
@@ -255,7 +264,10 @@ AUTOTUNE_SERVED = 20
 # on the card; 8 seeded prompts of 64-512 tokens (the first 512) through 4
 # slots, 32 new tokens each, no EOS; finished requests' KV pages BFP8-evicted
 # to the host past 2 parked on the card
-LM_ARCH = "yi-6b"
+# then olmoe-1b-7b at its published widths (16 layers, d_model 2048, 16
+# heads of 128, 64 experts top 8 of d_ff 1024, vocab 50304; about 6.92 B
+# parameters) the same way, after yi-6b is released
+LM_PATHS = (("yi-6b", "lm-serve"), ("olmoe-1b-7b", "lm-moe"))
 LM_SEED = 0
 LM_REQUESTS = 8
 LM_SLOTS = 4
@@ -263,7 +275,9 @@ LM_S_MAX = 1024
 LM_MAX_NEW = 32
 LM_RESIDENT = 2
 # kernel route vs plain route on first-token logits and KV pages: f32 sums
-# in another order through 32 layers
+# in another order through 32 layers; also a router near-tie (the two
+# experts' plain-route logits within LM_TOL x max |logit|) under which a
+# mixture of experts may choose another expert
 LM_TOL = 2e-4              # of max |plain|
 # a host-evicted page back through the BFP8 codec, relative to max |page|
 # (the reference's test_bfp8_page_roundtrip_numerics)
@@ -314,6 +328,54 @@ CUDA_SRC = {
     "act_relu_decode": "src/repro_torch/csrc/streaming_conv.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
+
+
+def sheet_phase(torch) -> None:
+    """The H100 sheets of ``repro_torch.core`` beside what the card
+    reports; raises where a sheet claims more than the card has.  Then a
+    256 MiB pinned copy each way (CUDA events, median of 10 after one
+    warm-up), printed beside ``H100_RUNTIME.offchip_gbps`` and not gated."""
+    from repro_torch.core import resources as R
+    props = torch.cuda.get_device_properties(0)
+    max_sm = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    claims = (("multiprocessors", R.H100_SMS, props.multi_processor_count),
+              ("shared memory a multiprocessor, bytes",
+               R.H100_SMEM_PER_SM_BYTES,
+               props.shared_memory_per_multiprocessor),
+              ("HBM, bytes (total_memory)", R.H100_HBM_BYTES,
+               props.total_memory),
+              ("max SM clock, MHz (clocks.max.sm)", R.H100_FREQ_MHZ, max_sm))
+    for what, sheet, has in claims:
+        print(f"sheet: {what}: H100 sheets {sheet}, the card {has}")
+        if sheet > has:
+            raise AssertionError(f"the H100 sheet claims {sheet} {what}, the "
+                                 f"card has {has}")
+    for dev in (R.H100_KERNEL, R.H100_RUNTIME):
+        print(f"sheet: {dev.name}: compute_units {dev.compute_units:.1f} MACs "
+              f"a cycle at {dev.freq_mhz} MHz, onchip_bits "
+              f"{dev.onchip_bits:.0f}, offchip_gbps {dev.offchip_gbps}")
+    n = 256 * 2**20
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    for label, dst, src in (("host -> device", dev, host),
+                            ("device -> host", host, dev)):
+        times = []
+        for _ in range(11):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = statistics.median(times[1:])
+        print(f"sheet: pinned copy of 256 MiB {label}: {ms:.4f} ms, "
+              f"{n * 8 / ms / 1e6:.2f} Gbit/s (H100_RUNTIME.offchip_gbps "
+              f"{R.H100_RUNTIME.offchip_gbps})")
+    del host, dev
 
 
 def card() -> str:
@@ -1411,41 +1473,47 @@ def lm_schedule(lengths, slots: int, max_new: int, resident: int,
                 host=host, parked=retired[len(host):])
 
 
-def lm_serve_phase(torch, library):
-    """The LM serving path: ``ServingEngine`` on yi-6b at its published
+def lm_serve_phase(torch, library, arch: str, tag: str):
+    """An LM serving path: ``ServingEngine`` on ``arch`` at its published
     widths on the card, the prefill attention through the flash_attention
     kernel.  Checks the counters (read from ``metrics_text()``) against
-    the schedule, 32 x 8 flash launches and no other kernel, the kernel
-    route against the plain route (every prefill again in
+    the schedule, n_layers x 8 flash launches and no other kernel, the
+    kernel route against the plain route (every prefill again in
     ``kernel_mode="reference"`` on the same weights: first-token logits and
     KV pages, then the whole token streams), a resident restore bit for bit
     and a host restore within the BFP8 bound; then times prefill and
-    decode, profiles one of each and reads the peak memory.  Returns
-    (launches, launch shapes) of the served run."""
+    decode, profiles one of each and reads the peak memory.  With a mixture
+    of experts the router's choices are held too (``moe_prefill_check``,
+    ``moe_streams``).  Returns (launches, launch shapes) of the served
+    run."""
     import numpy as np
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_params, param_count, project_logits
     from repro_torch.models.model import decode_step
     from repro_torch.obs.metrics import parse_metrics_text
     from repro_torch.serving import ServingEngine
-    cfg = ARCHS[LM_ARCH]
+    cfg = ARCHS[arch]
+    on = card()             # every time below is named with the card
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
                          cfg)
     torch.cuda.synchronize()
     n_params = param_count(params)
     w_bytes = 4 * n_params
-    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.hd}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters, f32 "
-          f"{w_bytes} bytes on the card, made in "
+    experts = ("" if cfg.moe is None else
+               f", {cfg.moe.n_experts} experts top {cfg.moe.top_k} "
+               f"(capacity factor {cfg.moe.capacity_factor})")
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab}: "
+          f"{n_params} parameters, f32 {w_bytes} bytes on the card, made in "
           f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(LM_SEED)
     lengths = rng.integers(64, 513, LM_REQUESTS)
     lengths[0] = 512
     if sum(int(n) % 64 != 0 for n in lengths) < 2:
-        raise AssertionError(f"[lm] prompt lengths {lengths}: fewer than two "
-                             f"off the kernel's 64-row blocks")
+        raise AssertionError(f"[{tag}] prompt lengths {lengths}: fewer than "
+                             f"two off the kernel's 64-row blocks")
     prompts = [rng.integers(0, cfg.vocab, n) for n in lengths]
     kw = dict(max_batch=LM_SLOTS, s_max=LM_S_MAX, device="cuda")
     eng = ServingEngine(cfg, params, evict_to_host=True,
@@ -1479,7 +1547,8 @@ def lm_serve_phase(torch, library):
     expected = dict.fromkeys(library.SIGNATURES, 0) | {
         "flash_attention": cfg.n_layers * LM_REQUESTS}
     if counts != expected:
-        raise AssertionError(f"[lm] launches {counts}, expected {expected}")
+        raise AssertionError(f"[{tag}] launches {counts}, expected "
+                             f"{expected}")
     parked = {k: v.clone() for k, v in eng.resident_store[parked_rid].items()}
     eng.restore_request(host_rid, 0)
     eng.restore_request(parked_rid, 1)
@@ -1493,72 +1562,102 @@ def lm_serve_phase(torch, library):
     got["evicted_bytes_compressed"] = int(raw[
         'smof_engine_evicted_bytes_total{kind="compressed"}'])
     want["restored_pages"] = 2 * n_pages
-    print(f"[lm] counters from metrics_text(): {got}; worked out beforehand: "
-          f"{want}")
+    print(f"[{tag}] counters from metrics_text(): {got}; worked out "
+          f"beforehand: {want}")
     if got != want:
-        raise AssertionError("[lm] counters differ from the schedule")
+        raise AssertionError(f"[{tag}] counters differ from the schedule")
     if [len(r.out_tokens) for r in reqs] != [LM_MAX_NEW] * LM_REQUESTS:
-        raise AssertionError("[lm] a request did not get its tokens")
+        raise AssertionError(f"[{tag}] a request did not get its tokens")
     for name, c in (("pos_0/k", eng.cache["pos_0"]["k"]),
                     ("pos_0/v", eng.cache["pos_0"]["v"])):
         if not bit_equal(torch, c[:, 1], parked[name]):
-            raise AssertionError(f"[lm] resident restore of {name} is not "
-                                 f"bit for bit")
+            raise AssertionError(f"[{tag}] resident restore of {name} is "
+                                 f"not bit for bit")
         page = evicted[name]
         rel = float((c[:, 0] - page).abs().max() / page.abs().max())
-        print(f"[lm] restores of {name}: resident bit for bit; host "
+        print(f"[{tag}] restores of {name}: resident bit for bit; host "
               f"(request {host_rid}) max|restored - page| / max|page| "
               f"{rel:.4f} (bound {LM_BFP8_REL})")
         if not 0.0 < rel < LM_BFP8_REL:
-            raise AssertionError(f"[lm] host restore of {name} off by {rel}")
-    print(f"[lm] {LM_REQUESTS} requests ({list(map(int, lengths))} prompt "
+            raise AssertionError(f"[{tag}] host restore of {name} off by "
+                                 f"{rel}")
+    print(f"[{tag}] {LM_REQUESTS} requests ({list(map(int, lengths))} prompt "
           f"tokens) through {LM_SLOTS} slots: {served_s:.3f} s to drain, "
           f"{got['generated_tokens'] / served_s:.1f} generated tokens/s; "
           f"launches {({k: n for k, n in counts.items() if n})}; peak device "
-          f"memory {peak} bytes ({peak - base} above weights and cache)")
+          f"memory {peak} bytes ({peak - base} above weights and cache); "
+          f"{on}")
 
     # -- the kernel route against the plain route, on the same weights --------
-    plain = ServingEngine(cfg, params, kernel_mode="reference", **kw)
+    log = LastLogits(torch)
+    plain = ServingEngine(cfg, params, kernel_mode="reference", sampler=log,
+                          **kw)
     worst = 0.0
     for i, (p, r) in enumerate(zip(prompts, reqs)):
-        lk, ck = eng.run_prefill(p)
-        lp, cp = plain.run_prefill(p)
+        if cfg.moe is not None:
+            lk, ck, lp, cp, held = moe_prefill_check(torch, cfg, tag, i, eng,
+                                                     plain, p)
+        else:
+            lk, ck = eng.run_prefill(p)
+            lp, cp = plain.run_prefill(p)
+            held = None
         if int(lk.argmax()) != r.out_tokens[0]:
-            raise AssertionError(f"[lm] request {i}: rerun's first token is "
-                                 f"not the served one")
-        for what, g, w in [("logits", lk, lp)] + [
-                (f"{pj}/{n}", ck[pj][n], cp[pj][n]) for pj in cp
-                for n in ("k", "v")]:
+            raise AssertionError(f"[{tag}] request {i}: rerun's first token "
+                                 f"is not the served one")
+        pages = [(f"{pj}/{n}", ck[pj][n], cp[pj][n]) for pj in cp
+                 for n in ("k", "v")]
+        if held is not None:
+            # the groups up to the layer whose routing parted: their KV is
+            # computed before the flipped experts' output
+            n = -(-held // cfg.group_size)
+            pages = [(f"{what}[:{n}]", g[:n], w[:n]) for what, g, w in pages]
+        else:
+            pages.insert(0, ("logits", lk, lp))
+        for what, g, w in pages:
             err = float((g - w).abs().max()) / float(w.abs().max())
             worst = max(worst, err)
             if err > LM_TOL:
-                raise AssertionError(f"[lm] request {i} {what}: kernel vs "
+                raise AssertionError(f"[{tag}] request {i} {what}: kernel vs "
                                      f"plain {err:.3e} of max|plain|")
+        if int(lk.argmax()) != int(lp.argmax()) and held is None:
+            top = lp[0].topk(2).values
+            margin = float(top[0] - top[1])
+            lim = LM_TOL * float(lp.abs().max())
+            print(f"[{tag}] request {i}: first tokens differ; the plain "
+                  f"route's top-2 logit margin {margin:.3e} (tol {lim:.3e})")
+            if margin >= lim:
+                raise AssertionError(f"[{tag}] request {i}: first tokens "
+                                     f"differ past a tie")
         del ck, cp
-    print(f"[lm] kernel vs plain route, first-token logits and every KV page "
-          f"of the 8 prefills: max|kernel - plain| at most {worst:.3e} of "
-          f"max|plain| (tol {LM_TOL})")
-    plain_reqs = [plain.submit(p, max_new_tokens=LM_MAX_NEW) for p in prompts]
-    plain.run_until_drained()
-    for i, (r, q) in enumerate(zip(reqs, plain_reqs)):
-        if r.out_tokens == q.out_tokens:
-            continue
-        t = next(j for j, (a, b) in enumerate(zip(r.out_tokens,
-                                                  q.out_tokens)) if a != b)
-        logits, _ = plain.run_prefill(np.concatenate(
-            [prompts[i], q.out_tokens[:t]]))
-        top = logits[0].topk(2).values
-        margin = float(top[0] - top[1])
-        lim = LM_TOL * float(logits.abs().max())
-        print(f"[lm] request {i}: token streams part at token {t}; the plain "
-              f"route's top-2 logit margin there {margin:.3e} (tol "
-              f"{lim:.3e})")
-        if margin >= lim:
-            raise AssertionError(f"[lm] request {i}: streams part at token "
-                                 f"{t} past a tie")
-    print(f"[lm] token streams of the two routes: "
-          f"{sum(r.out_tokens == q.out_tokens for r, q in zip(reqs, plain_reqs))}"
-          f" of {LM_REQUESTS} equal")
+    print(f"[{tag}] kernel vs plain route, first-token logits and every KV "
+          f"page of the 8 prefills: max|kernel - plain| at most {worst:.3e} "
+          f"of max|plain| (tol {LM_TOL})")
+    if cfg.moe is not None:
+        moe_streams(torch, cfg, tag, params, prompts, reqs, plain, log, kw)
+    else:
+        plain_reqs = [plain.submit(p, max_new_tokens=LM_MAX_NEW)
+                      for p in prompts]
+        plain.run_until_drained()
+        for i, (r, q) in enumerate(zip(reqs, plain_reqs)):
+            if r.out_tokens == q.out_tokens:
+                continue
+            t = next(j for j, (a, b) in enumerate(zip(r.out_tokens,
+                                                      q.out_tokens))
+                     if a != b)
+            logits, _ = plain.run_prefill(np.concatenate(
+                [prompts[i], q.out_tokens[:t]]))
+            top = logits[0].topk(2).values
+            margin = float(top[0] - top[1])
+            lim = LM_TOL * float(logits.abs().max())
+            print(f"[{tag}] request {i}: token streams part at token {t}; "
+                  f"the plain route's top-2 logit margin there {margin:.3e} "
+                  f"(tol {lim:.3e})")
+            if margin >= lim:
+                raise AssertionError(f"[{tag}] request {i}: streams part at "
+                                     f"token {t} past a tie")
+        print(f"[{tag}] token streams of the two routes: "
+              f"{sum(r.out_tokens == q.out_tokens for r, q in zip(reqs, plain_reqs))}"
+              f" of {LM_REQUESTS} equal")
     del plain
 
     # -- times ----------------------------------------------------------------
@@ -1569,8 +1668,9 @@ def lm_serve_phase(torch, library):
         eng.run_prefill(p)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"[lm] prefill ms per request (host clock, kernel route): "
-          + ", ".join(f"{n}: {t:.3f}" for n, t in zip(lengths, ms)))
+    print(f"[{tag}] prefill ms per request (host clock, kernel route, "
+          f"{on}): " + ", ".join(f"{n}: {t:.3f}"
+                                 for n, t in zip(lengths, ms)))
     token = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device="cuda")
     pos = torch.full((LM_SLOTS,), 600, dtype=torch.int64, device="cuda")
 
@@ -1589,20 +1689,155 @@ def lm_serve_phase(torch, library):
                       for t in lv.values())
     read = w_bytes - 4 * params["embed"].numel() + cache_bytes
     b_ms = read / PEAK_HBM_BYTES_S * 1e3
-    print(f"[lm] decode: {step_ms:.3f} ms per lockstep step of {LM_SLOTS} "
-          f"slots (median of 10, host clock to the sampled tokens), bound "
-          f"{b_ms:.3f} ms ({read} bytes: every weight but the embedding "
-          f"table, of which 4 rows are read, and the KV cache, once, at "
-          f"3.35 TB/s); {LM_SLOTS / step_ms * 1e3:.1f} tokens/s in steady "
-          f"decode")
-    profile_device(torch, "[lm] profile of one decode step", one_step,
+    print(f"[{tag}] decode: {step_ms:.3f} ms per lockstep step of "
+          f"{LM_SLOTS} slots (median of 10, host clock to the sampled "
+          f"tokens), bound {b_ms:.3f} ms ({read} bytes: every weight but the "
+          f"embedding table, of which 4 rows are read, and the KV cache, "
+          f"once, at 3.35 TB/s); {LM_SLOTS / step_ms * 1e3:.1f} tokens/s in "
+          f"steady decode; {on}")
+    profile_device(torch, f"[{tag}] profile of one decode step", one_step,
                    step_ms)
-    profile_host(torch, "[lm] host profile of one decode step", one_step)
+    profile_host(torch, f"[{tag}] host profile of one decode step",
+                 one_step)
     long = prompts[0]
-    profile_device(torch, f"[lm] profile of one prefill ({len(long)} "
+    profile_device(torch, f"[{tag}] profile of one prefill ({len(long)} "
                    f"tokens)", lambda: eng.run_prefill(long), ms[0])
     del eng, params, evicted, parked
     return counts, shapes
+
+
+class LastLogits:
+    """An engine's sampler (argmax) that keeps the logits of its last call:
+    within one ``step`` the decode's (B, vocab) come last."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.last = None
+
+    def __call__(self, logits):
+        self.last = logits
+        return self.torch.argmax(logits, -1)
+
+
+def moe_prefill_check(torch, cfg, tag, i, eng, plain, prompt):
+    """One prompt through both routes with the router's choices recorded,
+    held by ``testing.routing.hold_routing`` (every changed choice a
+    near-tie on the plain route, capacity verdicts changed only after a
+    changed choice).  Prints the pairs each route dropped and any flip.
+    Returns (kernel logits, kernel cache, plain logits, plain cache, the
+    number of layers to hold to LM_TOL, None where the routes never
+    part)."""
+    from repro_torch.testing.routing import RoutingTape, hold_routing
+    with RoutingTape() as tape:
+        lk, ck = eng.run_prefill(prompt)
+        rk = tape.take()
+        lp, cp = plain.run_prefill(prompt)
+        rp = tape.take()
+    hold = hold_routing(rk, rp, LM_TOL)
+    layers = [n for n in range(cfg.n_layers) if cfg.layer_is_moe(n)]
+    print(f"[{tag}] prefill {i} ({len(prompt)} tokens, capacity "
+          f"{rk[0].capacity}): dropped (token, k) pairs, kernel route "
+          f"{sum(r.dropped for r in rk)}, plain {sum(r.dropped for r in rp)} "
+          f"(per layer {[r.dropped for r in rk]})")
+    if hold.parted is None:
+        return lk, ck, lp, cp, None
+    layer = layers[hold.parted]
+    for f in hold.flips:
+        print(f"[{tag}] prefill {i}: the routes part in layer {layer}: "
+              f"token {f.token} rank {f.rank} expert {f.kernel} (kernel) / "
+              f"{f.plain} (plain), plain logit gap {f.gap:.3e} (near-tie "
+              f"below {f.limit:.3e}); {hold.keep_changes} capacity verdicts "
+              f"follow")
+    return lk, ck, lp, cp, layer + 1
+
+
+def moe_streams(torch, cfg, tag, params, prompts, served, plain, log, kw):
+    """The token streams of a mixture of experts on both routes.  The
+    slots of one decode step share the router's capacity, so a changed
+    token or choice in one slot moves the others: a fresh engine on the
+    kernel route and the plain engine run in lockstep, and every step is
+    held until the routes part (the first step whose tokens or decode
+    routing differ), which must be at a near-tie: a routing flip held by
+    ``hold_routing``, else the plain route's top-2 logit margin of the
+    parting slot below LM_TOL x max|logit|.  After that both drain
+    unchecked.  The fresh kernel engine's streams must be the served
+    ones.  Prints the pairs dropped at every decode step."""
+    from repro_torch.models.moe import capacity
+    from repro_torch.serving import ServingEngine
+    from repro_torch.testing.routing import RoutingTape, hold_routing
+    kern = ServingEngine(cfg, params, **kw)
+    # the slot each plain request decodes in, to read its logits row
+    slot_of = {}
+    prefill = plain._prefill
+
+    def note_slot(slot, r):
+        slot_of[r.rid] = slot
+        prefill(slot, r)
+    plain._prefill = note_slot
+    engines = {"kernel": kern, "plain": plain}
+    reqs = {k: [e.submit(p, max_new_tokens=LM_MAX_NEW) for p in prompts]
+            for k, e in engines.items()}
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    drops, step, parted = [], 0, None
+    with RoutingTape() as tape:
+        while True:
+            live, recs = {}, {}
+            for k, e in engines.items():
+                tape.take()
+                live[k] = e.step()
+                recs[k] = tape.take()[-n_moe:]
+            if live["kernel"] != live["plain"]:
+                raise AssertionError(f"[{tag}] the routes' schedules differ")
+            if not live["kernel"]:
+                break
+            step += 1
+            drops.append(sum(r.dropped for r in recs["kernel"]))
+            if parted is not None:
+                continue
+            hold = hold_routing(recs["kernel"], recs["plain"], LM_TOL)
+            toks = {k: [r.out_tokens for r in rs] for k, rs in reqs.items()}
+            if hold.parted is None and toks["kernel"] == toks["plain"]:
+                continue
+            parted = f"decode step {step}"
+            if hold.parted is not None:
+                f = hold.flips[0] if hold.flips else None
+                parted += (f": the decode routing parts in MoE layer "
+                           f"{hold.parted}" + (
+                               "" if f is None else
+                               f", slot {f.token} rank {f.rank} expert "
+                               f"{f.kernel} / {f.plain}, plain logit gap "
+                               f"{f.gap:.3e} (near-tie below {f.limit:.3e})"))
+                continue
+            for b, (a, q) in enumerate(zip(toks["kernel"], toks["plain"])):
+                if a == q:
+                    continue
+                t = next(j for j, (x, y) in enumerate(zip(a, q)) if x != y)
+                if t == 0:
+                    # a first token: held with its prefill above
+                    parted += f"; request {b}'s first token"
+                    continue
+                row = log.last[slot_of[reqs["plain"][b].rid]]
+                top = row.topk(2).values
+                margin = float(top[0] - top[1])
+                lim = LM_TOL * float(row.abs().max())
+                parted += (f"; request {b} at token {t}, the plain route's "
+                           f"top-2 logit margin {margin:.3e} (tol {lim:.3e})")
+                if margin >= lim:
+                    raise AssertionError(f"[{tag}] request {b}: streams part "
+                                         f"at token {t} past a tie")
+    if [r.out_tokens for r in reqs["kernel"]] != [r.out_tokens
+                                                  for r in served]:
+        raise AssertionError(f"[{tag}] a fresh kernel-route engine's token "
+                             f"streams differ from the served ones")
+    equal = sum(a.out_tokens == b.out_tokens
+                for a, b in zip(reqs["kernel"], reqs["plain"]))
+    print(f"[{tag}] token streams of the two routes, in lockstep: {equal} of "
+          f"{LM_REQUESTS} equal; "
+          + (f"the routes part at {parted}" if parted else
+             f"every decode step of {step} routes alike"))
+    print(f"[{tag}] dropped (token, k) pairs per decode step (kernel route, "
+          f"capacity {capacity(LM_SLOTS, cfg)}): {drops}")
+    del kern
 
 
 def autotune_phase(torch, repro_torch, library) -> None:
@@ -1928,6 +2163,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    sheet_phase(torch)
 
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1966,19 +2202,26 @@ def main() -> int:
     t1 = time.perf_counter()
     fuzzed = fuzz_phase(torch, library)
     t2 = time.perf_counter()
-    lm = lm_serve_phase(torch, library)
-    # the model is released: phase 4 starts with the card's memory free
-    gc.collect()
-    torch.cuda.empty_cache()
+    lm, lm_s = {}, {}
+    for arch, tag in LM_PATHS:
+        t3 = time.perf_counter()
+        lm[tag] = lm_serve_phase(torch, library, arch, tag)
+        # the model is released: the next LM path, then phase 4, start
+        # with the card's memory free
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_s[tag] = time.perf_counter() - t3
     print(f"served path {t1 - t0:.1f} s, fuzz path {t2 - t1:.1f} s, LM "
-          f"serving path {time.perf_counter() - t2:.1f} s; device memory "
-          f"held after it {torch.cuda.memory_allocated()} bytes")
+          f"serving paths " + ", ".join(f"{k} {v:.1f} s"
+                                        for k, v in lm_s.items())
+          + f"; device memory held after them "
+          f"{torch.cuda.memory_allocated()} bytes")
     # launches and launch shapes per frame (staged), per stream
     # (pipelined), per flush (served) or over the phase (fuzz)
     counts = {n: r[-2] for n, r in (runs | streams).items()}
     shapes = {n: r[-1] for n, r in (runs | streams).items()}
     for name, (c, sh) in (("yolo-served", served), ("fuzz", fuzzed),
-                          ("lm-serve", lm)):
+                          *lm.items()):
         counts[name], shapes[name] = c, sh
 
     # -- 4. kernels against their plain versions --------------------------------

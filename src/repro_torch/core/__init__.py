@@ -8,8 +8,8 @@ PyTorch port keeps its own copy so that it searches exactly the plans the
 reference package does without importing it.
 """
 from .graph import Edge, Graph, Vertex, WEIGHTY
-from .resources import (ALL_DEVICES, Device, get_device, U200, VCU118,
-                        VCU1525, ZCU102)
+from .resources import (ALL_DEVICES, Device, get_device, H100_KERNEL,
+                        H100_RUNTIME, U200, VCU118, VCU1525, ZCU102)
 from .pipeline import (initiation_interval, initiation_rate, interval_prev,
                        pipeline_depth, vertex_delays)
 from .eviction import (apply_eviction, candidate_evictions, evaluate_eviction,

@@ -1,11 +1,22 @@
-"""Resource models: the paper's FPGA devices.
+"""Resource models: the paper's FPGA devices and the port's H100.
 
 SMOF's constraints (Eq. 7) are expressed against a device budget of
-compute units, on-chip memory bits, and off-chip bandwidth.  The instances
-are the four AMD FPGA devices used in the paper's evaluation (§V), with
-DSP / BRAM18K / URAM / LUT / DDR-bandwidth budgets.  They are the DSE's
-target sheets; where the tensors of a lowered plan live is a separate
-choice (``CompileSpec.torch_device``).
+compute units, on-chip memory bits, and off-chip bandwidth.  Two families
+of instances:
+
+* the four AMD FPGA devices used in the paper's evaluation (§V), with
+  DSP / BRAM18K / URAM / LUT / DDR-bandwidth budgets (``ALL_DEVICES``):
+  the sheets the CNN paths plan on;
+* the NVIDIA H100 the port runs on, in two views, the counterparts of the
+  reference package's accelerator pair:
+    - ``H100_KERNEL``:  on-chip = shared memory, off-chip = HBM  (kernel
+      level);
+    - ``H100_RUNTIME``: on-chip = HBM, off-chip = host memory over the
+      host link (staged-executor / offload level), the sheet
+      ``core.lm_graph``'s layer graphs are planned on.
+
+Where the tensors of a lowered plan live is a separate choice
+(``CompileSpec.torch_device``).
 """
 from __future__ import annotations
 
@@ -19,14 +30,18 @@ URAM_BITS = 288 * 1024
 class Device:
     """A SMOF-visible resource budget.
 
-    compute_units:   MACs/cycle available (DSPs on FPGA).
-    onchip_bits:     total "on-chip" storage in bits (BRAM+URAM).
-    offchip_gbps:    usable "off-chip" bandwidth, Gbit/s (DDR / HBM / PCIe).
+    compute_units:   MACs/cycle available (DSPs on FPGA; the f32 peak over
+                     2 f on the H100).
+    onchip_bits:     total "on-chip" storage in bits (BRAM+URAM / shared
+                     memory / HBM).
+    offchip_gbps:    usable "off-chip" bandwidth, Gbit/s (DDR / HBM / host
+                     link).
     luts:            logic budget; codecs charge against it (FPGA only —
-                     TPU views set it to 0 and codec cost becomes compute).
+                     the H100 views set it to 0 and codec cost becomes
+                     compute).
     freq_mhz:        pipeline clock.
     reconfig_s:      full-device reconfiguration time ``t_r`` (bitstream load
-                     on FPGA; stage weight-swap estimate on TPU).
+                     on FPGA; stage weight-swap estimate on the H100).
     """
     name: str
     compute_units: float
@@ -74,6 +89,45 @@ VCU118 = _fpga("vcu118", dsp=6840, bram18k=4320, uram=960, luts=1_182_000,
 FPGA_DEVICES = {d.name: d for d in (ZCU102, U200, VCU1525, VCU118)}
 
 
+# -- NVIDIA H100 (the port's card) ---------------------------------------------
+# Every constant is one card's, NVIDIA H100 80GB HBM3 at its 700.00 W power
+# limit (nvidia-smi --query-gpu=name,power.limit): the data sheet's (SXM
+# part, dense rates) where it says so, else read on that card by
+# chip_smoke.py's phase 1, which prints each beside what the card reports
+# and fails where a sheet claims more than the card has.
+H100_SMS = 132                     # streaming multiprocessors (data sheet)
+# programmer-managed shared memory a multiprocessor, the kernel view's
+# on-chip store; the 50 MB L2 is a cache and is not counted (data sheet)
+H100_SMEM_PER_SM_BYTES = 228 * 1024
+H100_HBM_BYTES = 85_017_493_504   # total_memory of the card (torch)
+H100_HBM_GBPS = 3.35e12 * 8 / 1e9  # HBM3, 3.35 TB/s (data sheet)
+# the host link: a 256 MiB pinned copy timed with CUDA events read 387.49
+# Gbit/s host -> device and 438.13 device -> host (chip_smoke.py phase 1);
+# the slower direction, rounded down
+H100_HOST_LINK_GBPS = 387.0
+H100_PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores (data sheet)
+H100_FREQ_MHZ = 1980.0             # nvidia-smi clocks.max.sm
+# MACs/cycle at the f32 peak, peak / (2 f): the port computes in f32 with
+# TF32 off on its parity path
+_H100_MACS_PER_CYCLE = H100_PEAK_F32_FLOPS / (2 * H100_FREQ_MHZ * 1e6)
+
+H100_KERNEL = Device(
+    name="h100_kernel", compute_units=_H100_MACS_PER_CYCLE,
+    onchip_bits=H100_SMS * H100_SMEM_PER_SM_BYTES * 8.0,
+    offchip_gbps=H100_HBM_GBPS, luts=0.0, freq_mhz=H100_FREQ_MHZ,
+    reconfig_s=0.0,
+)
+H100_RUNTIME = Device(
+    name="h100_runtime", compute_units=_H100_MACS_PER_CYCLE,
+    onchip_bits=H100_HBM_BYTES * 8.0, offchip_gbps=H100_HOST_LINK_GBPS,
+    luts=0.0, freq_mhz=H100_FREQ_MHZ,
+    # a stage's weight swap over the host link: the reference's 10 ms
+    # budget for its own sheet, kept (a budget, not measured on the card)
+    reconfig_s=0.010,
+)
+
+# the sheets a name selects (CompileSpec.device): the FPGA devices only;
+# the H100 views are passed as Device instances
 ALL_DEVICES = dict(FPGA_DEVICES)
 
 

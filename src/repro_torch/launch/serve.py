@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.serve --arch yi-6b --requests 8
     python -m repro_torch.launch.serve --arch yi-6b --no-smoke   # full width
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --no-smoke
 
 The reference CLI's flags and printout, plus ``--device`` (default
 ``cuda``).  ``--smoke`` (the default) runs the config's reduced form;

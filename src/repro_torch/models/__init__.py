@@ -1,6 +1,6 @@
-"""The LM stack on PyTorch: configs and the dense GQA transformer of the
-reference package's ``models/`` (prefill with the ``flash_attention``
-kernel, KV-cache decode)."""
+"""The LM stack on PyTorch: configs and the GQA transformer of the
+reference package's ``models/``, its FFN dense or a mixture of experts
+(prefill with the ``flash_attention`` kernel, KV-cache decode)."""
 from .config import ArchConfig, MoECfg
 from .model import (decode_step, forward, init_cache, init_params,
                     param_count, param_shapes, params_from_numpy,

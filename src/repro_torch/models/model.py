@@ -11,8 +11,10 @@ reference's layout too, ``{"pos_j": {"k", "v"}}`` of shape ``(n_groups, B,
 s_max, KH, D)``, so its pages compare 1:1.  The reference scans over the
 groups; here a Python loop runs them in the same order.
 
-Only attention layers with a dense FFN run in this port yet: mamba, mLSTM,
-sLSTM, mixture-of-experts, encoder-decoder (whisper) and M-RoPE raise
+Attention layers with a dense FFN or a mixture of experts run in this
+port (the dense families, olmoe, grok-1); ``forward`` returns the experts'
+load-balancing loss summed over layers, as the reference does.  Mamba,
+mLSTM, sLSTM, encoder-decoder (whisper) and M-RoPE raise
 ``NotImplementedError`` (ROADMAP.md, Queue 1, item 11).  The training loss
 (``lm_loss``) comes with the training path.
 """
@@ -35,8 +37,6 @@ def _check_supported(cfg: ArchConfig) -> None:
     if kinds != {"attn"}:
         raise NotImplementedError(
             f"{cfg.name}: mixers {sorted(kinds - {'attn'})} {_LATER}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: mixture of experts {_LATER}")
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder {_LATER}")
 
@@ -64,7 +64,12 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
         if cfg.d_ff > 0:
             lp["norm2"] = norm_params(cfg.norm, cfg.d_model, dtype, dev,
                                       lead)
-            lp["ffn"] = M.dense_ffn_params(gen, cfg, dtype, lead)
+            # position j of every group is layer g * group_size + j, and
+            # group_size is a multiple of the MoE cadence
+            if cfg.layer_is_moe(j):
+                lp["moe"] = M.moe_params(gen, cfg, dtype, lead)
+            else:
+                lp["ffn"] = M.dense_ffn_params(gen, cfg, dtype, lead)
         groups[f"pos_{j}"] = lp
     p["groups"] = groups
     p["final_norm"] = norm_params(cfg.norm, cfg.d_model, dtype, dev)
@@ -94,15 +99,25 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     if cfg.norm == "layernorm":
         layer["norm1/b"] = (d,)
     if cfg.d_ff > 0:
-        layer |= {"norm2/w": (d,), "ffn/w_up": (d, cfg.d_ff),
-                  "ffn/w_down": (cfg.d_ff, d)}
+        layer["norm2/w"] = (d,)
         if cfg.norm == "layernorm":
             layer["norm2/b"] = (d,)
-        if cfg.act in ("swiglu", "geglu"):
-            layer["ffn/w_gate"] = (d, cfg.d_ff)
+    gated = cfg.act in ("swiglu", "geglu")
+    ffn = {"ffn/w_up": (d, cfg.d_ff), "ffn/w_down": (cfg.d_ff, d)}
+    if gated:
+        ffn["ffn/w_gate"] = (d, cfg.d_ff)
+    moe = {}
+    if cfg.moe is not None:
+        E = cfg.moe.n_experts
+        moe = {"moe/router": (d, E), "moe/w_up": (E, d, cfg.d_ff),
+               "moe/w_down": (E, cfg.d_ff, d)}
+        if gated:
+            moe["moe/w_gate"] = (E, d, cfg.d_ff)
     out = {"embed": (cfg.vocab, d)}
     for j in range(cfg.group_size):
-        out |= {f"groups/pos_{j}/{k}": (ng,) + s for k, s in layer.items()}
+        leaves = layer | ((moe if cfg.layer_is_moe(j) else ffn)
+                          if cfg.d_ff > 0 else {})
+        out |= {f"groups/pos_{j}/{k}": (ng,) + s for k, s in leaves.items()}
     out["final_norm/w"] = (d,)
     if cfg.norm == "layernorm":
         out["final_norm/b"] = (d,)
@@ -112,7 +127,7 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig,
-                      device: str | torch.device = "cpu") -> Params:
+                      device: str | torch.device = "cuda") -> Params:
     """The reference's ``init_params`` tree, as nested dicts of numpy
     arrays, as the port's parameters: f32 tensors on ``device`` in the same
     layout.  Every leaf :func:`param_shapes` names must be there with its
@@ -149,12 +164,14 @@ def _apply_layer(lp: dict, x: torch.Tensor, cfg: ArchConfig, layer_idx: int,
                  *, pos: torch.Tensor, cache: dict | None = None, mode: str,
                  use_kernels: bool = True):
     """One transformer layer.  mode: "full" (prefill) | "decode".  Returns
-    (x, new_cache)."""
+    (x, new_cache, aux): aux is the MoE load-balancing loss, None for a
+    dense layer."""
     kind = cfg.layer_kind(layer_idx)
     if kind != "attn":
         raise NotImplementedError(f"{kind} layers {_LATER}")
-    if "cross" in lp or "moe" in lp:
-        raise NotImplementedError(f"cross-attention and MoE layers {_LATER}")
+    if "cross" in lp:
+        raise NotImplementedError(f"cross-attention layers {_LATER}")
+    aux = None
     h = apply_norm(cfg.norm, x, lp["norm1"])
     new_cache: dict = {}
     if mode == "full":
@@ -177,8 +194,12 @@ def _apply_layer(lp: dict, x: torch.Tensor, cfg: ArchConfig, layer_idx: int,
     x = x + out
     if cfg.d_ff > 0:
         h2 = apply_norm(cfg.norm, x, lp["norm2"])
-        x = x + M.apply_dense_ffn(lp["ffn"], h2, cfg)
-    return x, new_cache
+        if "moe" in lp:
+            out2, aux = M.apply_moe(lp["moe"], h2, cfg)
+        else:
+            out2 = M.apply_dense_ffn(lp["ffn"], h2, cfg)
+        x = x + out2
+    return x, new_cache, aux
 
 
 def _group(tree: dict, g: int) -> dict:
@@ -192,7 +213,7 @@ def _group(tree: dict, g: int) -> dict:
 # =============================================================================
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int,
-               dtype=torch.float32, device: str | torch.device = "cpu"
+               dtype=torch.float32, device: str | torch.device = "cuda"
                ) -> dict:
     """Stacked-over-groups cache: ``{pos_j: {"k", "v"}}``, each
     (n_groups, batch, s_max, KH, D), zeros."""
@@ -225,23 +246,25 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     if pos_offset is not None:
         pos = pos + pos_offset[:, None]
     gs = cfg.group_size
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_group = []
     for g in range(cfg.n_groups):
         gp = _group(params["groups"], g)
         gc = _group(cache, g) if cache is not None else None
         new_gc = {}
         for j in range(gs):
-            x, nc = _apply_layer(gp[f"pos_{j}"], x, cfg, j, pos=pos,
-                                 cache=gc[f"pos_{j}"] if gc else None,
-                                 mode="full", use_kernels=use_kernels)
+            x, nc, a = _apply_layer(gp[f"pos_{j}"], x, cfg, j, pos=pos,
+                                    cache=gc[f"pos_{j}"] if gc else None,
+                                    mode="full", use_kernels=use_kernels)
             new_gc[f"pos_{j}"] = nc
+            if a is not None:
+                aux = aux + a
         per_group.append(new_gc)
     x = apply_norm(cfg.norm, x, params["final_norm"])
     new_cache = None
     if cache is not None:
         new_cache = {pj: {n: torch.stack([pg[pj][n] for pg in per_group])
                           for n in ("k", "v")} for pj in cache}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, new_cache, aux
 
 
@@ -255,8 +278,8 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
         gp = _group(params["groups"], g)
         gc = _group(cache, g)
         for j in range(cfg.group_size):
-            x, _ = _apply_layer(gp[f"pos_{j}"], x, cfg, j, pos=pos,
-                                cache=gc[f"pos_{j}"], mode="decode")
+            x, _, _ = _apply_layer(gp[f"pos_{j}"], x, cfg, j, pos=pos,
+                                   cache=gc[f"pos_{j}"], mode="decode")
     x = apply_norm(cfg.norm, x, params["final_norm"])
     return project_logits(params, cfg, x[:, 0]), cache
 

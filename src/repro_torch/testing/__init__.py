@@ -15,6 +15,9 @@ oracles), after the reference package's ``repro.testing``.
     the driver — ``python -m repro_torch.testing.fuzz --budget N --seed
     S`` — which shrinks failing cases and writes replayable repro JSONs
     under ``tests/repros_torch/``.
+``routing``
+    the mixture-of-experts router's choices on the kernel and the plain
+    route of one LM: a recorder, and the near-tie rule that holds a flip.
 """
 from .gen import (FuzzCase, GenConfig, mutate_plan, random_case,
                   random_exec_graph, random_plan)

@@ -857,6 +857,52 @@ def test_engine_prefill_runs_the_kernel(gen):
         torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
+def test_moe_engine_prefill_routes_within_near_ties(gen):
+    """olmoe reduced (3 layers, capacity factor 1.25) served on the card,
+    prompts of 77, 512 and 130 tokens: one flash launch per layer, every
+    prefill held to the plain route on the same weights by the router
+    rule of chip_smoke.py (``testing.routing.hold_routing``: the routes
+    choose alike, or part at a plain-route near-tie); where they choose
+    alike, first logits and KV pages within 2e-4 x max|plain|."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.testing.routing import RoutingTape, hold_routing
+    cfg = ARCHS["olmoe-1b-7b"].reduced(n_layers=3)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+    params = init_params(gen, cfg)
+    kern = ServingEngine(cfg, params, s_max=600, device="cuda")
+    plain = ServingEngine(cfg, params, s_max=600, device="cuda",
+                          kernel_mode="reference")
+    rng = np.random.default_rng(0)
+    for n in (77, 512, 130):
+        prompt = rng.integers(0, cfg.vocab, n)
+        reset_launches()
+        with RoutingTape() as tape:
+            lk, ck = kern.run_prefill(prompt)
+            torch.cuda.synchronize()
+            assert launches()["flash_attention"] == cfg.n_layers
+            rk = tape.take()
+            lp, cp = plain.run_prefill(prompt)
+            rp = tape.take()
+        assert launches()["flash_attention"] == cfg.n_layers
+        assert len(rk) == len(rp) == cfg.n_layers
+        hold = hold_routing(rk, rp, 2e-4)
+        if hold.parted is None:
+            held = [(lk, lp)] + [(ck[pj][n], cp[pj][n]) for pj in cp
+                                 for n in ("k", "v")]
+        else:
+            # the layers up to the one whose routing parted
+            held = [(ck[pj][n][:hold.parted + 1],
+                     cp[pj][n][:hold.parted + 1])
+                    for pj in cp for n in ("k", "v")]
+        for got, want in held:
+            tol = 2e-4 * float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
 # -- the plan's tiles ----------------------------------------------------------
 
 def _tiled_calls(gen, kind):
