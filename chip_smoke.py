@@ -63,7 +63,26 @@ and prints no result line):
    router's choices of every prefill and decode step held on both routes:
    a flip (another expert or queue slot) only at a plain-route near-tie
    (``testing.routing.hold_routing``), the token streams in lockstep until
-   the routes part, the dropped (token, k) pairs printed;
+   the routes part, the dropped (token, k) pairs printed.
+   LM trained (``train_phase``, ``lm-train``): yi-6b at its published
+   widths, nothing reduced, f32 with int8 AdamW states (``quantize_states``),
+   ``remat="full"``, one microbatch of 1 x 1024 tokens of
+   ``TokenPipeline.batch_at(0)``, repeated: the loss, every leaf's gradient
+   norm and the full gradients of ``embed`` and layers 0 and 31's
+   ``wq``, ``wk``, ``wv``, ``wo`` on the kernel route held to the plain
+   route's on the same weights within TRAIN_TOL x max(1, max|plain|);
+   four optimizer steps through ``make_train_step`` inside
+   ``FaultTolerantLoop`` (a ``CheckpointStore`` in a temporary directory),
+   every loss finite and the fourth below the first, every int8 state
+   leaf still int8, the launches exactly 2 x 32 ``flash_attention_lse``
+   (step and recompute) and 32 of each backward kernel a step and no other
+   kernel; ms a step, tokens/s, peak memory, one profiled step and the
+   step's bound.  Then the same path at yi-6b's reduced size
+   (``lm-train-reduced``): every gradient leaf on the kernel route held to
+   the plain route, two microbatches accumulated in bf16 bit for bit
+   their definition, and four steps with a save after step 2 and a
+   restore into a fresh loop, steps 3-4 bit for bit the uninterrupted
+   run's (raw checkpoints) or within the BFP8 bound (BFP8 ones);
 4. hold each kernel against its plain PyTorch version on the card, at every
    shape a path launched it with in phase 3 plus ragged shapes (c = 3, 24,
    40 for the codec variants, payloads with random padding bytes) and the
@@ -77,7 +96,10 @@ and prints no result line):
    payload, no padded copy) against its bound; dwconv over 9 and 11 taps
    (more than its window kernel is built for);
    flash_attention at the LM path's shapes and at ragged S with head widths
-   16-128, causal and not; every tile
+   16-128, causal and not; its lse instance and the two backward kernels
+   at the train paths' shapes and at the same ragged shapes, within
+   TRAIN_TOL x max(1, max|plain|) of their plain versions (the lse too)
+   and a second launch bit for bit the first; every tile
    choice of every tiled kernel bit for bit its untiled launch; and time
    kernel, plain version and one PyTorch call as a yardstick (CUDA events,
    L2 flushed before every launch, median of REPS launches).  Besides the
@@ -132,7 +154,8 @@ PEAK_HBM_BYTES_S = 3.35e12
 # into two TF32 terms (csrc/tf32x3.cuh) issue three products per product
 PEAK_TF32_FLOPS = 495e12
 TF32X3_KERNELS = ("streamed_matmul", "flash_attention", "conv2d",
-                  "conv2d_encode", "conv2d_decode", "conv2d_decode_encode")
+                  "conv2d_encode", "conv2d_decode", "conv2d_decode_encode",
+                  "flash_attention_lse")
 
 FRAMES = 3
 REPS = 20
@@ -284,6 +307,29 @@ LM_TOL = 2e-4              # of max |plain|
 LM_BFP8_REL = 0.05
 FLASH_TOL = 2e-4           # rtol = atol, the reference's for its kernel
 
+# the LM training path: yi-6b at its published widths, f32, int8 AdamW
+# states, remat "full", one microbatch of 1 x 1024 tokens (the batch of
+# TokenPipeline(DataConfig(vocab=64000, seq_len=1024, global_batch=1)) at
+# step 0, repeated), 4 optimizer steps; then its reduced form, 2 x 128
+# tokens in two microbatches.  The schedule is the train launcher's
+# (AdamWConfig(lr=3e-4, total_steps=4, quantize_states=True): 100 warmup
+# steps).  With one warmup step the first step raises yi-6b's loss on both
+# attention routes and the fourth stays above the first
+# (examples/torch_train_schedules.py, PERF.md)
+TRAIN_ARCH = "yi-6b"
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 4
+TRAIN_OPT = dict(lr=3e-4, total_steps=4, quantize_states=True)
+TRAIN_KEEP = ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo")
+TRAIN_REDUCED = dict(seq_len=128, global_batch=2, microbatches=2)
+# kernel route vs plain route, a gradient, a norm or the loss: of
+# max(1, max|plain|), the port's vertex tolerance (f32 sums in another
+# order through 32 layers and their recompute)
+TRAIN_TOL = 2e-4
+# a BFP8 checkpoint round trip, of max|w| (the reference's
+# test_bfp8_roundtrip_close)
+TRAIN_BFP8_REL = 0.02
+
 TPU_SRC = {
     "streamed_matmul": "src/repro/kernels/streamed_matmul.py:31",
     "act_relu": "src/repro/kernels/streaming_conv.py:409",
@@ -305,6 +351,10 @@ TPU_SRC = {
     "act_relu_decode_encode": "src/repro/kernels/streaming_conv.py:426",
     "act_relu_decode": "src/repro/kernels/streaming_conv.py:413",
     "flash_attention": "src/repro/kernels/flash_attention.py:24",
+    "flash_attention_lse": "src/repro/kernels/flash_attention.py:24",
+    # no Pallas counterpart: the gradient XLA takes of chunked_attention
+    "flash_attention_bwd_dq": "src/repro/models/attention.py:68",
+    "flash_attention_bwd_dkdv": "src/repro/models/attention.py:68",
 }
 CUDA_SRC = {
     "streamed_matmul": "src/repro_torch/csrc/streamed_matmul.cu",
@@ -327,7 +377,11 @@ CUDA_SRC = {
     "act_relu_decode_encode": "src/repro_torch/csrc/streaming_conv.cu",
     "act_relu_decode": "src/repro_torch/csrc/streaming_conv.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_lse": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkdv": "src/repro_torch/csrc/flash_attention_bwd.cu",
 }
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 
 
 def sheet_phase(torch) -> None:
@@ -443,6 +497,7 @@ def kernel_phase(torch, timer, path_shapes):
     from repro_torch.kernels.bfp8 import (bfp8_dequant, bfp8_quant,
                                           bfp8_quant_values)
     from repro_torch.kernels.library import reset_launches
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.streamed_matmul import (streamed_matmul,
                                                      streamed_matmul_padded)
@@ -505,6 +560,69 @@ def kernel_phase(torch, timer, path_shapes):
         got = kern()
         close(name, got, plain(), tol, tol)
         exact(name, kern(), got)
+
+    def within_and_repeatable(name, kern, plain):
+        """Every output within TRAIN_TOL x max(1, max|plain|) of the plain
+        version's, and a second launch bit for bit the first."""
+        got = kern()
+        for g, w in zip(got, plain()):
+            err = (g.double() - w.double()).abs()
+            note_err(name, err)
+            lim = TRAIN_TOL * max(1.0, float(w.abs().max()))
+            if float(err.max()) > lim:
+                raise AssertionError(f"{name}: max abs err "
+                                     f"{float(err.max())} > {lim}")
+        for a, b in zip(kern(), got):
+            exact(name, a, b)
+
+    def train_attention(kind, B, S, H, D, causal=True):
+        """Inputs of one training-attention launch: (check, kernel, plain,
+        yardstick or None, bytes, operations).  o and lse come from the
+        plain forward; the yardstick is F.scaled_dot_product_attention
+        (f32), forward for the lse instance, its autograd backward (dq,
+        dk and dv together) for each backward kernel."""
+        q, k, v, do = (randn(B, S, H, D) for _ in range(4))
+        o, lse = chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
+                                   skip_masked=causal, return_lse=True)
+        n = B * S * H * D
+        # the forward's two products over the causal triangle (diagonal
+        # included) or the square
+        fwd = 2.0 * B * H * D * (S * (S + 1) if causal else 2 * S * S)
+        if kind == "flash_attention_lse":
+            kern = lambda: FA.flash_attention_lse(     # noqa: E731
+                q, k, v, causal=causal)
+            plain = lambda: chunked_attention(          # noqa: E731
+                q, k, v, causal=causal, chunk=min(1024, S),
+                skip_masked=causal, return_lse=True)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal)
+            return ((lambda: within_and_repeatable(kind, kern, plain)), kern,
+                    plain, lib, 4.0 * (4 * n + B * H * S), fwd)
+        if kind == "flash_attention_bwd_dq":
+            kern = lambda: FA.flash_attention_bwd_dq(  # noqa: E731
+                q, k, v, o, do, lse, causal)
+            plain = lambda: FA.flash_attention_bwd_dq_plain(  # noqa: E731
+                q, k, v, o, do, lse, causal)
+            # q, k, v, o, dO, lse in; dq, delta out; s, dP and dQ
+            nbytes, ops = 4.0 * (6 * n + 2 * B * H * S), 1.5 * fwd
+        else:
+            delta = FA.flash_attention_bwd_dq_plain(q, k, v, o, do, lse,
+                                                    causal)[1]
+            kern = lambda: FA.flash_attention_bwd_dkdv(  # noqa: E731
+                q, k, v, do, lse, delta, causal)
+            plain = lambda: FA.flash_attention_bwd_dkdv_plain(  # noqa: E731
+                q, k, v, do, lse, delta, causal)
+            # q, k, v, dO, lse, delta in; dk, dv out; s, dP, dV and dK
+            nbytes, ops = 4.0 * (6 * n + 2 * B * H * S), 2.0 * fwd
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+        lib = lambda: torch.autograd.grad(     # noqa: E731
+            ot, (qt, kt, vt), dot, retain_graph=True)
+        return ((lambda: within_and_repeatable(kind, kern, plain)), kern,
+                plain, lib, nbytes, ops)
 
     def pool_close(name, got, x, m_out):
         """The global pool: within POOL_TOL * mean |x| of each channel of
@@ -653,6 +771,8 @@ def kernel_phase(torch, timer, path_shapes):
     def case(kind, arg_shapes):
         """Inputs at one launch's shapes: (check, kernel, plain, yardstick
         or None, bytes moved, operations)."""
+        if kind == "flash_attention_lse" or kind in BWD_KERNELS:
+            return train_attention(kind, *arg_shapes[0])
         if kind.endswith("_encode") or "_decode" in kind:
             return codec_case(kind, arg_shapes)
         if kind == "flash_attention":
@@ -859,6 +979,9 @@ def kernel_phase(torch, timer, path_shapes):
                   chunked_attention(q, k, v, causal=causal,
                                     chunk=min(1024, S), skip_masked=causal),
                   FLASH_TOL, FLASH_TOL)
+            # the training instances at the same shapes
+            for kind in ("flash_attention_lse", *BWD_KERNELS):
+                train_attention(kind, B, S, H, D, causal)[0]()
     tile_checks(torch, SC, randn, exact)
     specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -1.0],
                             device="cuda")
@@ -1153,8 +1276,12 @@ def run_path(torch, repro_torch, library, path: Path):
 
 
 def bit_equal(torch, a, b) -> bool:
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    """Same shape, type and bits (NaNs and the sign of zero included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return torch.equal(a.view(bits[a.element_size()]),
+                       b.view(bits[b.element_size()]))
 
 
 def run_stream_path(torch, repro_torch, library, path: StreamPath):
@@ -1706,6 +1833,270 @@ def lm_serve_phase(torch, library, arch: str, tag: str):
     return counts, shapes
 
 
+def train_phase(torch, library):
+    """The LM training path: yi-6b at its published widths on the card
+    (``lm-train``), then at its reduced size (``lm-train-reduced``).
+    Returns {tag: (launches, launch shapes)} of each path's four-step run
+    (counted from 0 around it)."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import init_params, param_count
+    from repro_torch.models.model import _leaves
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime.fault import FaultConfig, FaultTolerantLoop
+    from repro_torch.runtime.steps import (accumulate_grads, loss_and_grads,
+                                           make_train_step)
+    cfg = ARCHS[TRAIN_ARCH]
+    on = card()
+    tag = "lm-train"
+    t_phase = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
+                         cfg)
+    n_params = param_count(params)
+    batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                     global_batch=1)).batch_at(0)
+    toks, labs = (torch.from_numpy(batch[k]).cuda()
+                  for k in ("tokens", "labels"))
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params} f32 "
+          f"parameters; one microbatch of 1 x {TRAIN_SEQ} tokens, remat "
+          f"full, AdamW {TRAIN_OPT}")
+
+    # -- the kernel route against the plain route, one gradient ----------------
+    def kept(use_kernels):
+        """(loss, {leaf: gradient norm}, {name: full gradient}) of one
+        backward on the route; the rest of the gradients is dropped."""
+        loss, grads = loss_and_grads(params, cfg, toks, labs, remat="full",
+                                     use_kernels=use_kernels)
+        norms, full = {}, {}
+        for name, g in _leaves(grads):
+            norms[name] = float(torch.linalg.vector_norm(g))
+            if name == "embed":
+                full[name] = g
+            for leaf in TRAIN_KEEP:
+                if name.endswith(leaf):
+                    for layer in (0, cfg.n_layers - 1):
+                        full[f"{name}[{layer}]"] = g[layer].clone()
+        del grads
+        return float(loss), norms, full
+
+    def held(what, got, want):
+        """|got - want| within TRAIN_TOL x max(1, max|want|); the error's
+        fraction of that bound."""
+        if isinstance(want, float):
+            err, scale = abs(got - want), abs(want)
+        else:
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+        lim = TRAIN_TOL * max(1.0, scale)
+        if not err <= lim:
+            raise AssertionError(f"[{tag}] {what}: kernel route vs plain "
+                                 f"route {err:.3e} > {lim:.3e}")
+        return err / lim
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lk, nk, fk = kept(True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lp, np_, fp = kept(False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    worst = [held("loss", lk, lp)]
+    worst += [held(f"norm of {n}", nk[n], np_[n]) for n in np_]
+    worst += [held(n, fk[n], fp[n]) for n in fp]
+    print(f"[{tag}] kernel vs plain route on one backward from the same "
+          f"weights: loss {lk:.6f} vs {lp:.6f}, {len(np_)} gradient norms "
+          f"and {len(fp)} full gradients ({', '.join(fp)}) within "
+          f"{TRAIN_TOL} x max(1, max|plain|), the worst at "
+          f"{max(worst):.3f} of it; backward {t1 - t0:.3f} s kernel route, "
+          f"{t2 - t1:.3f} s plain route (host clock, the first of each)")
+    del fk, fp
+
+    # -- four optimizer steps in the fault-tolerant loop ------------------------
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    opt = init_opt_state(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, remat="full", device="cuda")
+    losses = []
+
+    def run_step(state, b):
+        p, o = state
+        p, o, metrics = step(p, o, b)
+        losses.append(float(metrics["loss"]))     # synchronises
+        return (p, o)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = FaultTolerantLoop(run_step, CheckpointStore(tmp),
+                                 FaultConfig(checkpoint_every=50))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        library.reset_launches()
+        state = loop.run((params, opt), lambda s: batch, start_step=0,
+                         num_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        counts, shapes = library.launches(), library.launch_shapes()
+        peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    expected = dict.fromkeys(library.SIGNATURES, 0) | {
+        "flash_attention_lse": 2 * L * TRAIN_STEPS,
+        "flash_attention_bwd_dq": L * TRAIN_STEPS,
+        "flash_attention_bwd_dkdv": L * TRAIN_STEPS}
+    if counts != expected:
+        raise AssertionError(f"[{tag}] launches {counts}, expected "
+                             f"{expected}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] losses {losses}: not finite, or the "
+                             f"last not below the first")
+    for name, t in _leaves(state[1]):
+        if name.endswith("/q") and t.dtype != torch.int8:
+            raise AssertionError(f"[{tag}] state {name} is {t.dtype}")
+    walls = [r.wall_s for r in loop.records]
+    step_s = statistics.median(walls[1:])
+    # the step's f32 operations: every matrix product forward, again in
+    # the recompute (remat "full": each layer group and each loss chunk),
+    # and twice in the backward; attention's two products forward, twice
+    # (step and recompute), and its backward's five
+    mm = n_params - cfg.vocab * cfg.d_model          # all but the lookup
+    attn = 2.0 * L * cfg.n_heads * cfg.hd * TRAIN_SEQ * (TRAIN_SEQ + 1)
+    ops = 8.0 * mm * TRAIN_SEQ + (2 + 2.5) * attn
+    b_s = ops / PEAK_F32_FLOPS
+    print(f"[{tag}] {TRAIN_STEPS} steps in FaultTolerantLoop, losses "
+          f"{[round(x, 6) for x in losses]} (the last below the first), "
+          f"events {[e['kind'] for e in loop.events]}; {step_s * 1e3:.3f} "
+          f"ms a step (host clock to the loss, median of steps 2-"
+          f"{TRAIN_STEPS}: {[round(w * 1e3, 3) for w in walls]}), "
+          f"{TRAIN_SEQ / step_s:.1f} tokens/s; bound {b_s * 1e3:.3f} ms "
+          f"({ops:.4e} f32 operations at 67 TFLOP/s), "
+          f"{b_s / step_s:.3f} of it; peak device memory {peak} bytes; "
+          f"launches {({k: n for k, n in counts.items() if n})}; {on}")
+    profile_device(torch, f"[{tag}] profile of one step",
+                   lambda: run_step(state, batch), step_s * 1e3)
+    del state, opt, params, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {tag: (counts, shapes)}
+    print(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+
+    # -- the reduced size: every leaf, bf16 accumulation, a resume --------------
+    tag = "lm-train-reduced"
+    cfg = ARCHS[TRAIN_ARCH].reduced()
+    R = TRAIN_REDUCED
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=R["seq_len"],
+                                    global_batch=R["global_batch"]))
+
+    def fresh():
+        p = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
+                        cfg)
+        return (p, init_opt_state(p, opt_cfg))
+    params = fresh()[0]
+    b0 = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+    lk, gk = loss_and_grads(params, cfg, b0["tokens"], b0["labels"])
+    lp, gp = loss_and_grads(params, cfg, b0["tokens"], b0["labels"],
+                            use_kernels=False)
+    worst = [held("loss", float(lk), float(lp))]
+    worst += [held(n, g, w) for (n, g), (_, w) in zip(_leaves(gk),
+                                                      _leaves(gp))]
+    print(f"[{tag}] {cfg.name}: every gradient leaf ({len(worst) - 1}) and "
+          f"the loss on the kernel route within {TRAIN_TOL} x max(1, "
+          f"max|plain|) of the plain route, the worst at {max(worst):.3f} "
+          f"of it")
+    # two microbatches accumulated in bf16: bit for bit (0 + g1) + g2, / 2
+    mbs = R["microbatches"]
+    _, acc = accumulate_grads(params, cfg, b0, mbs, torch.bfloat16)
+    rows = R["global_batch"] // mbs
+    want = {n: torch.zeros(t.shape, dtype=torch.bfloat16, device="cuda")
+            for n, t in _leaves(params)}
+    for i in range(mbs):
+        sl = slice(i * rows, (i + 1) * rows)
+        _, g = loss_and_grads(params, cfg, b0["tokens"][sl],
+                              b0["labels"][sl])
+        for n, t in _leaves(g):
+            want[n] += t.to(torch.bfloat16)
+    for n, t in _leaves(acc):
+        if not bit_equal(torch, t, want[n] / mbs):
+            raise AssertionError(f"[{tag}] bf16 accumulation of {n} is not "
+                                 f"(0 + g1) + g2, / {mbs}, bit for bit")
+    print(f"[{tag}] {mbs} microbatches accumulated in bf16: every leaf bit "
+          f"for bit its definition")
+
+    step = make_train_step(cfg, opt_cfg, microbatches=mbs, device="cuda")
+
+    def run(state, b):
+        p, o = state
+        p, o, _ = step(p, o, b)
+        return (p, o)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = FaultTolerantLoop(run, CheckpointStore(f"{tmp}/whole"),
+                                 FaultConfig(checkpoint_every=50))
+        library.reset_launches()
+        whole = loop.run(fresh(), data.batch_at, start_step=0,
+                         num_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        counts, shapes = library.launches(), library.launch_shapes()
+        L = cfg.n_layers
+        expected = dict.fromkeys(library.SIGNATURES, 0) | {
+            "flash_attention_lse": 2 * L * mbs * TRAIN_STEPS,
+            "flash_attention_bwd_dq": L * mbs * TRAIN_STEPS,
+            "flash_attention_bwd_dkdv": L * mbs * TRAIN_STEPS}
+        if counts != expected:
+            raise AssertionError(f"[{tag}] launches {counts}, expected "
+                                 f"{expected}")
+        for bfp8 in (False, True):
+            store = CheckpointStore(f"{tmp}/bfp8-{bfp8}", bfp8=bfp8)
+            saved = FaultTolerantLoop(run, store,
+                                      FaultConfig(checkpoint_every=2)).run(
+                fresh(), data.batch_at, start_step=0, num_steps=2)
+            again = FaultTolerantLoop(run, store,
+                                      FaultConfig(checkpoint_every=50))
+            state, start = again.try_restore(fresh())
+            if start != 2:
+                raise AssertionError(f"[{tag}] resumed at {start}, not 2")
+            # the round trip: raw bit for bit; BFP8 every float leaf within
+            # TRAIN_BFP8_REL of its max, the int8 mantissas and the step
+            # exact
+            worst = 0.0
+            for (n, a), (_, b) in zip(_leaves({"p": saved[0],
+                                               "o": saved[1]}),
+                                      _leaves({"p": state[0],
+                                               "o": state[1]})):
+                if bfp8 and a.is_floating_point():
+                    rel = float((a - b).abs().max()) / max(
+                        float(a.abs().max()), 1e-30)
+                    worst = max(worst, rel)
+                    if not (b.dtype == a.dtype and rel < TRAIN_BFP8_REL):
+                        raise AssertionError(f"[{tag}] BFP8 restore of {n} "
+                                             f"off by {rel} of its max")
+                elif not bit_equal(torch, a, b):
+                    raise AssertionError(f"[{tag}] restore of {n} is not "
+                                         f"bit for bit")
+            resumed = again.run(state, data.batch_at, start_step=2,
+                                num_steps=TRAIN_STEPS - 2)
+            n_bad = 0
+            for (n, a), (_, b) in zip(_leaves({"p": whole[0], "o": whole[1]}),
+                                      _leaves({"p": resumed[0],
+                                               "o": resumed[1]})):
+                if not bfp8 and not bit_equal(torch, a, b):
+                    raise AssertionError(f"[{tag}] resumed {n} is not bit "
+                                         f"for bit the uninterrupted run")
+                if a.is_floating_point() and not bool(b.isfinite().all()):
+                    raise AssertionError(f"[{tag}] resumed {n} not finite")
+                n_bad += not bit_equal(torch, a, b)
+            print(f"[{tag}] save after step 2, restore into a fresh loop, "
+                  f"steps 3-4: " + (
+                      f"the BFP8 restore within {worst:.4f} of each float "
+                      f"leaf's max (bound {TRAIN_BFP8_REL}), int8 and step "
+                      f"exact; after steps 3-4 {n_bad} leaves differ from "
+                      f"the uninterrupted run, all finite" if bfp8 else
+                      "restore and steps 3-4 bit for bit the uninterrupted "
+                      "run (raw checkpoint), states included"))
+    out[tag] = (counts, shapes)
+    return out
+
+
 class LastLogits:
     """An engine's sampler (argmax) that keeps the logits of its last call:
     within one ``step`` the decode's (B, vocab) come last."""
@@ -2185,6 +2576,7 @@ def main() -> int:
         # dwconv families their sums and tap windows, the codec its blocks:
         # no spills
         if (source in ("streamed_matmul.cu", "flash_attention.cu",
+                       "flash_attention_bwd.cu",
                        "conv2d.cu", "conv2d_decode.cu", "streaming_conv.cu",
                        "dwconv.cu", "bfp8.cu")
                 and "spill" in line
@@ -2211,17 +2603,21 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lm_s[tag] = time.perf_counter() - t3
+    t3 = time.perf_counter()
+    trained = train_phase(torch, library)
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"served path {t1 - t0:.1f} s, fuzz path {t2 - t1:.1f} s, LM "
           f"serving paths " + ", ".join(f"{k} {v:.1f} s"
                                         for k, v in lm_s.items())
-          + f"; device memory held after them "
-          f"{torch.cuda.memory_allocated()} bytes")
+          + f", LM training paths {time.perf_counter() - t3:.1f} s; device "
+          f"memory held after them {torch.cuda.memory_allocated()} bytes")
     # launches and launch shapes per frame (staged), per stream
     # (pipelined), per flush (served) or over the phase (fuzz)
     counts = {n: r[-2] for n, r in (runs | streams).items()}
     shapes = {n: r[-1] for n, r in (runs | streams).items()}
     for name, (c, sh) in (("yolo-served", served), ("fuzz", fuzzed),
-                          *lm.items()):
+                          *lm.items(), *trained.items()):
         counts[name], shapes[name] = c, sh
 
     # -- 4. kernels against their plain versions --------------------------------
@@ -2238,6 +2634,9 @@ def main() -> int:
         elif name == "flash_attention":
             tol = (f"rtol = atol = {FLASH_TOL} vs plain; two launches "
                    f"bit-exact")
+        elif name == "flash_attention_lse" or name in BWD_KERNELS:
+            tol = (f"{TRAIN_TOL} x max(1, max|plain|) vs plain, every "
+                   f"output; two launches bit-exact")
         elif name.startswith("conv2d"):
             tol = (f"bit-exact vs the conv2d kernel on the decode kernel's "
                    f"output and the codec, {MATMUL_TOL} vs plain; two "

@@ -40,6 +40,13 @@
 // 111,616 bytes, so two blocks fit an SM.  Blocks of 4 warps (BQ = 64 query
 // rows); the heaviest causal q blocks are issued first.  The exponentials are
 // full expf (no fast math).
+//
+// The training forward (flash_attention_lse) is the same kernel instantiated
+// with the compile-time flag LSE: it also writes each row's log-sum-exp of
+// the scaled scores, lse = m + log(max(l, 1e-30)) as (B, H, S) f32, which the
+// backward kernels (flash_attention_bwd.cu) recompute the probabilities
+// from.  The store sits after the tile loop, so the serving instance (LSE
+// false) keeps its code, registers and times.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -66,12 +73,13 @@ struct Layout {
       (Q + 2 * K + 2 * V + WARPS * P) * sizeof(float);
 };
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int64_t S, int64_t H, int causal, float scale) {
+                       float* __restrict__ lse, int64_t S, int64_t H,
+                       int causal, float scale) {
   using L = Layout<D>;
   constexpr int NF = D / 8;  // k8 steps of q k^T, n fragments of o
   extern __shared__ __align__(16) float smem[];
@@ -299,6 +307,10 @@ flash_attention_kernel(const float* __restrict__ q,
     const int64_t qp = qw + g + 8 * r;
     if (qp >= S) continue;
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    if constexpr (LSE) {
+      // the 4 lanes of a row hold the same m and l after the shuffles
+      if (t == 0) lse[bh * S + qp] = m[r] + logf(fmaxf(l[r], 1e-30f));
+    }
     float* out = o + base + qp * row + 2 * t;
 #pragma unroll
     for (int j = 0; j < NF; ++j)
@@ -307,19 +319,40 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 int run_flash(const float* q, const float* k, const float* v, float* o,
-              int64_t B, int64_t S, int64_t H, int causal, cudaStream_t st) {
+              float* lse, int64_t B, int64_t S, int64_t H, int causal,
+              cudaStream_t st) {
   using L = Layout<D>;
   const cudaError_t err =
-      tf32x3::set_shared_memory<flash_attention_kernel<D>>((int)L::BYTES);
+      tf32x3::set_shared_memory<flash_attention_kernel<D, LSE>>(
+          (int)L::BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + L::BQ - 1) / L::BQ));
   // D^-1/2 rounded once to f32, as the reference's q * D ** -0.5
   const float scale = (float)(1.0 / std::sqrt((double)D));
-  flash_attention_kernel<D><<<grid, L::THREADS, L::BYTES, st>>>(
-      q, k, v, o, S, H, causal, scale);
+  flash_attention_kernel<D, LSE><<<grid, L::THREADS, L::BYTES, st>>>(
+      q, k, v, o, lse, S, H, causal, scale);
   return (int)cudaGetLastError();
+}
+
+template <bool LSE>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             void* lse, int64_t B, int64_t S, int64_t H, int64_t D,
+             int64_t causal, void* stream) {
+  if (B * S * H <= 0) return (int)cudaGetLastError();
+  const float *qf = (const float*)q, *kf = (const float*)k,
+              *vf = (const float*)v;
+  float *of = (float*)o, *lf = (float*)lse;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int c = causal ? 1 : 0;
+  switch (D) {
+    case 16: return run_flash<16, LSE>(qf, kf, vf, of, lf, B, S, H, c, st);
+    case 32: return run_flash<32, LSE>(qf, kf, vf, of, lf, B, S, H, c, st);
+    case 64: return run_flash<64, LSE>(qf, kf, vf, of, lf, B, S, H, c, st);
+    case 128: return run_flash<128, LSE>(qf, kf, vf, of, lf, B, S, H, c, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -330,17 +363,15 @@ extern "C" int smof_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, int64_t B,
                                     int64_t S, int64_t H, int64_t D,
                                     int64_t causal, void* stream) {
-  if (B * S * H <= 0) return (int)cudaGetLastError();
-  const float *qf = (const float*)q, *kf = (const float*)k,
-              *vf = (const float*)v;
-  float* of = (float*)o;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int c = causal ? 1 : 0;
-  switch (D) {
-    case 16: return run_flash<16>(qf, kf, vf, of, B, S, H, c, st);
-    case 32: return run_flash<32>(qf, kf, vf, of, B, S, H, c, st);
-    case 64: return run_flash<64>(qf, kf, vf, of, B, S, H, c, st);
-    case 128: return run_flash<128>(qf, kf, vf, of, B, S, H, c, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, o, nullptr, B, S, H, D, causal, stream);
+}
+
+// The same, and lse: (B, H, S) f32, each row's log-sum-exp of the scaled
+// scores.
+extern "C" int smof_flash_attention_lse(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int64_t B, int64_t S, int64_t H,
+                                        int64_t D, int64_t causal,
+                                        void* stream) {
+  return dispatch<true>(q, k, v, o, lse, B, S, H, D, causal, stream);
 }

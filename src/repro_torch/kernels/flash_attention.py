@@ -1,6 +1,6 @@
 """Flash attention, the prefill hot spot: blockwise softmax attention with
 the online-softmax recurrence (the reference package's
-``kernels/flash_attention.py``).
+``kernels/flash_attention.py``), and its gradient for training.
 
 ``q, k, v: (B, S, H, D)`` f32 with the KV heads already repeated to H;
 causal or not, scale ``D ** -0.5``, mask ``-2**30``, the softmax
@@ -10,6 +10,17 @@ skipped.  A CUDA tensor goes through the ``flash_attention`` kernel
 ``S % bq == 0``) and D in :data:`HEAD_DIMS`; a CPU tensor through the plain
 version, ``models.attention.chunked_attention`` with block skipping, the
 reference's own oracle for its kernel.
+
+Training goes through :class:`FlashAttention`, an autograd function.  Its
+forward is the same kernel instantiated to write each row's log-sum-exp
+too (``flash_attention_lse``: ``lse`` of shape (B, H, S), f32), and it
+saves ``q, k, v, o, lse``; its backward launches
+``flash_attention_bwd_dq`` (dQ and ``delta`` = rowsum(dO * O)) and then
+``flash_attention_bwd_dkdv`` (dK, dV) on the same stream
+(``csrc/flash_attention_bwd.cu``).  The reference has no backward kernel:
+XLA differentiates ``chunked_attention``.  On a CPU tensor both directions
+take the plain versions, ``chunked_attention(return_lse=True)`` and
+:func:`flash_attention_backward_plain`.
 """
 from __future__ import annotations
 
@@ -17,33 +28,202 @@ import torch
 
 from .library import check_operand, launch
 
-#: head widths the kernel is built for
+#: head widths the kernels are built for
 HEAD_DIMS = (16, 32, 64, 128)
-KERNEL_BQ = 64              # the kernel's query rows a block
+KERNEL_BQ = 64              # the kernels' query rows (and keys) a block
+NEG_INF = -2.0 ** 30        # the causal mask, the reference's
+
+
+def _check(name: str, q, k, v) -> tuple[int, int, int, int]:
+    if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
+        raise ValueError(f"{name}: q, k, v must share one (B, S, H, D) "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, D = q.shape
+    if q.is_cuda:
+        if D not in HEAD_DIMS:
+            raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+        if -(-S // KERNEL_BQ) > 65535 or B * H > 2**31 - 1:
+            raise ValueError(f"{name}: S = {S} or B * H = {B * H} exceeds "
+                             f"the grid")
+    return B, S, H, D
+
+
+def _operands(name: str, *named) -> None:
+    for what, t in named:
+        check_operand(f"{name} {what}", t, torch.float32)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """(B, S, H, D) attention of ``q`` over ``k``, ``v`` (same shape)."""
-    if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
-        raise ValueError(f"flash_attention: q, k, v must share one (B, S, H, "
-                         f"D) shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    B, S, H, D = q.shape
+    """(B, S, H, D) attention of ``q`` over ``k``, ``v`` (same shape), the
+    serving prefill's: no gradient flows through the kernel route."""
+    B, S, H, D = _check("flash_attention", q, k, v)
     if not q.is_cuda:
         from ..models.attention import chunked_attention
         return chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
                                  skip_masked=causal)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_operand(f"flash_attention {name}", t, torch.float32)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
-    if -(-S // KERNEL_BQ) > 65535 or B * H > 2**31 - 1:
-        raise ValueError(f"flash_attention: S = {S} or B * H = {B * H} "
-                         f"exceeds the grid")
+    _operands("flash_attention", ("q", q), ("k", k), ("v", v))
     o = torch.empty_like(q)
     launch("flash_attention", q, k, v, o, B, S, H, D, int(causal))
     return o
 
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)``: the attention and each row's log-sum-exp of the scaled
+    scores, ``m + log(max(l, 1e-30))``, as (B, H, S) f32."""
+    B, S, H, D = _check("flash_attention_lse", q, k, v)
+    if not q.is_cuda:
+        from ..models.attention import chunked_attention
+        return chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
+                                 skip_masked=causal, return_lse=True)
+    _operands("flash_attention_lse", ("q", q), ("k", k), ("v", v))
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    launch("flash_attention_lse", q, k, v, o, lse, B, S, H, D, int(causal))
+    return o, lse
+
+
+# =============================================================================
+# the gradient
+# =============================================================================
+
+def _scores(qs, kt, q0, q1, k0, k1, causal):
+    """Scaled scores (B, H, q1 - q0, k1 - k0), the causal mask -2**30."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qs[:, q0:q1], kt[:, k0:k1])
+    if causal:
+        qp = torch.arange(q0, q1, device=qs.device)
+        kp = torch.arange(k0, k1, device=qs.device)
+        s = torch.where(qp[:, None] >= kp[None, :], s, NEG_INF)
+    return s
+
+
+def flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, *,
+                                 block: int = KERNEL_BQ):
+    """The plain version of ``flash_attention_bwd_dq``: ``(dq, delta)``,
+    delta = rowsum(dO * O) as (B, H, S).  Walks query blocks of ``block``
+    rows over the keys at or below their diagonal, as the kernel does."""
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+    qs = q * scale
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty_like(q)
+    for q0 in range(0, S, block):
+        q1 = min(q0 + block, S)
+        k1 = q1 if causal else S
+        p = torch.exp(_scores(qs, k, q0, q1, 0, k1, causal)
+                      - lse[:, :, q0:q1, None])
+        dp = torch.einsum("bqhd,bkhd->bhqk", do[:, q0:q1], v[:, :k1])
+        ds = p * (dp - delta[:, :, q0:q1, None])
+        dq[:, q0:q1] = torch.einsum("bhqk,bkhd->bqhd", ds, k[:, :k1]) * scale
+    return dq, delta
+
+
+def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal: bool, *,
+                                   block: int = KERNEL_BQ):
+    """The plain version of ``flash_attention_bwd_dkdv``: ``(dk, dv)``.
+    Walks key blocks of ``block`` keys over the query rows at or above
+    their diagonal, as the kernel does."""
+    B, S, H, D = q.shape
+    qs = q * D ** -0.5
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, S, block):
+        k1 = min(k0 + block, S)
+        q0 = k0 if causal else 0
+        p = torch.exp(_scores(qs, k, q0, S, k0, k1, causal)
+                      - lse[:, :, q0:, None])
+        dp = torch.einsum("bqhd,bkhd->bhqk", do[:, q0:], v[:, k0:k1])
+        ds = p * (dp - delta[:, :, q0:, None])
+        dv[:, k0:k1] = torch.einsum("bhqk,bqhd->bkhd", p, do[:, q0:])
+        dk[:, k0:k1] = torch.einsum("bhqk,bqhd->bkhd", ds, qs[:, q0:])
+    return dk, dv
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool):
+    """``(dq, dk, dv)`` from the forward's ``o`` and ``lse``, blockwise as
+    the kernels compute it: P = exp(s - lse), dV = P^T dO, dP = dO V^T,
+    D = rowsum(dO * O), dS = P * (dP - D), dQ = dS K D^-1/2, dK = dS^T (q
+    D^-1/2)."""
+    dq, delta = flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal)
+    dk, dv = flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+def _fits(name, q, o, lse, *more) -> None:
+    B, S, H, _ = q.shape
+    if o.shape != q.shape or lse.shape != (B, H, S) or any(
+            t.shape != q.shape for t in more):
+        raise ValueError(f"{name}: o {tuple(o.shape)}, lse "
+                         f"{tuple(lse.shape)} or dout do not fit q "
+                         f"{tuple(q.shape)}")
+
+
+def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool):
+    """``(dq, delta)``: the ``flash_attention_bwd_dq`` kernel on a CUDA
+    tensor, its plain version on a CPU one."""
+    B, S, H, D = _check("flash_attention_bwd_dq", q, k, v)
+    _fits("flash_attention_bwd_dq", q, o, lse, do)
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal)
+    _operands("flash_attention_bwd_dq", ("q", q), ("k", k), ("v", v),
+              ("o", o), ("dout", do), ("lse", lse))
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    launch("flash_attention_bwd_dq", q, k, v, o, do, lse, dq, delta, B, S, H,
+           D, int(causal))
+    return dq, delta
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool):
+    """``(dk, dv)`` from ``delta`` of :func:`flash_attention_bwd_dq`: the
+    ``flash_attention_bwd_dkdv`` kernel on a CUDA tensor (after the dq
+    kernel on the same stream), its plain version on a CPU one."""
+    B, S, H, D = _check("flash_attention_bwd_dkdv", q, k, v)
+    _fits("flash_attention_bwd_dkdv", q, do, lse)
+    if delta.shape != lse.shape:
+        raise ValueError(f"flash_attention_bwd_dkdv: delta "
+                         f"{tuple(delta.shape)}, lse {tuple(lse.shape)}")
+    if not q.is_cuda:
+        return flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
+    _operands("flash_attention_bwd_dkdv", ("q", q), ("k", k), ("v", v),
+              ("dout", do), ("lse", lse), ("delta", delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    launch("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, dk, dv, B, S,
+           H, D, int(causal))
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool):
+    """``(dq, dk, dv)``: the two backward kernels on a CUDA tensor, the
+    plain versions on a CPU one."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: ``FlashAttention.apply(q, k, v,
+    causal)``.  The forward keeps ``q, k, v, o`` and ``lse`` for the
+    backward, which recomputes the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True):
+        o, lse = flash_attention_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse,
+                                              do.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+__all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
+           "flash_attention_backward", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkdv", "flash_attention_backward_plain",
+           "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkdv_plain",
+           "HEAD_DIMS"]

@@ -62,6 +62,9 @@ SIGNATURES = {
     "act_relu_decode_encode": "pppppiii",
     "act_relu_decode": "pppiii",
     "flash_attention": "ppppiiiii",
+    "flash_attention_lse": "pppppiiiii",
+    "flash_attention_bwd_dq": "ppppppppiiiii",
+    "flash_attention_bwd_dkdv": "ppppppppiiiii",
 }
 
 #: Launches of each kernel since the last :func:`reset_launches`.

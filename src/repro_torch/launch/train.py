@@ -1,0 +1,94 @@
+"""Training launcher on PyTorch.
+
+    python -m repro_torch.launch.train --arch yi-6b --steps 100 \
+        [--smoke] [--ckpt-dir DIR] [--restore] [--device cuda|cpu]
+    python -m repro_torch.launch.train --arch yi-6b --quantize-opt \
+        --batch 1 --seq 1024 --steps 3          # yi-6b at full width
+
+The reference CLI's flags and closing line, plus ``--device`` (default
+``cuda``).  ``--smoke`` runs the config's reduced form.  The loop is
+fault-tolerant: async checkpoints, deterministic data resume, straggler
+logging (``runtime/fault.py``).  Parameters come from ``init_params`` with
+a generator seeded on the device.  ``--mesh`` takes ``host`` only (one
+device): ``single`` and ``multi`` build the reference's production mesh,
+which waits for ROADMAP.md Queue 1, item 12; ``--dtype bfloat16`` waits
+for item 14 (the port's LM stack and its kernels are f32 only).
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ..checkpoint.store import CheckpointStore
+from ..configs import ARCHS
+from ..data.pipeline import DataConfig, TokenPipeline
+from ..models import init_params
+from ..optim.adamw import AdamWConfig, init_opt_state
+from ..runtime.fault import FaultConfig, FaultTolerantLoop
+from ..runtime.steps import BF16_LATER, make_train_step
+
+MESH_LATER = ("a production mesh (--mesh single|multi) is not ported yet "
+              "(ROADMAP.md, Queue 1, item 12)")
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--mesh", default="host", choices=("host", "single", "multi"))
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--remat", default="full", choices=("none", "dots", "full"))
+    ap.add_argument("--quantize-opt", action="store_true")
+    ap.add_argument("--ckpt-dir", default="checkpoints")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--restore", action="store_true")
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "host":
+        raise NotImplementedError(MESH_LATER)
+    if args.dtype != "float32":
+        raise NotImplementedError(f"--dtype {args.dtype}: {BF16_LATER}")
+    cfg = ARCHS[args.arch]
+    if args.smoke:
+        cfg = cfg.reduced()
+    opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
+                          quantize_states=args.quantize_opt)
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch))
+    store = CheckpointStore(args.ckpt_dir, keep_last=3)
+
+    step_fn = make_train_step(cfg, opt_cfg, remat=args.remat,
+                              device=args.device)
+    params = init_params(torch.Generator(device=args.device).manual_seed(0),
+                         cfg)
+    opt = init_opt_state(params, opt_cfg)
+
+    losses = []
+
+    def run_step(state, batch):
+        p, o = state
+        p, o, metrics = step_fn(p, o, batch)
+        losses.append(float(metrics["loss"]))
+        return (p, o)
+
+    loop = FaultTolerantLoop(run_step, store,
+                             FaultConfig(checkpoint_every=args.ckpt_every))
+    state, start = ((params, opt), 0)
+    if args.restore:
+        state, start = loop.try_restore((params, opt))
+        print(f"restored; resuming at step {start}")
+    state = loop.run(state, data.batch_at, start_step=start,
+                     num_steps=args.steps - start)
+    print(f"{cfg.name}: {len(losses)} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; events: {[e['kind'] for e in loop.events]}")
+
+
+if __name__ == "__main__":
+    main()

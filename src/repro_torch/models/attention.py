@@ -5,22 +5,23 @@ PyTorch tensors — the counterparts of the reference package's
 :func:`chunked_attention` is the reference's online-softmax scan in plain
 torch, every branch kept (causal or not, ``q_offset``, causal block
 skipping, ``_divisor_chunk``); it is also the plain version of the
-``flash_attention`` kernel.  The serving prefill
-(:func:`prefill_attention` with ``inference=True``) runs that kernel on the
-kernel route (``kernels/flash_attention.py``: the kernel on a CUDA tensor,
-this scan on a CPU one); every other caller, and ``use_kernels=False``,
-runs the scan.  The reference's sharding hints (``runtime/hints``) have no
-counterpart on one GPU and are left out.  Cross and encoder attention
+``flash_attention`` kernels.  On the kernel route
+(``kernels/flash_attention.py``: the kernels on a CUDA tensor, the plain
+versions on a CPU one) the serving prefill (:func:`prefill_attention` with
+``inference=True``) runs ``flash_attention``, and the training forward
+(``inference=False``) runs ``FlashAttention``, whose gradient is the two
+backward kernels; ``use_kernels=False`` runs the scan, through autograd.
+The reference's sharding hints (``runtime/hints``) have no counterpart on
+one GPU and are left out.  Cross and encoder attention
 (whisper) are not ported yet (ROADMAP.md, Queue 1, item 11).
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import NEG_INF, FlashAttention, flash_attention
 from .common import apply_rope, dense_init
 
-NEG_INF = -2.0 ** 30
 _LATER = "is not ported yet (ROADMAP.md, Queue 1, item 11)"
 
 
@@ -74,14 +75,16 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, causal: bool, chunk: int = 1024, q_chunk: int = 512,
-                      q_offset: int = 0, skip_masked: bool = False
-                      ) -> torch.Tensor:
+                      q_offset: int = 0, skip_masked: bool = False,
+                      return_lse: bool = False):
     """Flash-style online-softmax attention: an outer loop over query
     blocks, an inner one over KV blocks.
 
     q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with H a multiple of KH (GQA; KV
     heads are repeated to H).  With ``skip_masked`` and ``causal`` only the
-    KV blocks at or below a query block's diagonal run.
+    KV blocks at or below a query block's diagonal run.  With
+    ``return_lse`` it returns ``(out, lse)``, lse each row's log-sum-exp of
+    the scaled scores, ``m + log(max(l, 1e-30))``, as (B, H, Sq) f32.
     """
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
@@ -97,7 +100,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vb = v.reshape(B, nk, chunk, H, D)
     qb = (q * scale).reshape(B, nq, q_chunk, H, D)
     dev = q.device
-    blocks = []
+    blocks, lses = [], []
     for iq in range(nq):
         qf = qb[:, iq].float()
         q_pos = q_offset + iq * q_chunk + torch.arange(q_chunk, device=dev)
@@ -124,7 +127,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m = m_new
         out = o / torch.clamp(l, min=1e-30)[..., None]
         blocks.append(out.to(q.dtype))
-    return torch.stack(blocks, dim=1).reshape(B, Sq, H, D)
+        if return_lse:
+            lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    out = torch.stack(blocks, dim=1).reshape(B, Sq, H, D)
+    if return_lse:
+        return out, torch.cat(lses, dim=1).transpose(1, 2).contiguous()
+    return out
 
 
 def prefill_attention(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor, *,
@@ -134,12 +142,18 @@ def prefill_attention(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor, *,
     The returned cache keeps the true KH KV heads (strided slice of the
     weight-repeated heads).  ``inference`` enables causal block skipping
     (forward only) and, with ``use_kernels``, the ``flash_attention``
-    kernel route."""
+    kernel route; without ``inference``, ``use_kernels`` takes the training
+    route, ``FlashAttention`` (the lse forward and the backward kernels).
+    GQA as the reference: the KV weights are repeated to H heads, so
+    autograd sums dK and dV back over the G copies."""
     B, S, _ = x.shape
     G = cfg.n_heads // cfg.n_kv_heads
     q, k, v = _project_qkv(p, x, cfg, pos, repeat_kv=True)
     if inference and use_kernels:
         out = flash_attention(q, k, v, causal=True)
+    elif use_kernels:
+        out = FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), True)
     else:
         out = chunked_attention(q, k, v, causal=True, chunk=min(chunk, S),
                                 skip_masked=inference)

@@ -1,6 +1,7 @@
 """Model assembly on PyTorch tensors: parameter init, the full-sequence
-forward (serving prefill) and the single-token decode — the counterparts of
-the reference package's ``models/model.py``.
+forward (serving prefill and training), the single-token decode and the
+training loss — the counterparts of the reference package's
+``models/model.py``.
 
 Parameters keep the reference's pytree layout, stacked over *layer groups*
 (one period of the layer pattern): ``{"embed", "groups": {"pos_j": {...}},
@@ -9,19 +10,30 @@ Parameters keep the reference's pytree layout, stacked over *layer groups*
 leaf for leaf (:func:`params_from_numpy`).  The KV cache keeps the
 reference's layout too, ``{"pos_j": {"k", "v"}}`` of shape ``(n_groups, B,
 s_max, KH, D)``, so its pages compare 1:1.  The reference scans over the
-groups; here a Python loop runs them in the same order.
+groups; here a Python loop runs them in the same order, each stacked
+leaf unbound once per forward (``unbind``'s backward stacks the group
+slices' gradients once, where a per-group index would add a zero-filled
+copy of the whole leaf per group).
 
 Attention layers with a dense FFN or a mixture of experts run in this
 port (the dense families, olmoe, grok-1); ``forward`` returns the experts'
 load-balancing loss summed over layers, as the reference does.  Mamba,
 mLSTM, sLSTM, encoder-decoder (whisper) and M-RoPE raise
-``NotImplementedError`` (ROADMAP.md, Queue 1, item 11).  The training loss
-(``lm_loss``) comes with the training path.
+``NotImplementedError`` (ROADMAP.md, Queue 1, item 11).  :func:`lm_loss`
+is the reference's chunked next-token cross-entropy, and ``remat`` its
+rematerialisation of each layer group: ``"full"`` recomputes a group in the
+backward (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
+unbatched matrix products (selective checkpointing), as
+``dots_with_no_batch_dims_saveable``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from . import attention as A
 from . import moe as M
@@ -30,6 +42,8 @@ from .config import ArchConfig
 
 Params = dict
 _LATER = "is not ported yet (ROADMAP.md, Queue 1, item 11)"
+LOSS_CHUNK = 512
+REMAT = ("none", "full", "dots")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -88,6 +102,19 @@ def _leaves(tree: dict, prefix: str = ""):
             yield name, v
 
 
+def _tree(flat: dict) -> dict:
+    """Nested dicts from ``"/"``-joined paths (the inverse of
+    :func:`_leaves`)."""
+    out: dict = {}
+    for name, leaf in flat.items():
+        node = out
+        *path, key = name.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[key] = leaf
+    return out
+
+
 def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     """Every parameter's ``"/"``-joined tree path and shape."""
     _check_supported(cfg)
@@ -138,18 +165,14 @@ def params_from_numpy(tree: dict, cfg: ArchConfig,
         raise ValueError(f"parameter tree differs: missing "
                          f"{sorted(set(want) - set(got))}, unknown "
                          f"{sorted(set(got) - set(want))}")
-    out: Params = {}
+    out = {}
     for name, a in got.items():
         a = np.asarray(a, dtype=np.float32)
         if a.shape != want[name]:
             raise ValueError(f"{name}: shape {a.shape}, expected "
                              f"{want[name]}")
-        node = out
-        *path, leaf = name.split("/")
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = torch.from_numpy(a.copy()).to(device)
-    return out
+        out[name] = torch.from_numpy(a.copy()).to(device)
+    return _tree(out)
 
 
 def param_count(params: Params) -> int:
@@ -208,6 +231,38 @@ def _group(tree: dict, g: int) -> dict:
             for k, v in tree.items()}
 
 
+def _unbind(tree: dict, n: int) -> list[dict]:
+    """Every leaf unbound once along its group axis: ``n`` trees of
+    views."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+        for g in range(n):
+            out[g][k] = parts[g]
+    return out
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep the unbatched matrix products' outputs, recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` rematerialised in the backward as ``remat`` asks."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat {remat!r} not in {REMAT}")
+
+
 # =============================================================================
 # cache construction
 # =============================================================================
@@ -230,41 +285,55 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             cache: dict | None = None, pos_offset: torch.Tensor | None = None,
-            use_kernels: bool = True):
+            use_kernels: bool = True, remat: str = "none"):
     """Full-sequence forward.  Returns (hidden, new_cache, aux_loss).
 
     tokens: (B, S) int.  With ``cache`` given (prefill), new per-layer KV
     caches of its shapes are returned, the prompt's keys and values in the
     first S positions and zeros after.  ``pos_offset``: (B,) start
-    positions.  ``use_kernels`` lets the prefill attention take the
-    ``flash_attention`` kernel route.
+    positions.  ``use_kernels`` lets the attention take the kernel route
+    (``flash_attention`` in a prefill, ``FlashAttention`` otherwise).
+    ``remat`` (one of :data:`REMAT`) rematerialises each layer group in
+    the backward; a prefill (``cache`` given) ignores it.
     """
     _check_supported(cfg)
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
     B, Sq = tokens.shape
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, params["embed"])
     pos = torch.arange(Sq, device=x.device)[None]
     if pos_offset is not None:
         pos = pos + pos_offset[:, None]
     gs = cfg.group_size
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    groups = _unbind(params["groups"], cfg.n_groups)
+    if cache is None:
+        for gp in groups:
+            def group_body(x, aux, gp=gp):
+                for j in range(gs):
+                    x, _, a = _apply_layer(gp[f"pos_{j}"], x, cfg, j,
+                                           pos=pos, mode="full",
+                                           use_kernels=use_kernels)
+                    if a is not None:
+                        aux = aux + a
+                return x, aux
+            x, aux = _remat(group_body, remat)(x, aux)
+        return apply_norm(cfg.norm, x, params["final_norm"]), None, aux
     per_group = []
-    for g in range(cfg.n_groups):
-        gp = _group(params["groups"], g)
-        gc = _group(cache, g) if cache is not None else None
+    for g, gp in enumerate(groups):
+        gc = _group(cache, g)
         new_gc = {}
         for j in range(gs):
             x, nc, a = _apply_layer(gp[f"pos_{j}"], x, cfg, j, pos=pos,
-                                    cache=gc[f"pos_{j}"] if gc else None,
-                                    mode="full", use_kernels=use_kernels)
+                                    cache=gc[f"pos_{j}"], mode="full",
+                                    use_kernels=use_kernels)
             new_gc[f"pos_{j}"] = nc
             if a is not None:
                 aux = aux + a
         per_group.append(new_gc)
     x = apply_norm(cfg.norm, x, params["final_norm"])
-    new_cache = None
-    if cache is not None:
-        new_cache = {pj: {n: torch.stack([pg[pj][n] for pg in per_group])
-                          for n in ("k", "v")} for pj in cache}
+    new_cache = {pj: {n: torch.stack([pg[pj][n] for pg in per_group])
+                      for n in ("k", "v")} for pj in cache}
     return x, new_cache, aux
 
 
@@ -273,7 +342,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     """One decode step.  token: (B, 1); pos: (B,).  Returns (logits,
     cache); the cache's tensors are updated in place at ``pos``."""
     _check_supported(cfg)
-    x = params["embed"][token]
+    x = F.embedding(token, params["embed"])
     for g in range(cfg.n_groups):
         gp = _group(params["groups"], g)
         gc = _group(cache, g)
@@ -288,3 +357,33 @@ def project_logits(params: Params, cfg: ArchConfig, x: torch.Tensor
                    ) -> torch.Tensor:
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return (x @ head.T).float()
+
+
+def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, *, remat: str = "none",
+            use_kernels: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy, computed in sequence chunks of
+    ``min(LOSS_CHUNK, S)`` rows, each recomputed in the backward, so the
+    full (B, S, V) logits tensor never materialises; plus 0.01 times the
+    experts' load-balancing loss, as the reference's."""
+    x, _, aux = forward(params, cfg, tokens, remat=remat,
+                        use_kernels=use_kernels)
+    B, Sq, _ = x.shape
+    C = min(LOSS_CHUNK, Sq)
+    if Sq % C:
+        raise ValueError(f"lm_loss: sequence length {Sq} is not a multiple "
+                         f"of its chunk {C}")
+    labels = labels.long()
+
+    def chunk_loss(xb, lb):
+        logits = project_logits(params, cfg, xb)               # (B, C, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lb[..., None])[..., 0]
+        return (lse - gold).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(Sq // C):
+        tot = tot + ckpt.checkpoint(chunk_loss, x[:, i * C:(i + 1) * C],
+                                    labels[:, i * C:(i + 1) * C],
+                                    use_reentrant=False)
+    return tot / (B * Sq) + 0.01 * aux

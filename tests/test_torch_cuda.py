@@ -1017,3 +1017,177 @@ def test_autotuned_server_on_the_card(gen):
     srv.flush()
     for t, f in zip(tickets, frames):
         assert torch.equal(_bits(srv.result(t)), _bits(staged.run(f)))
+
+
+# -- flash attention's gradient and the train step ------------------------------
+
+# (B, S, H, D): ragged S at every head width, causal and not, then yi-6b's
+# train shape (32 heads of 128 at S = 1024)
+BWD_SHAPES = ([(2, S, 3, D) for D in (16, 32, 64, 128)
+               for S in (1, 63, 64, 130, 300)] + [(1, 1024, 32, 128)])
+
+
+def _within(got, want, what=""):
+    """Within 2e-4 x max(1, max|plain|), the port's vertex tolerance."""
+    lim = 2e-4 * max(1.0, float(want.abs().max()))
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= lim, f"{what}: {err} > {lim}"
+
+
+@pytest.mark.parametrize("B,S,H,D", BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_lse_variant_against_its_plain_version(gen, B, S, H, D,
+                                                     causal):
+    """The lse instance: o bit for bit the serving instance's (one kernel
+    body), o and lse within tolerance of chunked_attention's."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_lse)
+    from repro_torch.models.attention import chunked_attention
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+               for _ in range(3))
+    reset_launches()
+    o, lse = flash_attention_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launches()["flash_attention_lse"] == 1
+    assert launches()["flash_attention"] == 0
+    assert torch.equal(_bits(o), _bits(flash_attention(q, k, v,
+                                                       causal=causal)))
+    po, plse = chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
+                                 skip_masked=causal, return_lse=True)
+    _within(o, po, "o")
+    _within(lse, plse, "lse")
+
+
+@pytest.mark.parametrize("B,S,H,D", BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_kernels_against_their_plain_versions(gen, B, S, H,
+                                                             D, causal):
+    """dq (and delta) and dk, dv within tolerance of the blockwise plain
+    versions on the same o and lse, one launch of each kernel, and a
+    second pair of launches bit for bit the first."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                   for _ in range(4))
+    o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
+    reset_launches()
+    got = FA.flash_attention_backward(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert launches()["flash_attention_bwd_dq"] == 1
+    assert launches()["flash_attention_bwd_dkdv"] == 1
+    want = FA.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _within(g, w, name)
+    again = FA.flash_attention_backward(q, k, v, o, lse, do, causal)
+    for g, a in zip(got, again):
+        assert torch.equal(_bits(g), _bits(a))
+
+
+def test_flash_attention_autograd_on_the_card(gen):
+    """FlashAttention.apply: its gradient is the two kernels', and the
+    gradient of the plain scan through autograd agrees."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.models.attention import chunked_attention
+    q, k, v, do = (torch.randn(1, 300, 4, 64, generator=gen, device="cuda")
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launches()
+    FlashAttention.apply(*leaves, True).backward(do)
+    torch.cuda.synchronize()
+    n = launches()
+    assert (n["flash_attention_lse"], n["flash_attention_bwd_dq"],
+            n["flash_attention_bwd_dkdv"], n["flash_attention"]) == (1, 1, 1,
+                                                                     0)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    chunked_attention(*plain, causal=True, chunk=300).backward(do)
+    for name, a, b in zip("qkv", leaves, plain):
+        _within(a.grad, b.grad, f"d{name}")
+
+
+def test_reduced_train_step_kernel_route_against_plain(gen):
+    """yi-6b cut to 3 layers, remat "full": the loss and every gradient
+    leaf of the kernel route within tolerance of the plain route's on the
+    same weights; the lse forward twice a layer (step and recompute), each
+    backward kernel once a layer, and no other kernel."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels.library import SIGNATURES
+    from repro_torch.models import init_params
+    from repro_torch.models.model import _leaves
+    from repro_torch.runtime.steps import loss_and_grads
+    cfg = ARCHS["yi-6b"].reduced(n_layers=3)
+    params = init_params(gen, cfg)
+    b = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                 global_batch=2)).batch_at(0)
+    toks, labs = (torch.from_numpy(b[k]).cuda() for k in ("tokens", "labels"))
+    reset_launches()
+    lk, gk = loss_and_grads(params, cfg, toks, labs, remat="full")
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert launches() == dict.fromkeys(SIGNATURES, 0) | {
+        "flash_attention_lse": 2 * L, "flash_attention_bwd_dq": L,
+        "flash_attention_bwd_dkdv": L}
+    lp, gp = loss_and_grads(params, cfg, toks, labs, remat="full",
+                            use_kernels=False)
+    _within(lk, lp, "loss")
+    for (name, g), (_, w) in zip(_leaves(gk), _leaves(gp)):
+        _within(g, w, name)
+
+
+@pytest.mark.parametrize("bfp8", [False, True])
+def test_checkpoint_resume_on_the_card(gen, tmp_path, bfp8):
+    """Four steps uninterrupted against two, a save, a restore into a fresh
+    loop and two more: bit for bit with raw checkpoints.  With BFP8 ones
+    the restore is within the reference's bound (2% of each float leaf's
+    max), and steps 3-4 finite: int8 AdamW turns a small change of a state
+    into an unbounded update where a row's int8 v rounds to 0, so they are
+    not held to the uninterrupted run."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.models.model import _leaves
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime.fault import FaultConfig, FaultTolerantLoop
+    from repro_torch.runtime.steps import make_train_step
+    cfg = ARCHS["yi-6b"].reduced()
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4,
+                          quantize_states=True)
+    step = make_train_step(cfg, opt_cfg, microbatches=2, device="cuda")
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                    global_batch=2))
+
+    def run(state, b):
+        p, o = state
+        p, o, _ = step(p, o, b)
+        return (p, o)
+
+    def fresh():
+        p = init_params(torch.Generator(device="cuda").manual_seed(1), cfg)
+        return (p, init_opt_state(p, opt_cfg))
+
+    whole = FaultTolerantLoop(run, CheckpointStore(str(tmp_path / "a")),
+                              FaultConfig(checkpoint_every=50)).run(
+        fresh(), data.batch_at, start_step=0, num_steps=4)
+    store = CheckpointStore(str(tmp_path / "b"), bfp8=bfp8)
+    saved = FaultTolerantLoop(run, store, FaultConfig(checkpoint_every=2)).run(
+        fresh(), data.batch_at, start_step=0, num_steps=2)
+    loop = FaultTolerantLoop(run, store, FaultConfig(checkpoint_every=50))
+    state, start = loop.try_restore(fresh())
+    assert start == 2
+    for (name, a), (_, b) in zip(_leaves({"p": saved[0], "o": saved[1]}),
+                                 _leaves({"p": state[0], "o": state[1]})):
+        assert a.dtype == b.dtype, name
+        if bfp8 and a.is_floating_point():
+            assert float((a - b).abs().max()) < 0.02 * float(
+                a.abs().max()), name
+        else:
+            assert torch.equal(a, b), name
+    resumed = loop.run(state, data.batch_at, start_step=2, num_steps=2)
+    for (name, a), (_, b) in zip(_leaves({"p": whole[0], "o": whole[1]}),
+                                 _leaves({"p": resumed[0],
+                                          "o": resumed[1]})):
+        assert a.dtype == b.dtype, name
+        if not bfp8:
+            assert torch.equal(a, b), name
+        elif a.is_floating_point():
+            assert bool(b.isfinite().all()), name

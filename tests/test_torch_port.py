@@ -111,14 +111,23 @@ def test_import_leaves_jax_and_repro_out():
                                     "repro_torch.configs",
                                     "repro_torch.launch.serve",
                                     "repro_torch.optim",
-                                    "repro_torch.optim.autotune"])
+                                    "repro_torch.optim.autotune",
+                                    "repro_torch.optim.adamw",
+                                    "repro_torch.runtime.steps",
+                                    "repro_torch.runtime.fault",
+                                    "repro_torch.checkpoint",
+                                    "repro_torch.data",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.kernels.flash_attention"])
 def test_streamer_packages_leave_jax_and_repro_out(module):
     """The pipelined streamer, its copies of the reference's memory and obs
     layers (the metrics registry, SLO scoring and flight recorder among
     them), the serving front ends (the LM engine among them), the
-    conformance harness, the LM stack, its configs, the serving launcher
-    and the autotuner, each imported first in a fresh interpreter, with
-    its submodules."""
+    conformance harness, the LM stack, its configs, the serving launcher,
+    the autotuner and the training path (optimizer, train step, fault
+    loop, checkpoints, data, the train launcher, the attention kernels'
+    gradient), each imported first in a fresh interpreter, with its
+    submodules."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         mod = importlib.import_module({module!r})
