@@ -11,7 +11,10 @@ and prints no result line):
    the card reports (multiprocessors, shared memory a multiprocessor,
    ``total_memory``, the maximum SM clock), a failure where a sheet claims
    more, and a 256 MiB pinned copy each way beside the sheet's host link;
-2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``;
+2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
+   (a ptxas spill in a tiled source fails the run), and print the backward
+   attention kernels' shared memory, registers and blocks an SM at each
+   head width;
 3. the main paths, one after the other, on the u200 sheet.  Staged (one
    frame at a
    time): the paper-width UNet (widths 64-1024, 368x480 input), then X3D-M
@@ -104,8 +107,9 @@ and prints no result line):
    kernel, plain version and one PyTorch call as a yardstick (CUDA events,
    L2 flushed before every launch, median of REPS launches).  Besides the
    f32 bound, the kernels that run on the tensor cores through the 3xTF32
-   split (``csrc/tf32x3.cuh``: streamed_matmul, flash_attention, the four
-   conv2d variants) get the split's bound, the larger of the bytes' time
+   split (``csrc/tf32x3.cuh``: streamed_matmul, flash_attention and its
+   lse instance, the two backward kernels, the four conv2d variants) get
+   the split's bound, the larger of the bytes' time
    and 3 x operations at 495 TFLOP/s dense TF32 (``bound_tf32x3_ms``):
    their times may fall below the f32 FMA bound; they are also held bit
    for bit from one launch to the next;
@@ -155,7 +159,8 @@ PEAK_HBM_BYTES_S = 3.35e12
 PEAK_TF32_FLOPS = 495e12
 TF32X3_KERNELS = ("streamed_matmul", "flash_attention", "conv2d",
                   "conv2d_encode", "conv2d_decode", "conv2d_decode_encode",
-                  "flash_attention_lse")
+                  "flash_attention_lse", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkdv")
 
 FRAMES = 3
 REPS = 20
@@ -2584,6 +2589,14 @@ def main() -> int:
             spills.append(f"{source} [{kernel}]: {line.strip()}")
     if spills:
         raise AssertionError("spills: " + "; ".join(spills))
+    # the backward kernels' tiles: shared memory, registers and blocks an SM
+    # of each instance, as the card reports them
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     backward_occupancy)
+    for d in HEAD_DIMS:
+        for name, (nbytes, regs, blocks) in backward_occupancy(d).items():
+            print(f"  {name} D={d}: {nbytes} bytes of shared memory, "
+                  f"{regs} registers, {blocks} block(s) an SM")
 
     # -- 3. the main paths, one after the other -------------------------------
     runs = {p.name: run_path(torch, repro_torch, library, p) for p in PATHS}

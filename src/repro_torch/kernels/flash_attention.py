@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .library import check_operand, launch
+from .library import check_operand, launch, load_library
 
 #: head widths the kernels are built for
 HEAD_DIMS = (16, 32, 64, 128)
@@ -202,6 +202,27 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool):
     return dq, dk, dv
 
 
+def backward_occupancy(head_dim: int) -> dict[str, tuple[int, int, int]]:
+    """``{kernel: (dynamic shared memory bytes, registers a thread,
+    resident blocks an SM)}`` of the two backward instances at
+    ``head_dim``, as the current card reports them."""
+    import ctypes
+    fn = load_library().lib.smof_flash_attention_bwd_occupancy
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                   ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int
+    out = {}
+    for i, name in enumerate(("flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkdv")):
+        vals = (ctypes.c_int64 * 3)()
+        code = fn(head_dim, i, vals)
+        if code:
+            raise RuntimeError(f"{name}: occupancy at head_dim {head_dim} "
+                               f"failed with CUDA error {code}")
+        out[name] = tuple(vals)
+    return out
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: ``FlashAttention.apply(q, k, v,
     causal)``.  The forward keeps ``q, k, v, o`` and ``lse`` for the
@@ -226,4 +247,4 @@ __all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
            "flash_attention_backward", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkdv", "flash_attention_backward_plain",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkdv_plain",
-           "HEAD_DIMS"]
+           "backward_occupancy", "HEAD_DIMS"]

@@ -1021,10 +1021,15 @@ def test_autotuned_server_on_the_card(gen):
 
 # -- flash attention's gradient and the train step ------------------------------
 
-# (B, S, H, D): ragged S at every head width, causal and not, then yi-6b's
-# train shape (32 heads of 128 at S = 1024)
+# (B, S, H, D): ragged S at every head width, causal and not; S one below
+# and one above the backward kernels' 32-row tiles and 64-row blocks and
+# their doubles at the narrowest and widest heads; then yi-6b's train shape
+# (32 heads of 128 at S = 1024)
 BWD_SHAPES = ([(2, S, 3, D) for D in (16, 32, 64, 128)
-               for S in (1, 63, 64, 130, 300)] + [(1, 1024, 32, 128)])
+               for S in (1, 63, 64, 130, 300)]
+              + [(2, S, 3, D) for D in (16, 128)
+                 for S in (31, 33, 65, 127, 129)]
+              + [(1, 1024, 32, 128)])
 
 
 def _within(got, want, what=""):
@@ -1080,6 +1085,24 @@ def test_flash_backward_kernels_against_their_plain_versions(gen, B, S, H,
     again = FA.flash_attention_backward(q, k, v, o, lse, do, causal)
     for g, a in zip(got, again):
         assert torch.equal(_bits(g), _bits(a))
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_backward_kernels_fit_the_card(gen, D):
+    """Each backward instance launches at least one block an SM with its
+    shared memory (planes of 64 rows x D in hi and lo for two operands, a
+    2-stage ring of two 32-row tiles, D rows of at least 32 floats, its
+    slices and row statistics) within the H100's 227 KB a block."""
+    from repro_torch.kernels.flash_attention import backward_occupancy
+    ld = max(D, 32)
+    want = {"flash_attention_bwd_dq": 4 * 64 * D * 4
+            + 4 * (4 * 32 * ld + 4 * 16 * 36 + 2 * 64),
+            "flash_attention_bwd_dkdv": 4 * 64 * D * 4
+            + 4 * (4 * 32 * ld + 8 * 16 * 36 + 4 * 32)}
+    got = backward_occupancy(D)
+    for name, (nbytes, regs, blocks) in got.items():
+        assert nbytes == want[name] <= 232_448, name
+        assert 0 < regs <= 255 and blocks >= 1, (name, regs, blocks)
 
 
 def test_flash_attention_autograd_on_the_card(gen):

@@ -11,12 +11,14 @@ three terms one after the other into one f32 accumulator; each TF32
 product is exact in f32) and held to the plain f32 product, and to the
 reference package's, within rtol = atol = 2e-4 (``MATMUL_TOL`` and
 ``FLASH_TOL`` of ``chip_smoke.py``), at the UNet's launch shapes cut to
-2048 rows, at the attention's two products at S = 512, D = 128, and at
-conv2d's launch shapes cut to 2048 rows (K from 3 to 384, N from 24 to
-128, one A operand decoded from its BFP8 payload), where the split holds
-that bound too.  One TF32 product, ``a_hi b_hi`` alone,
-breaks that bound at every one of those shapes, which is why the split
-exists.
+2048 rows, at the attention's two products at S = 512, D = 128, at the
+four further products its backward kernels take there (dO v^T over D; dS
+k, P^T dO and dS^T q^ over S, with P and dS made as the plain backward
+makes them), and at conv2d's launch shapes cut to 2048 rows (K from 3 to
+384, N from 24 to 128, one A operand decoded from its BFP8 payload),
+where the split holds that bound too.  One TF32 product, ``a_hi b_hi``
+alone, breaks that bound at every one of those shapes, which is why the
+split exists.
 """
 import numpy as np
 import pytest
@@ -72,20 +74,32 @@ def _unet(K, N):
 
 def _attention(product):
     """The attention's products at S = 512, D = 128: scores (q D^-1/2) k^T
-    over D, or causal softmax probabilities times v over S."""
+    over D, or causal softmax probabilities times v over S; and its
+    backward's, from the same q, k, v and a seeded dO, with P = exp(s -
+    lse) and dS = P (dP - rowsum(dO O)) as the plain backward makes them:
+    dO v^T over D ("dov"), dS k ("dsk"), P^T dO ("pdo") and dS^T (q
+    D^-1/2) ("dsq") over S."""
     S, D = 512, 128
     rng = np.random.default_rng(7)
     q, k, v = (rng.standard_normal((S, D), dtype=np.float32)
                for _ in range(3))
     q = q * np.float32(D ** -0.5)
+    s = np.where(np.tril(np.ones((S, S), bool)), q @ k.T,
+                 np.float32(-2.0 ** 30))
     if product == "qk":
         a, b = q, np.ascontiguousarray(k.T)
-    else:
-        s = np.where(np.tril(np.ones((S, S), bool)), q @ k.T,
-                     np.float32(-2.0 ** 30))
+    elif product == "pv":
         a = np.exp(s - s.max(1, keepdims=True))
         a = a / a.sum(1, keepdims=True)
         b = v
+    else:
+        do = rng.standard_normal((S, D), dtype=np.float32)
+        m = s.max(1, keepdims=True)
+        p = np.exp(s - (m + np.log(np.exp(s - m).sum(1, keepdims=True))))
+        ds = p * (do @ v.T - (do * (p @ v)).sum(1, keepdims=True))
+        a, b = {"dov": (do, v.T), "dsk": (ds, k), "pdo": (p.T, do),
+                "dsq": (ds.T, q)}[product]
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
     want_j = np.asarray(jnp.dot(jnp.asarray(a), jnp.asarray(b)))
     return torch.from_numpy(a), torch.from_numpy(b), want_j
 
@@ -118,7 +132,7 @@ def _conv(K, N, decoded=False):
 CASES = ([pytest.param(("unet", K, N), id=f"unet-K{K}-N{N}")
           for K, N in UNET]
          + [pytest.param(("attn", p), id=f"attn-{p}-S512-D128")
-            for p in ("qk", "pv")]
+            for p in ("qk", "pv", "dov", "dsk", "pdo", "dsq")]
          + [pytest.param(("conv", K, N), id=f"conv-K{K}-N{N}")
             for K, N in CONV]
          + [pytest.param(("conv-dec", 48, 96), id="conv-dec-K48-N96")])
@@ -142,6 +156,10 @@ def test_split_product_holds_f32_parity(case):
 
 @pytest.mark.parametrize("case", CASES)
 def test_one_tf32_product_breaks_the_bound(case):
+    """Every case, the backward's four products included: each sums 128
+    (dO v^T) to 512 (dS k, P^T dO, dS^T q^) terms whose TF32 roundings
+    (2^-11 of each operand) add up to 1e-3 to 2e-2, above 2e-4 of outputs
+    as large as 3 to 56."""
     a, b, _ = _operands(case)
     want = a @ b
     err = (tf32_matmul(a, b) - want).abs()
