@@ -67,6 +67,22 @@ and prints no result line):
    a flip (another expert or queue slot) only at a plain-route near-tie
    (``testing.routing.hold_routing``), the token streams in lockstep until
    the routes part, the dropped (token, k) pairs printed.
+   Then xlstm-1.3b at its published widths and depth (48 layers, mLSTM :
+   sLSTM 7 : 1, about 1.41 B parameters; ``lm-xlstm``), its 8 prompts
+   multiples of 64 in 64-512 (the mLSTM chunk rule): the counters worked
+   out from the cache leaves' own sizes (each slot's recurrent state is
+   705 MB), no kernel launched, every leaf's parked restore bit for bit
+   and host restore within the BFP8 bound, the host codec's seconds a
+   page-set, and the decode-equivalence invariant (prefill 56 of 64 tokens
+   and 448 of 512, decode the rest, every step's logits against the full
+   forward's within LM_DECODE_TOL); then one period of jamba-v0.1-52b's
+   pattern at its published widths (8 of 32 layers, Mamba, attention and
+   16 experts top 2; about 13.3 B parameters, reckoned and printed before
+   the weights are made; ``lm-jamba``), served and held to the plain route
+   as olmoe is, 1 x 8 flash_attention launches.  Every LM path prints
+   prefill and decode times, decode against its byte bound, peak memory,
+   a device profile of a prefill and a decode step and a host profile of
+   each, with the recurrent mixers' share of the host time.
    LM trained (``train_phase``, ``lm-train``): yi-6b at its published
    widths, nothing reduced, f32 with int8 AdamW states (``quantize_states``),
    ``remat="full"``, one microbatch of 1 x 1024 tokens of
@@ -294,8 +310,18 @@ AUTOTUNE_SERVED = 20
 # to the host past 2 parked on the card
 # then olmoe-1b-7b at its published widths (16 layers, d_model 2048, 16
 # heads of 128, 64 experts top 8 of d_ff 1024, vocab 50304; about 6.92 B
-# parameters) the same way, after yi-6b is released
-LM_PATHS = (("yi-6b", "lm-serve"), ("olmoe-1b-7b", "lm-moe"))
+# parameters) the same way, after yi-6b is released; then xlstm-1.3b at its
+# published widths and full depth (48 layers, 7 mLSTM : 1 sLSTM, d_model
+# 2048, 4 heads, mLSTM inner width 4096; about 1.41 B parameters), its
+# prompts multiples of 64 (the mLSTM chunk rule); then one period of
+# jamba-v0.1-52b's pattern at its published widths (8 of its 32 layers:
+# Mamba x4, attention, Mamba x3, d_model 4096, Mamba inner 8192 with d_state
+# 16, 32 heads / 8 KV of 128, 16 experts top 2 of d_ff 14336 at the odd
+# positions, vocab 65536; about 13.3 B parameters, 53 GB in f32).  Each
+# entry: (arch, tag, layers kept or None for the published depth)
+LM_PATHS = (("yi-6b", "lm-serve", None), ("olmoe-1b-7b", "lm-moe", None),
+            ("xlstm-1.3b", "lm-xlstm", None),
+            ("jamba-v0.1-52b", "lm-jamba", 8))
 LM_SEED = 0
 LM_REQUESTS = 8
 LM_SLOTS = 4
@@ -311,6 +337,17 @@ LM_TOL = 2e-4              # of max |plain|
 # (the reference's test_bfp8_page_roundtrip_numerics)
 LM_BFP8_REL = 0.05
 FLASH_TOL = 2e-4           # rtol = atol, the reference's for its kernel
+# the decode-equivalence invariant of a recurrent model without experts
+# (xlstm): (tokens, tokens prefilled) pairs; each step's logits against the
+# full forward's at its position.  mLSTM takes a prompt of S <= 64 tokens or
+# a multiple of 64, so S - 8 and S are both allowed only up to S = 64; the
+# longer pair carries the state across 7 chunks and decodes 64 steps
+LM_DECODE_EQ = ((64, 56), (512, 448))
+# rtol = atol, elementwise, the reference's own for this invariant
+# (tests/test_archs.py::test_decode_matches_full_forward, at its reduced
+# size): the chunkwise mLSTM and the step-by-step decode sum in different
+# orders by construction, here through 48 layers
+LM_DECODE_TOL = 2e-3
 
 # the LM training path: yi-6b at its published widths, f32, int8 AdamW
 # states, remat "full", one microbatch of 1 x 1024 tokens (the batch of
@@ -1576,13 +1613,15 @@ def fuzz_phase(torch, library):
 
 
 def lm_schedule(lengths, slots: int, max_new: int, resident: int,
-                page_values: int, n_pages: int) -> dict:
+                page_values) -> dict:
     """The engine's counters worked out beforehand from the schedule (every
     request runs to ``max_new`` tokens; a prefill gives the first, each
-    lockstep step one more to every active slot) and the page shapes (raw
+    lockstep step one more to every active slot) and the page sizes
+    (``page_values``: the values of each cache leaf's page of one slot; raw
     bytes count bf16 words, as the reference; compressed one int8 mantissa
-    a value and one exponent per 32), with the requests host-evicted and
-    left parked (retirement order, oldest spilled first)."""
+    a value, padded to the 32-value block, and one exponent a block), with
+    the requests host-evicted and left parked (retirement order, oldest
+    spilled first)."""
     queue, active, retired, steps = list(range(len(lengths))), {}, [], 0
     while True:
         for b in range(slots):
@@ -1596,36 +1635,111 @@ def lm_schedule(lengths, slots: int, max_new: int, resident: int,
             if active[b][1] >= max_new:
                 retired.append(active.pop(b)[0])
     host = retired[:max(len(retired) - resident, 0)]
+    blocks = sum(-(-v // 32) for v in page_values)
     return dict(prefills=len(lengths), decode_steps=steps,
                 generated_tokens=len(lengths) * (max_new - 1),
-                evicted_pages=len(host) * n_pages,
-                evicted_bytes_raw=len(host) * n_pages * page_values * 2,
-                evicted_bytes_compressed=len(host) * n_pages * (
-                    page_values + page_values // 32),
+                evicted_pages=len(host) * len(page_values),
+                evicted_bytes_raw=len(host) * sum(page_values) * 2,
+                evicted_bytes_compressed=len(host) * 33 * blocks,
                 host=host, parked=retired[len(host):])
 
 
-def lm_serve_phase(torch, library, arch: str, tag: str):
-    """An LM serving path: ``ServingEngine`` on ``arch`` at its published
-    widths on the card, the prefill attention through the flash_attention
-    kernel.  Checks the counters (read from ``metrics_text()``) against
-    the schedule, n_layers x 8 flash launches and no other kernel, the
-    kernel route against the plain route (every prefill again in
-    ``kernel_mode="reference"`` on the same weights: first-token logits and
-    KV pages, then the whole token streams), a resident restore bit for bit
-    and a host restore within the BFP8 bound; then times prefill and
-    decode, profiles one of each and reads the peak memory.  With a mixture
-    of experts the router's choices are held too (``moe_prefill_check``,
-    ``moe_streams``).  Returns (launches, launch shapes) of the served
-    run."""
-    import numpy as np
+def lm_config(arch: str, tag: str, n_layers):
+    """The path's config: the published one, its depth cut to ``n_layers``
+    when given (printed as a cut); its parameters reckoned from the shapes
+    and printed before any weight is made."""
     from repro_torch.configs import ARCHS
-    from repro_torch.models import init_params, param_count, project_logits
+    from repro_torch.models import param_shapes
+    cfg = ARCHS[arch]
+    if n_layers is not None:
+        print(f"[{tag}] {cfg.name}: depth cut from {cfg.n_layers} to "
+              f"{n_layers} layers (one period of its pattern "
+              f"{list(cfg.pattern)}), every width published")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    n = sum(math.prod(s) for s in param_shapes(cfg).values())
+    print(f"[{tag}] {cfg.name}: {n} parameters reckoned from the shapes, "
+          f"{4 * n} bytes in f32, before the weights are made")
+    return cfg
+
+
+def lm_prompts(cfg, tag, rng):
+    """LM_REQUESTS seeded prompt lengths in 64-512, the first 512.  With
+    mLSTM layers they are multiples of 64 (its chunk rule); otherwise at
+    least two are off the flash kernel's 64-row blocks."""
+    if "mlstm" in cfg.pattern:
+        lengths = 64 * rng.integers(1, 9, LM_REQUESTS)
+        lengths[0] = 512
+    else:
+        lengths = rng.integers(64, 513, LM_REQUESTS)
+        lengths[0] = 512
+        if sum(int(n) % 64 != 0 for n in lengths) < 2:
+            raise AssertionError(f"[{tag}] prompt lengths {lengths}: fewer "
+                                 f"than two off the kernel's 64-row blocks")
+    return lengths, [rng.integers(0, cfg.vocab, n) for n in lengths]
+
+
+def decode_equivalence(torch, cfg, params, tag) -> None:
+    """The reference's decode-equivalence invariant at published width on
+    the card: for each (S, prefill) of LM_DECODE_EQ, one seeded sequence of
+    S tokens through the full forward, then the first ``prefill`` tokens
+    prefilled and the rest decoded one by one, each step's logits held to
+    the full forward's at that position within rtol = atol =
+    LM_DECODE_TOL, elementwise."""
+    import numpy as np
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    project_logits)
+    rng = np.random.default_rng(LM_SEED + 1)
+    for S, pre in LM_DECODE_EQ:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
+                               device="cuda")
+        x, _, _ = forward(params, cfg, toks)
+        full = project_logits(params, cfg, x[0])             # (S, vocab)
+        del x
+        cache = init_cache(cfg, 1, S, device="cuda")
+        _, cache, _ = forward(params, cfg, toks[:, :pre], cache=cache)
+        worst = 0.0
+        for t in range(pre, S):
+            logits, cache = decode_step(params, cfg, toks[:, t:t + 1],
+                                        torch.full((1,), t, device="cuda"),
+                                        cache)
+            ref = full[t]
+            ratio = float(((logits[0] - ref).abs()
+                           / (LM_DECODE_TOL * (1 + ref.abs()))).max())
+            worst = max(worst, ratio)
+        print(f"[{tag}] decode equivalence, {S} tokens: {pre} prefilled, "
+              f"{S - pre} decoded; max |decode - full| / (tol x (1 + "
+              f"|full|)) {worst:.4f} (tol {LM_DECODE_TOL}, fails above 1; "
+              f"max |full logit| {float(full.abs().max()):.3f})")
+        if not worst <= 1.0:
+            raise AssertionError(f"[{tag}] decode logits part from the full "
+                                 f"forward's ({worst:.3f} of the tolerance)")
+        del cache, full
+
+
+def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
+    """An LM serving path: ``ServingEngine`` on ``arch`` at its published
+    widths on the card (its depth cut to ``n_layers`` where given), the
+    prefill attention through the flash_attention kernel.  Checks the
+    counters (read from ``metrics_text()``) against the schedule, worked
+    out with the cache leaves' own sizes; one flash launch per attention
+    layer and prompt and no other kernel; a resident restore of every leaf
+    bit for bit and a host restore within the BFP8 bound.  With attention
+    layers, the kernel route against the plain route (``lm_routes``);
+    a model without attention, which launches no kernel, is held to the
+    decode-equivalence invariant instead (``decode_equivalence``).  Then
+    times prefill and decode and the host BFP8 codec, profiles one of each
+    on the device and the host, and reads the peak memory.  Returns
+    (launches, launch shapes) of the served run."""
+    import numpy as np
+    from repro_torch.models import init_cache, init_params, param_count
     from repro_torch.models.model import decode_step
     from repro_torch.obs.metrics import parse_metrics_text
     from repro_torch.serving import ServingEngine
-    cfg = ARCHS[arch]
+    from repro_torch.serving.engine import _page_names
     on = card()             # every time below is named with the card
+    cfg = lm_config(arch, tag, n_layers)
+    kinds = [cfg.layer_kind(j) for j in range(cfg.group_size)]
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
                          cfg)
@@ -1635,35 +1749,39 @@ def lm_serve_phase(torch, library, arch: str, tag: str):
     experts = ("" if cfg.moe is None else
                f", {cfg.moe.n_experts} experts top {cfg.moe.top_k} "
                f"(capacity factor {cfg.moe.capacity_factor})")
+    mixers = ("" if kinds == ["attn"] else
+              f", mixers {kinds} (d_inner {cfg.d_inner}, d_state "
+              f"{cfg.d_state})")
     print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
-          f"{cfg.hd}, d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab}: "
+          f"{cfg.hd}{mixers}, d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab}: "
           f"{n_params} parameters, f32 {w_bytes} bytes on the card, made in "
           f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(LM_SEED)
-    lengths = rng.integers(64, 513, LM_REQUESTS)
-    lengths[0] = 512
-    if sum(int(n) % 64 != 0 for n in lengths) < 2:
-        raise AssertionError(f"[{tag}] prompt lengths {lengths}: fewer than "
-                             f"two off the kernel's 64-row blocks")
-    prompts = [rng.integers(0, cfg.vocab, n) for n in lengths]
+    lengths, prompts = lm_prompts(cfg, tag, rng)
     kw = dict(max_batch=LM_SLOTS, s_max=LM_S_MAX, device="cuda")
     eng = ServingEngine(cfg, params, evict_to_host=True,
                         resident_limit=LM_RESIDENT, **kw)
-    page_values = cfg.n_groups * LM_S_MAX * cfg.n_kv_heads * cfg.hd
-    n_pages = 2 * cfg.group_size
+    # one slot's page of every cache leaf, from init_cache's own shapes
+    pages = dict(_page_names(init_cache(cfg, 1, LM_S_MAX,
+                                           device="meta")))
+    page_values = [t.numel() for t in pages.values()]
+    state = [n for n in pages if not n.endswith(("/k", "/v"))]
     want = lm_schedule(lengths, LM_SLOTS, LM_MAX_NEW, LM_RESIDENT,
-                       page_values, n_pages)
+                       page_values)
     host_rid, parked_rid = want.pop("host")[0], want.pop("parked")[-1]
     # the pages as they leave for the host (a copy on the card), to hold the
-    # BFP8 restore against
-    evicted = {}
+    # BFP8 restore against; the host seconds of every page-set's crossing
+    evicted, evict_s = {}, []
     host_evict = eng._host_evict
 
     def keep_evicted(rid, pages):
         if rid == host_rid:
             evicted.update({k: v.clone() for k, v in pages.items()})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         host_evict(rid, pages)
+        evict_s.append(time.perf_counter() - t)
     eng._host_evict = keep_evicted
     reqs = [eng.submit(p, max_new_tokens=LM_MAX_NEW) for p in prompts]
     torch.cuda.synchronize()
@@ -1677,12 +1795,16 @@ def lm_serve_phase(torch, library, arch: str, tag: str):
     counts, shapes = library.launches(), library.launch_shapes()
     peak = torch.cuda.max_memory_allocated()
     expected = dict.fromkeys(library.SIGNATURES, 0) | {
-        "flash_attention": cfg.n_layers * LM_REQUESTS}
+        "flash_attention": n_attn * LM_REQUESTS}
     if counts != expected:
         raise AssertionError(f"[{tag}] launches {counts}, expected "
                              f"{expected}")
     parked = {k: v.clone() for k, v in eng.resident_store[parked_rid].items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     eng.restore_request(host_rid, 0)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
     eng.restore_request(parked_rid, 1)
     fams = parse_metrics_text(eng.metrics_text())
     got = {k: int(sum(fams[f"smof_engine_{k}_total"]["samples"].values()))
@@ -1693,34 +1815,110 @@ def lm_serve_phase(torch, library, arch: str, tag: str):
                                        '{kind="raw"}'])
     got["evicted_bytes_compressed"] = int(raw[
         'smof_engine_evicted_bytes_total{kind="compressed"}'])
-    want["restored_pages"] = 2 * n_pages
+    want["restored_pages"] = 2 * len(page_values)
     print(f"[{tag}] counters from metrics_text(): {got}; worked out "
-          f"beforehand: {want}")
+          f"beforehand from {len(page_values)} leaves of "
+          f"{dict(zip(pages, page_values))} values a slot: {want}")
     if got != want:
         raise AssertionError(f"[{tag}] counters differ from the schedule")
     if [len(r.out_tokens) for r in reqs] != [LM_MAX_NEW] * LM_REQUESTS:
         raise AssertionError(f"[{tag}] a request did not get its tokens")
-    for name, c in (("pos_0/k", eng.cache["pos_0"]["k"]),
-                    ("pos_0/v", eng.cache["pos_0"]["v"])):
+    worst, worst_at = 0.0, None
+    for name, c in _page_names(eng.cache):
         if not bit_equal(torch, c[:, 1], parked[name]):
             raise AssertionError(f"[{tag}] resident restore of {name} is "
                                  f"not bit for bit")
         page = evicted[name]
         rel = float((c[:, 0] - page).abs().max() / page.abs().max())
-        print(f"[{tag}] restores of {name}: resident bit for bit; host "
-              f"(request {host_rid}) max|restored - page| / max|page| "
-              f"{rel:.4f} (bound {LM_BFP8_REL})")
         if not 0.0 < rel < LM_BFP8_REL:
             raise AssertionError(f"[{tag}] host restore of {name} off by "
                                  f"{rel}")
+        if rel > worst:
+            worst, worst_at = rel, name
+    state_set = 4 * sum(v for n, v in zip(pages, page_values) if n in state)
+    print(f"[{tag}] restores of all {len(page_values)} leaves: resident bit "
+          f"for bit; host (request {host_rid}) max|restored - page| / "
+          f"max|page| at most {worst:.4f} ({worst_at}; bound {LM_BFP8_REL}); "
+          f"host BFP8 codec on one slot's page-set ({4 * sum(page_values)} "
+          f"f32 bytes, {state_set} of them recurrent state): device -> host "
+          f"copy and encode {statistics.median(evict_s):.3f} s a set "
+          f"(median of {len(evict_s)}), decode and restore {restore_s:.3f} "
+          f"s; {on}")
     print(f"[{tag}] {LM_REQUESTS} requests ({list(map(int, lengths))} prompt "
-          f"tokens) through {LM_SLOTS} slots: {served_s:.3f} s to drain, "
+          f"tokens) through {LM_SLOTS} slots: {served_s:.3f} s to drain "
+          f"({sum(evict_s):.3f} s of it in host evictions), "
           f"{got['generated_tokens'] / served_s:.1f} generated tokens/s; "
           f"launches {({k: n for k, n in counts.items() if n})}; peak device "
           f"memory {peak} bytes ({peak - base} above weights and cache); "
           f"{on}")
+    del evicted, parked
 
-    # -- the kernel route against the plain route, on the same weights --------
+    if n_attn == 0:
+        print(f"[{tag}] no attention layer: the path launches no kernel, and "
+              f"its kernel route and plain route are one computation")
+        decode_equivalence(torch, cfg, params, tag)
+    else:
+        lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw)
+
+    # -- times ----------------------------------------------------------------
+    ms = []
+    for p in prompts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_prefill(p)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[{tag}] prefill ms per request (host clock, kernel route, "
+          f"{on}): " + ", ".join(f"{n}: {t:.3f}"
+                                 for n, t in zip(lengths, ms)))
+    token = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((LM_SLOTS,), 600, dtype=torch.int64, device="cuda")
+
+    def one_step():
+        logits, _ = decode_step(params, cfg, token, pos, eng.cache)
+        return logits.argmax(-1).cpu()
+    one_step()
+    torch.cuda.synchronize()
+    steps = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        one_step()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(steps)
+    cache_bytes = sum(t.numel() * 4 for _, t in _page_names(eng.cache))
+    state_bytes = sum(t.numel() * 4 for n, t in _page_names(eng.cache)
+                      if n in state)
+    read = w_bytes - 4 * params["embed"].numel() + cache_bytes + state_bytes
+    b_ms = read / PEAK_HBM_BYTES_S * 1e3
+    print(f"[{tag}] decode: {step_ms:.3f} ms per lockstep step of "
+          f"{LM_SLOTS} slots (median of 10, host clock to the sampled "
+          f"tokens), bound {b_ms:.3f} ms ({read} bytes: every weight but the "
+          f"embedding table, of which 4 rows are read, the cache read once "
+          f"and its {state_bytes} bytes of recurrent state written once, at "
+          f"3.35 TB/s); {LM_SLOTS / step_ms * 1e3:.1f} tokens/s in steady "
+          f"decode; {on}")
+    profile_device(torch, f"[{tag}] profile of one decode step", one_step,
+                   step_ms)
+    profile_host(torch, f"[{tag}] host profile of one decode step",
+                 one_step)
+    long = prompts[0]
+    profile_device(torch, f"[{tag}] profile of one prefill ({len(long)} "
+                   f"tokens)", lambda: eng.run_prefill(long), ms[0])
+    if state:
+        profile_host(torch, f"[{tag}] host profile of one prefill "
+                     f"({len(long)} tokens)", lambda: eng.run_prefill(long))
+    del eng, params
+    return counts, shapes
+
+
+def lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw) -> None:
+    """The kernel route against the plain route on the same weights: every
+    prefill again on both (first-token logits and every cache leaf within
+    LM_TOL of max|plain|), then the token streams; with a mixture of
+    experts the router's choices of every prefill and decode step
+    (``moe_prefill_check``, ``moe_streams``)."""
+    import numpy as np
+    from repro_torch.serving import ServingEngine
     log = LastLogits(torch)
     plain = ServingEngine(cfg, params, kernel_mode="reference", sampler=log,
                           **kw)
@@ -1737,16 +1935,23 @@ def lm_serve_phase(torch, library, arch: str, tag: str):
             raise AssertionError(f"[{tag}] request {i}: rerun's first token "
                                  f"is not the served one")
         pages = [(f"{pj}/{n}", ck[pj][n], cp[pj][n]) for pj in cp
-                 for n in ("k", "v")]
+                 for n in cp[pj]]
         if held is not None:
-            # the groups up to the layer whose routing parted: their KV is
+            # the layers before the one whose routing parted (layer g *
+            # group_size + j holds group g of position j): their caches are
             # computed before the flipped experts' output
-            n = -(-held // cfg.group_size)
-            pages = [(f"{what}[:{n}]", g[:n], w[:n]) for what, g, w in pages]
+            kept = []
+            for what, g, w in pages:
+                j = int(what.split("/")[0][len("pos_"):])
+                n = max(-(-(held - j) // cfg.group_size), 0)
+                if n:
+                    kept.append((f"{what}[:{n}]", g[:n], w[:n]))
+            pages = kept
         else:
             pages.insert(0, ("logits", lk, lp))
         for what, g, w in pages:
-            err = float((g - w).abs().max()) / float(w.abs().max())
+            err = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                   1e-30)
             worst = max(worst, err)
             if err > LM_TOL:
                 raise AssertionError(f"[{tag}] request {i} {what}: kernel vs "
@@ -1761,9 +1966,9 @@ def lm_serve_phase(torch, library, arch: str, tag: str):
                 raise AssertionError(f"[{tag}] request {i}: first tokens "
                                      f"differ past a tie")
         del ck, cp
-    print(f"[{tag}] kernel vs plain route, first-token logits and every KV "
-          f"page of the 8 prefills: max|kernel - plain| at most {worst:.3e} "
-          f"of max|plain| (tol {LM_TOL})")
+    print(f"[{tag}] kernel vs plain route, first-token logits and every "
+          f"cache leaf of the 8 prefills: max|kernel - plain| at most "
+          f"{worst:.3e} of max|plain| (tol {LM_TOL})")
     if cfg.moe is not None:
         moe_streams(torch, cfg, tag, params, prompts, reqs, plain, log, kw)
     else:
@@ -1791,51 +1996,6 @@ def lm_serve_phase(torch, library, arch: str, tag: str):
               f"{sum(r.out_tokens == q.out_tokens for r, q in zip(reqs, plain_reqs))}"
               f" of {LM_REQUESTS} equal")
     del plain
-
-    # -- times ----------------------------------------------------------------
-    ms = []
-    for p in prompts:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run_prefill(p)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"[{tag}] prefill ms per request (host clock, kernel route, "
-          f"{on}): " + ", ".join(f"{n}: {t:.3f}"
-                                 for n, t in zip(lengths, ms)))
-    token = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device="cuda")
-    pos = torch.full((LM_SLOTS,), 600, dtype=torch.int64, device="cuda")
-
-    def one_step():
-        logits, _ = decode_step(params, cfg, token, pos, eng.cache)
-        return logits.argmax(-1).cpu()
-    one_step()
-    torch.cuda.synchronize()
-    steps = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        one_step()
-        steps.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(steps)
-    cache_bytes = sum(t.numel() * 4 for lv in eng.cache.values()
-                      for t in lv.values())
-    read = w_bytes - 4 * params["embed"].numel() + cache_bytes
-    b_ms = read / PEAK_HBM_BYTES_S * 1e3
-    print(f"[{tag}] decode: {step_ms:.3f} ms per lockstep step of "
-          f"{LM_SLOTS} slots (median of 10, host clock to the sampled "
-          f"tokens), bound {b_ms:.3f} ms ({read} bytes: every weight but the "
-          f"embedding table, of which 4 rows are read, and the KV cache, "
-          f"once, at 3.35 TB/s); {LM_SLOTS / step_ms * 1e3:.1f} tokens/s in "
-          f"steady decode; {on}")
-    profile_device(torch, f"[{tag}] profile of one decode step", one_step,
-                   step_ms)
-    profile_host(torch, f"[{tag}] host profile of one decode step",
-                 one_step)
-    long = prompts[0]
-    profile_device(torch, f"[{tag}] profile of one prefill ({len(long)} "
-                   f"tokens)", lambda: eng.run_prefill(long), ms[0])
-    del eng, params, evicted, parked
-    return counts, shapes
 
 
 def train_phase(torch, library):
@@ -2462,6 +2622,21 @@ def profile_host(torch, label: str, fn, top: int = 8) -> None:
           f"time of their own: " + "; ".join(
               f"{pstats.func_std_string(f)[-60:]} {tt * 1e3:.3f} ms x{nc}"
               for f, (_, nc, tt, _, _) in rows))
+    # the recurrent mixers' share of the host time: the cumulative time of
+    # each models/ssm.py function that no other function of that file calls
+    # (a generator expression is inside its function's time already)
+    ssm = {f: v for f, v in st.stats.items()
+           if f[0].endswith("models/ssm.py") and not f[2].startswith("<")}
+    entries = {f: v[3] for f, v in ssm.items()
+               if not any(c in ssm for c in v[4])}
+    if entries:
+        inside = sum(entries.values())
+        print(f"{label}: host time inside the recurrent mixers "
+              f"(models/ssm.py) {inside * 1e3:.3f} ms, share "
+              f"{inside / st.total_tt:.3f} of the host time; by entry: "
+              + "; ".join(f"{f[2]} {ct * 1e3:.3f} ms x{ssm[f][1]}"
+                          for f, ct in sorted(entries.items(),
+                                              key=lambda kv: -kv[1])))
 
 
 def stream_phase(torch, repro_torch, path: StreamPath, main, staged, refc):
@@ -2608,9 +2783,9 @@ def main() -> int:
     fuzzed = fuzz_phase(torch, library)
     t2 = time.perf_counter()
     lm, lm_s = {}, {}
-    for arch, tag in LM_PATHS:
+    for arch, tag, n_layers in LM_PATHS:
         t3 = time.perf_counter()
-        lm[tag] = lm_serve_phase(torch, library, arch, tag)
+        lm[tag] = lm_serve_phase(torch, library, arch, tag, n_layers)
         # the model is released: the next LM path, then phase 4, start
         # with the card's memory free
         gc.collect()

@@ -36,6 +36,12 @@ Spec knobs
 ``kernel_mode``  ``auto`` (kernels on a CUDA device, their plain versions
                  on the CPU), ``cuda`` (``auto`` that refuses the CPU) or
                  ``reference`` (plain bodies only).
+``use_pallas``   the reference's boolean shorthand over ``kernel_mode``:
+                 ``True`` is the kernel route (``kernel_route``: ``cuda``
+                 on a CUDA ``torch_device``, ``auto`` on the CPU, as a
+                 loaded artifact's ``"pallas"``), ``False`` is
+                 ``reference``, ``None`` leaves ``kernel_mode`` in charge
+                 (``resolved_kernel_mode``).
 ``strategy``     ``dse`` (Algorithm 1), ``autotune`` (the closed-loop
                  search of ``optim/autotune.py``: every candidate plan runs
                  through the pipelined streamer on ``torch_device``, the
@@ -79,7 +85,7 @@ from .core.builders import (EXEC_MODELS, PAPER_MODELS, exec_input_shape,
 from .core.dse import DSEConfig, run_dse
 from .core.graph import Graph
 from .core.plan import ExecutionPlan, PLAN_SCHEMA_VERSION, plan_from_dse
-from .core.resources import ALL_DEVICES, Device, get_device
+from .core.resources import ALL_DEVICES, GPU_SHEETS, Device, get_device
 from .memory import POLICIES, ChannelConfig
 from .obs.metrics import MetricsRegistry
 from .obs.trace import NULL_RECORDER, ObsConfig, TraceRecorder
@@ -127,6 +133,7 @@ class CompileSpec:
     mode: str = "staged"               # reference | staged | pipelined
     kernel_mode: str = "auto"          # auto | cuda | reference
     microbatches: int = 8              # pipelined stream depth B
+    use_pallas: bool | None = None     # bool shorthand over kernel_mode
     seed: int = 0
     plan: ExecutionPlan | None = None  # strategy="manual-plan" input
     dse: DSEConfig | None = None       # strategy="dse" knobs
@@ -138,6 +145,12 @@ class CompileSpec:
     #: contended Eq. 5/6 bounds and prefetch deadline accounting.
     channel: ChannelConfig | None = None
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+
+    def resolved_kernel_mode(self) -> str:
+        if self.use_pallas is None:
+            return self.kernel_mode
+        return kernel_route(self.torch_device) if self.use_pallas \
+            else "reference"
 
     def validate(self) -> None:
         if self.mode not in MODES:
@@ -173,6 +186,8 @@ def _resolve_graph(spec: CompileSpec) -> Graph:
 def _resolve_device(spec: CompileSpec) -> Device:
     if isinstance(spec.device, Device):
         return spec.device
+    if spec.device in GPU_SHEETS:          # a loaded H100-sheet artifact
+        return GPU_SHEETS[spec.device]
     return get_device(spec.device)
 
 
@@ -208,8 +223,9 @@ def _search(spec: CompileSpec, graph: Graph | None = None, *,
     elif spec.strategy == "autotune":
         from .optim.autotune import AutotuneConfig, autotune
         cfg = spec.autotune_cfg or AutotuneConfig(
-            microbatches=spec.microbatches, kernel_mode=spec.kernel_mode,
-            seed=spec.seed, torch_device=spec.torch_device)
+            microbatches=spec.microbatches,
+            kernel_mode=spec.resolved_kernel_mode(), seed=spec.seed,
+            torch_device=spec.torch_device)
         rec = TraceRecorder() if spec.obs.enabled else NULL_RECORDER
         result = autotune(g, _resolve_device(spec), cfg, recorder=rec,
                           metrics=metrics)
@@ -240,14 +256,15 @@ def _search(spec: CompileSpec, graph: Graph | None = None, *,
     return plan, result
 
 
-def build_plan(spec: CompileSpec, graph: Graph | None = None
-               ) -> ExecutionPlan | None:
-    """Resolve the spec's decision vector (``None`` for
-    ``mode="reference"``), stamped with its provenance.  For
-    ``strategy="autotune"`` this runs the whole measured search; the
-    result itself comes with :func:`compile` (``Compiled.autotune_result``).
-    """
-    return _search(spec, graph)[0]
+def build_plan(spec: CompileSpec, graph: Graph | None = None, *,
+               metrics: MetricsRegistry | None = None
+               ) -> tuple[ExecutionPlan | None, Any]:
+    """Resolve the spec's decision vector: ``(plan, autotune_result)``,
+    the plan stamped with its provenance; ``(None, None)`` for
+    ``mode="reference"``, and ``autotune_result=None`` unless
+    ``strategy="autotune"`` (the whole measured search runs here, its
+    telemetry into ``metrics``)."""
+    return _search(spec, graph, metrics=metrics)
 
 
 def compile(spec: CompileSpec) -> "Compiled":
@@ -256,13 +273,14 @@ def compile(spec: CompileSpec) -> "Compiled":
     # one registry per artifact: the autotune search, traced runs and any
     # server built from this compile all land on the same scrape surface
     registry = MetricsRegistry()
-    plan, autotune_result = _search(spec, g, metrics=registry)
+    plan, autotune_result = build_plan(spec, g, metrics=registry)
+    km = spec.resolved_kernel_mode()
     if spec.mode == "reference":
         executor = reference_pipeline(g, seed=spec.seed,
                                       device=spec.torch_device)
     elif spec.mode == "staged":
-        executor = lower_plan(g, plan, kernel_mode=spec.kernel_mode,
-                              seed=spec.seed, device=spec.torch_device)
+        executor = lower_plan(g, plan, kernel_mode=km, seed=spec.seed,
+                              device=spec.torch_device)
     else:                                     # "pipelined"
         B = spec.microbatches
         if autotune_result is not None:       # serve at the measured depth
@@ -273,7 +291,7 @@ def compile(spec: CompileSpec) -> "Compiled":
             dev = None
         executor = lower_plan_pipelined(
             g, plan, microbatches=B,
-            kernel_mode=spec.kernel_mode, seed=spec.seed,
+            kernel_mode=km, seed=spec.seed,
             placement=spec.placement, channel=spec.channel,
             channel_device=dev, device=spec.torch_device)
     return Compiled(spec=spec, graph=g, device=_device_name(spec, plan),
@@ -344,7 +362,7 @@ class Compiled:
             "torch_device": str(self.executor.device),
             "mode": self.mode,
             "strategy": self.strategy,
-            "kernel_mode": self.spec.kernel_mode,
+            "kernel_mode": self.spec.resolved_kernel_mode(),
             "schema_version": (self.plan.schema_version if self.plan
                                else PLAN_SCHEMA_VERSION),
             "n_stages": self.plan.n_stages if self.plan else 1,
@@ -499,7 +517,8 @@ class Compiled:
             "device": self.device,
             "mode": self.mode,
             "strategy": self.strategy,   # decision origin: save/load-stable
-            "kernel_mode": _ARTIFACT_KERNEL_MODE[self.spec.kernel_mode],
+            "kernel_mode": _ARTIFACT_KERNEL_MODE[
+                self.spec.resolved_kernel_mode()],
             "interpret": None,
             "microbatches": B,
             "seed": self.spec.seed,

@@ -129,6 +129,9 @@ H100_RUNTIME = Device(
 # the sheets a name selects (CompileSpec.device): the FPGA devices only;
 # the H100 views are passed as Device instances
 ALL_DEVICES = dict(FPGA_DEVICES)
+# the non-FPGA sheets by name: a plan made on one records that name as its
+# device, and an artifact loaded from it finds its sheet here
+GPU_SHEETS = {d.name: d for d in (H100_KERNEL, H100_RUNTIME)}
 
 
 def get_device(name: str) -> Device:
@@ -136,3 +139,9 @@ def get_device(name: str) -> Device:
         return ALL_DEVICES[name]
     except KeyError:
         raise KeyError(f"unknown device {name!r}; have {sorted(ALL_DEVICES)}") from None
+
+
+def find_sheet(name: str) -> Device | None:
+    """The sheet a recorded device name stands for, FPGA or GPU, or
+    ``None``."""
+    return ALL_DEVICES.get(name) or GPU_SHEETS.get(name)

@@ -11,7 +11,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import torch
+
 from . import ref, streaming_conv
+from .bfp8 import bfp8_dequant, bfp8_quant
 from .flash_attention import flash_attention
 from .library import (LAUNCHES, KernelLibrary, launches, load_library,
                       reset_launches)
@@ -71,6 +74,17 @@ def flash_attn(q, k, v, *, causal: bool = True):
     return flash_attention(q, k, v, causal=causal)
 
 
+def evict_encode(x, *, block: int = 32):
+    """Quantise an (R, C) eviction stream to BFP8 before it leaves the
+    device: (int8 mantissas (R, C), int8 exponents (R, C // block))."""
+    return bfp8_quant(x, block=block)
+
+
+def evict_decode(man, exp, *, block: int = 32, dtype=torch.float32):
+    """The inverse of :func:`evict_encode`."""
+    return bfp8_dequant(man, exp, block=block, dtype=dtype)
+
+
 def fusable_kinds() -> tuple[str, ...]:
     """Op kinds whose kernel wrapper fuses the BFP8 boundary codec."""
     return tuple(k for k, e in KERNEL_REGISTRY.items() if e.fuse_bfp8)
@@ -81,5 +95,6 @@ def lowerable_kinds() -> tuple[str, ...]:
 
 
 __all__ = ["KernelEntry", "KERNEL_REGISTRY", "kernel_for", "fusable_kinds",
-           "lowerable_kinds", "flash_attn", "flash_attention", "LAUNCHES",
+           "lowerable_kinds", "flash_attn", "flash_attention", "evict_encode",
+           "evict_decode", "LAUNCHES",
            "KernelLibrary", "launches", "load_library", "reset_launches"]

@@ -7,19 +7,23 @@ Parameters keep the reference's pytree layout, stacked over *layer groups*
 (one period of the layer pattern): ``{"embed", "groups": {"pos_j": {...}},
 "final_norm", "lm_head"}`` with a leading group axis on every leaf under
 ``groups``, so a tree from the reference's ``init_params`` carries over
-leaf for leaf (:func:`params_from_numpy`).  The KV cache keeps the
-reference's layout too, ``{"pos_j": {"k", "v"}}`` of shape ``(n_groups, B,
-s_max, KH, D)``, so its pages compare 1:1.  The reference scans over the
-groups; here a Python loop runs them in the same order, each stacked
+leaf for leaf (:func:`params_from_numpy`).  The cache keeps the
+reference's layout too, ``{"pos_j": {...}}`` with a leading group axis on
+every leaf: an attention position's ``{"k", "v"}`` of shape ``(n_groups,
+B, s_max, KH, D)``, a Mamba, mLSTM or sLSTM position's recurrent state
+(``models/ssm.py``), so its pages compare 1:1.  The reference scans over
+the groups; here a Python loop runs them in the same order, each stacked
 leaf unbound once per forward (``unbind``'s backward stacks the group
 slices' gradients once, where a per-group index would add a zero-filled
 copy of the whole leaf per group).
 
-Attention layers with a dense FFN or a mixture of experts run in this
-port (the dense families, olmoe, grok-1); ``forward`` returns the experts'
-load-balancing loss summed over layers, as the reference does.  Mamba,
-mLSTM, sLSTM, encoder-decoder (whisper) and M-RoPE raise
-``NotImplementedError`` (ROADMAP.md, Queue 1, item 11).  :func:`lm_loss`
+Each position's mixer is attention, Mamba, mLSTM or sLSTM, by the layer
+pattern (the dense families, olmoe, grok-1, the hybrid jamba, xlstm), and a
+dense FFN or a mixture of experts follows it where the config has one;
+``forward`` returns the experts' load-balancing loss summed over layers,
+as the reference does.  Encoder-decoder (whisper) and M-RoPE (qwen2-vl)
+raise ``NotImplementedError`` (ROADMAP.md, Queue 1, item 11); training
+runs the attention families only (Queue 1, item 15).  :func:`lm_loss`
 is the reference's chunked next-token cross-entropy, and ``remat`` its
 rematerialisation of each layer group: ``"full"`` recomputes a group in the
 backward (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
@@ -37,6 +41,7 @@ from torch.utils import checkpoint as ckpt
 
 from . import attention as A
 from . import moe as M
+from . import ssm as S
 from .common import apply_norm, dense_init, norm_params
 from .config import ArchConfig
 
@@ -46,13 +51,25 @@ LOSS_CHUNK = 512
 REMAT = ("none", "full", "dots")
 
 
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+
+
 def _check_supported(cfg: ArchConfig) -> None:
     kinds = {cfg.layer_kind(j) for j in range(cfg.group_size)}
-    if kinds != {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: mixers {sorted(kinds - {'attn'})} {_LATER}")
+    if not kinds <= set(MIXERS):
+        raise ValueError(f"{cfg.name}: unknown mixers "
+                         f"{sorted(kinds - set(MIXERS))}")
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder {_LATER}")
+    if cfg.rope == "mrope":
+        raise NotImplementedError(f"{cfg.name}: M-RoPE {_LATER}")
+
+
+def _mixer_params(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype,
+                  lead: tuple) -> dict:
+    if kind == "attn":
+        return A.attn_params(gen, cfg, dtype, lead)
+    return getattr(S, f"{kind}_params")(gen, cfg, dtype, lead)
 
 
 # =============================================================================
@@ -74,7 +91,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
     groups = {}
     for j in range(cfg.group_size):
         lp = {"norm1": norm_params(cfg.norm, cfg.d_model, dtype, dev, lead),
-              "mixer": A.attn_params(gen, cfg, dtype, lead)}
+              "mixer": _mixer_params(gen, cfg.layer_kind(j), cfg, dtype,
+                                     lead)}
         if cfg.d_ff > 0:
             lp["norm2"] = norm_params(cfg.norm, cfg.d_model, dtype, dev,
                                       lead)
@@ -115,14 +133,33 @@ def _tree(flat: dict) -> dict:
     return out
 
 
+def _mixer_shapes(kind: str, cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
+    """The shapes of one mixer's parameters, as ``models/ssm.py`` and
+    ``attention.attn_params`` make them."""
+    d, hd, H = cfg.d_model, cfg.hd, cfg.n_heads
+    di, ds = cfg.d_inner, cfg.d_state
+    if kind == "attn":
+        return {"wq": (d, H * hd), "wk": (d, cfg.n_kv_heads * hd),
+                "wv": (d, cfg.n_kv_heads * hd), "wo": (H * hd, d)}
+    if kind == "mamba":
+        dt_rank = max(di // 16, 1)
+        return {"in_proj": (d, 2 * di), "conv_w": (cfg.d_conv, di),
+                "x_proj": (di, dt_rank + 2 * ds), "dt_proj": (dt_rank, di),
+                "A_log": (di, ds), "D": (di,), "out_proj": (di, d)}
+    if kind == "mlstm":
+        return {"in_proj": (d, 2 * di), "wq": (di,), "wk": (di,),
+                "gate_proj": (d, 2 * H), "gate_bias": (2 * H,),
+                "out_proj": (di, d)}
+    dh = d // H                                          # slstm
+    return {"w_in": (d, 4 * d), "r": (H, dh, 4 * dh), "bias": (4 * d,),
+            "out_proj": (d, d)}
+
+
 def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
     """Every parameter's ``"/"``-joined tree path and shape."""
     _check_supported(cfg)
-    d, hd, ng = cfg.d_model, cfg.hd, cfg.n_groups
-    layer = {"norm1/w": (d,), "mixer/wq": (d, cfg.n_heads * hd),
-             "mixer/wk": (d, cfg.n_kv_heads * hd),
-             "mixer/wv": (d, cfg.n_kv_heads * hd),
-             "mixer/wo": (cfg.n_heads * hd, d)}
+    d, ng = cfg.d_model, cfg.n_groups
+    layer = {"norm1/w": (d,)}
     if cfg.norm == "layernorm":
         layer["norm1/b"] = (d,)
     if cfg.d_ff > 0:
@@ -142,8 +179,10 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
             moe["moe/w_gate"] = (E, d, cfg.d_ff)
     out = {"embed": (cfg.vocab, d)}
     for j in range(cfg.group_size):
-        leaves = layer | ((moe if cfg.layer_is_moe(j) else ffn)
-                          if cfg.d_ff > 0 else {})
+        mixer = {f"mixer/{k}": s for k, s in
+                 _mixer_shapes(cfg.layer_kind(j), cfg).items()}
+        leaves = layer | mixer | ((moe if cfg.layer_is_moe(j) else ffn)
+                                  if cfg.d_ff > 0 else {})
         out |= {f"groups/pos_{j}/{k}": (ng,) + s for k, s in leaves.items()}
     out["final_norm/w"] = (d,)
     if cfg.norm == "layernorm":
@@ -186,29 +225,40 @@ def param_count(params: Params) -> int:
 def _apply_layer(lp: dict, x: torch.Tensor, cfg: ArchConfig, layer_idx: int,
                  *, pos: torch.Tensor, cache: dict | None = None, mode: str,
                  use_kernels: bool = True):
-    """One transformer layer.  mode: "full" (prefill) | "decode".  Returns
-    (x, new_cache, aux): aux is the MoE load-balancing loss, None for a
-    dense layer."""
+    """One layer: its mixer, then its FFN or mixture of experts.  mode:
+    "full" (prefill) | "decode".  Returns (x, new_cache, aux): aux is the
+    MoE load-balancing loss, None for a dense layer.  A decode writes the
+    cache in place: attention at ``pos``, the recurrent mixers their whole
+    state (``copy_``), so the caller's tensors stay the cache."""
     kind = cfg.layer_kind(layer_idx)
-    if kind != "attn":
-        raise NotImplementedError(f"{kind} layers {_LATER}")
     if "cross" in lp:
         raise NotImplementedError(f"cross-attention layers {_LATER}")
     aux = None
     h = apply_norm(cfg.norm, x, lp["norm1"])
     new_cache: dict = {}
-    if mode == "full":
+    if kind != "attn":
+        if mode == "full":
+            out, st = getattr(S, f"{kind}_forward")(lp["mixer"], h, cfg)
+            if cache is not None:
+                new_cache = {n: t.to(cache[n].dtype) for n, t in st.items()}
+        else:
+            out, st = getattr(S, f"{kind}_decode")(lp["mixer"], h, cfg,
+                                                   cache)
+            for n, t in st.items():
+                cache[n].copy_(t)
+            new_cache = cache
+    elif mode == "full":
         # cache production == serving prefill == forward-only: the
         # causal-block-skipping attention (and its kernel) is safe
         out, (k, v) = A.prefill_attention(lp["mixer"], h, cfg, pos,
                                           inference=cache is not None,
                                           use_kernels=use_kernels)
         if cache is not None:
-            S = k.shape[1]
+            Sq = k.shape[1]
             new_cache = {}
             for name, t in (("k", k), ("v", v)):
                 c = torch.zeros_like(cache[name])
-                c[:, :S] = t.to(c.dtype)
+                c[:, :Sq] = t.to(c.dtype)
                 new_cache[name] = c
     else:
         out, (ck, cv) = A.decode_attention(
@@ -270,13 +320,24 @@ def _remat(fn, remat: str):
 def init_cache(cfg: ArchConfig, batch: int, s_max: int,
                dtype=torch.float32, device: str | torch.device = "cuda"
                ) -> dict:
-    """Stacked-over-groups cache: ``{pos_j: {"k", "v"}}``, each
-    (n_groups, batch, s_max, KH, D), zeros."""
+    """Stacked-over-groups cache, zeros: ``{pos_j: state}``, every leaf
+    with the leading axis n_groups; an attention position's ``{"k", "v"}``
+    (n_groups, batch, s_max, KH, D) of ``dtype``, a recurrent mixer's
+    state as ``models/ssm.py``'s ``*_cache`` makes it (f32, Mamba's
+    ``conv`` window of ``dtype``)."""
     _check_supported(cfg)
-    shape = (cfg.n_groups, batch, s_max, cfg.n_kv_heads, cfg.hd)
-    return {f"pos_{j}": {n: torch.zeros(shape, dtype=dtype, device=device)
-                         for n in ("k", "v")}
-            for j in range(cfg.group_size)}
+    cache = {}
+    for j in range(cfg.group_size):
+        kind = cfg.layer_kind(j)
+        if kind == "attn":
+            shape = (batch, s_max, cfg.n_kv_heads, cfg.hd)
+            c = {n: torch.zeros(shape, dtype=dtype, device=device)
+                 for n in ("k", "v")}
+        else:
+            c = getattr(S, f"{kind}_cache")(batch, cfg, dtype, device)
+        cache[f"pos_{j}"] = {n: t.new_zeros((cfg.n_groups,) + t.shape)
+                             for n, t in c.items()}
+    return cache
 
 
 # =============================================================================
@@ -333,14 +394,15 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         per_group.append(new_gc)
     x = apply_norm(cfg.norm, x, params["final_norm"])
     new_cache = {pj: {n: torch.stack([pg[pj][n] for pg in per_group])
-                      for n in ("k", "v")} for pj in cache}
+                      for n in leaves} for pj, leaves in cache.items()}
     return x, new_cache, aux
 
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
                 pos: torch.Tensor, cache: dict):
     """One decode step.  token: (B, 1); pos: (B,).  Returns (logits,
-    cache); the cache's tensors are updated in place at ``pos``."""
+    cache); the cache's tensors are updated in place (attention's at
+    ``pos``, a recurrent mixer's whole state)."""
     _check_supported(cfg)
     x = F.embedding(token, params["embed"])
     for g in range(cfg.n_groups):
@@ -366,6 +428,11 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     ``min(LOSS_CHUNK, S)`` rows, each recomputed in the backward, so the
     full (B, S, V) logits tensor never materialises; plus 0.01 times the
     experts' load-balancing loss, as the reference's."""
+    kinds = {cfg.layer_kind(j) for j in range(cfg.group_size)}
+    if kinds != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: training on {sorted(kinds - {'attn'})} mixers is "
+            f"not ported yet (ROADMAP.md, Queue 1, item 15)")
     x, _, aux = forward(params, cfg, tokens, remat=remat,
                         use_kernels=use_kernels)
     B, Sq, _ = x.shape

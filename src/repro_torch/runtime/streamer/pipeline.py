@@ -35,7 +35,7 @@ import torch
 
 from ...core.graph import Graph
 from ...core.plan import ExecutionPlan, PlanValidationError
-from ...core.resources import ALL_DEVICES
+from ...core.resources import find_sheet
 from ...kernels.streamed_matmul import _round_up
 from ...memory import ChannelConfig, MemoryModel, build_memory_model
 from ...obs.modelcheck import ModelCheck, check_stream
@@ -452,11 +452,11 @@ def _resolve_channel_device(channel: ChannelConfig,
     object), then the plan's recorded device name."""
     dev = None
     if isinstance(device, str):
-        dev = ALL_DEVICES.get(device)
+        dev = find_sheet(device)
     elif device is not None:
         dev = device
     if dev is None:
-        dev = ALL_DEVICES.get(plan.device)
+        dev = find_sheet(plan.device)
     if dev is not None:
         gbps = channel.gbps if channel.gbps is not None else dev.offchip_gbps
         return gbps, dev.freq_mhz

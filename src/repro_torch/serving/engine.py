@@ -7,8 +7,9 @@ The counterparts of the reference package's ``serving/engine.py``.
 decode slots (continuous batching — a finished request's slot is refilled
 at the next step); each prompt is prefilled on its own into its slot, and
 decode advances all slots in lockstep.  The paper's activation eviction
-shows up as KV-page eviction: a finished request's pages stay parked in
-device memory while ``resident_limit`` allows, and older page-sets spill to
+shows up as cache-page eviction: a finished request's pages (one per cache
+leaf: attention's KV, a Mamba, mLSTM or sLSTM layer's recurrent state)
+stay parked in device memory while ``resident_limit`` allows, and older page-sets spill to
 the host oldest-first through the BFP8 codec (the host-side
 ``core.compression`` copy, as in the reference), so the eviction order is
 the retirement order.  ``restore_request`` brings them back, exactly from
@@ -371,13 +372,26 @@ class GraphStreamServer:
     dropped), runs each stream through the executor once, and hands results
     back by ticket.
 
-    It wraps a lowered ``StreamingExecutor``; ``Compiled.serve()`` builds
-    one around a compiled design (re-lowering the plan pipelined when it
-    has to) and shares the design's metrics registry with it.
+    Construction goes through the compile façade (``repro_torch.api``):
+    pass a lowered ``StreamingExecutor`` (``executor=``, what
+    ``Compiled.serve()`` does, sharing the design's metrics registry), a
+    ready :class:`~repro_torch.api.CompileSpec` (``spec=``), or the
+    reference's ``(g, plan, microbatches=..., **lowering knobs)`` form,
+    which is folded into a ``manual-plan`` pipelined spec (``torch_device``
+    is one of the knobs, ``"cuda"`` unless given).
     """
 
-    def __init__(self, executor, *, metrics: MetricsRegistry | None = None,
-                 resident_limit: int = 0):
+    def __init__(self, g=None, plan=None, *, microbatches: int = 8,
+                 executor=None, spec=None,
+                 metrics: MetricsRegistry | None = None, slo=None,
+                 resident_limit: int = 0, **lower_kw):
+        if executor is None:
+            from ..api import CompileSpec, compile as smof_compile
+            if spec is None:
+                spec = CompileSpec(model=g, strategy="manual-plan",
+                                   mode="pipelined", plan=plan,
+                                   microbatches=microbatches, **lower_kw)
+            executor = smof_compile(spec).executor
         self.executor = executor
         self.microbatches = executor.microbatches
         self.device = executor.device
@@ -411,7 +425,7 @@ class GraphStreamServer:
         # queueing delay + padding bubbles + the stream's pipeline run; the
         # same LatencyHistogram the registry histogram exposes
         self.latency = self._h_latency.labels().hist
-        self.slo = None                      # obs.slo.SloEvaluator | None
+        self.slo = slo                       # obs.slo.SloEvaluator | None
         self.autotune_result = None          # set by .autotuned()
         self.flight = None                   # obs.flight.FlightRecorder | None
         # per stream executed, every spill record moves offchip_bits once
@@ -542,30 +556,41 @@ class GraphStreamServer:
         """Prometheus text exposition of this server's registry."""
         return self.metrics.metrics_text()
 
-    def enable_slo(self, cfg=None, *, bw_gbps=None):
-        """Attach a rolling-window SLO evaluator, re-scored on every flush.
-
-        ``bw_gbps`` is the device's off-chip budget for the spill-bandwidth
-        objective.  The fps objective's roofline is the served plan's Eq. 6
-        bound, ``1 / (eq6_cycles * s_per_cycle)``, when the plan's
-        provenance carries a calibrated ``s_per_cycle`` (DSE plans carry
-        none, and the objective is then off).  The split evict/restore
-        objectives are scored against the arbiter's per-kind grants when
-        the plan was lowered with a channel model.  Returns the evaluator
-        so callers can hook ``on_breach`` (e.g.
-        ``FlightRecorder.on_slo_report``).
-        """
-        from ..obs.slo import SloEvaluator
-        report = self.executor.report
+    def roofline_fps(self) -> float | None:
+        """The served plan's Eq. 6 throughput bound in frames/s, when the
+        plan's provenance carries a calibrated ``s_per_cycle`` (autotuned
+        artifacts do): ``1 / (eq6_cycles * s_per_cycle)``."""
         plan = getattr(self.executor, "plan", None)
         spc = plan.provenance.get("s_per_cycle") if plan is not None else None
-        eq6 = getattr(report, "eq6_time", None)
-        mem = getattr(report, "memory", None)
-        self.slo = SloEvaluator(
-            cfg, roofline_fps=1.0 / (eq6 * spc) if spc and eq6 else None,
-            bw_gbps=bw_gbps, latency=self.latency,
-            stream_budgets=mem.budget_gbps_by_kind() if mem is not None
-            else None)
+        eq6 = getattr(self.executor.report, "eq6_time", None)
+        if spc and eq6:
+            return 1.0 / (eq6 * spc)
+        return None
+
+    def enable_slo(self, cfg=None, *, roofline_fps=None, bw_gbps=None,
+                   stream_budgets=None):
+        """Attach a rolling-window SLO evaluator, re-scored on every flush.
+
+        ``roofline_fps`` defaults to :meth:`roofline_fps` (calibrated plans
+        only; DSE plans carry none, and the fps objective is then off);
+        ``bw_gbps`` is the device's off-chip budget for the spill-bandwidth
+        objective.  ``stream_budgets`` (per-kind Gbps, e.g.
+        ``MemoryModel.budget_gbps_by_kind()``) scores the split
+        evict/restore objectives against the arbiter's grants; it defaults
+        to the executor report's channel model when the plan was lowered
+        with one.  Returns the evaluator so callers can hook
+        ``on_breach`` (e.g. ``FlightRecorder.on_slo_report``).
+        """
+        from ..obs.slo import SloEvaluator
+        if roofline_fps is None:
+            roofline_fps = self.roofline_fps()
+        if stream_budgets is None:
+            mem = getattr(self.executor.report, "memory", None)
+            if mem is not None:
+                stream_budgets = mem.budget_gbps_by_kind()
+        self.slo = SloEvaluator(cfg, roofline_fps=roofline_fps,
+                                bw_gbps=bw_gbps, latency=self.latency,
+                                stream_budgets=stream_budgets)
         return self.slo
 
     def result(self, ticket: int) -> torch.Tensor:

@@ -240,7 +240,7 @@ def test_plan_tiles_reach_every_kernel_call(monkeypatch, thresh, mode):
     g = tbuilders.build_x3d_exec(positions=64, cin=3, widths=(8, 16),
                                  expansion=2, depth=1)
     if thresh is None:
-        plan = repro_torch.build_plan(repro_torch.CompileSpec(
+        plan, _ = repro_torch.build_plan(repro_torch.CompileSpec(
             model=g, device=TDevice(**_TINY),
             dse=TDSEConfig(**_dse(("none", "bfp8")))))
     else:
