@@ -79,7 +79,25 @@ and prints no result line):
    pattern at its published widths (8 of 32 layers, Mamba, attention and
    16 experts top 2; about 13.3 B parameters, reckoned and printed before
    the weights are made; ``lm-jamba``), served and held to the plain route
-   as olmoe is, 1 x 8 flash_attention launches.  Every LM path prints
+   as olmoe is, 1 x 8 flash_attention launches; then the first 8 of
+   qwen2-vl-72b's 80 layers at its published widths (M-RoPE sections 16,
+   24, 24; 64 heads / 8 KV of 128; about 9.51 B parameters;
+   ``lm-qwen2vl``), served on text positions and held to the plain route
+   as yi-6b is, 8 x 8 flash_attention launches, and one 1536-token prefill
+   through ``make_prefill_step`` whose first 1024 positions are seeded
+   patch embeddings, held to the plain route.  Then whisper-large-v3 at
+   its published widths and depth (32 encoder and 32 decoder layers,
+   about 1.60 B parameters; ``lm-whisper``) through ``make_prefill_step``
+   and ``make_decode_step`` (the engine takes no encoder frames): 4 seeded
+   frame embeddings of 1500 frames, 4 prompts of 64 tokens, s_max 448, 32
+   greedy tokens; exactly 96 flash_attention launches in the prefill (32
+   encoder, 32 self, 32 cross, non-causal over the 1500 encoder keys) and
+   32 a decode step, no other kernel; the encoder output, the first-token
+   logits and the k, v, xk and xv caches held to the plain route within
+   LM_TOL x max|plain|, the token streams in lockstep until a plain-route
+   near-tie, and decode equivalence (56 of 64 tokens prefilled); encoder,
+   prefill and decode times, decode against its byte bound, peak memory
+   and profiles.  Every LM path prints
    prefill and decode times, decode against its byte bound, peak memory,
    a device profile of a prefill and a decode step and a host profile of
    each, with the recurrent mixers' share of the host time.
@@ -114,8 +132,11 @@ and prints no result line):
    standalone codec (an (r, c) stripe and its 32 ceil(c / 32)-wide
    payload, no padded copy) against its bound; dwconv over 9 and 11 taps
    (more than its window kernel is built for);
-   flash_attention at the LM path's shapes and at ragged S with head widths
-   16-128, causal and not; its lse instance and the two backward kernels
+   flash_attention at the LM paths' shapes (causal, and non-causal over
+   keys of their own length: whisper's encoder, cross attention and cross
+   decode) and at ragged S with head widths 16-128, causal and not, and
+   over ragged Sk (1, 37, 1499) against Sq = 1 and 64, those timed against
+   their bound and SDPA at the same shapes; its lse instance and the two backward kernels
    at the train paths' shapes and at the same ragged shapes, within
    TRAIN_TOL x max(1, max|plain|) of their plain versions (the lse too)
    and a second launch bit for bit the first; every tile
@@ -317,11 +338,20 @@ AUTOTUNE_SERVED = 20
 # jamba-v0.1-52b's pattern at its published widths (8 of its 32 layers:
 # Mamba x4, attention, Mamba x3, d_model 4096, Mamba inner 8192 with d_state
 # 16, 32 heads / 8 KV of 128, 16 experts top 2 of d_ff 14336 at the odd
-# positions, vocab 65536; about 13.3 B parameters, 53 GB in f32).  Each
-# entry: (arch, tag, layers kept or None for the published depth)
+# positions, vocab 65536; about 13.3 B parameters, 53 GB in f32); then
+# qwen2-vl-72b at its published widths (d_model 8192, 64 heads / 8 KV of
+# 128, d_ff 29568, vocab 152064, M-RoPE sections (16, 24, 24)) with its depth
+# cut to 8 of its 80 layers (about 9.51 B parameters, 38 GB in f32; the whole
+# model's 291 GB does not fit), served on text positions as the reference's
+# engine serves it, plus one prefill with patch embeddings.  Each entry:
+# (arch, tag, layers kept or None for the published depth)
 LM_PATHS = (("yi-6b", "lm-serve", None), ("olmoe-1b-7b", "lm-moe", None),
             ("xlstm-1.3b", "lm-xlstm", None),
-            ("jamba-v0.1-52b", "lm-jamba", 8))
+            ("jamba-v0.1-52b", "lm-jamba", 8),
+            ("qwen2-vl-72b", "lm-qwen2vl", 8))
+# qwen2-vl's prefill with patches: (prompt tokens, patch positions), the
+# config's 1024 patch embeddings in place of the first token embeddings
+LM_PATCH_PROMPT = (1536, 1024)
 LM_SEED = 0
 LM_REQUESTS = 8
 LM_SLOTS = 4
@@ -343,6 +373,15 @@ FLASH_TOL = 2e-4           # rtol = atol, the reference's for its kernel
 # a multiple of 64, so S - 8 and S are both allowed only up to S = 64; the
 # longer pair carries the state across 7 chunks and decodes 64 steps
 LM_DECODE_EQ = ((64, 56), (512, 448))
+# the encoder-decoder path: whisper-large-v3 at its published widths and
+# depth (32 encoder and 32 decoder layers, d_model 1280, 20 heads of 64, 1500
+# encoder frames, d_ff 5120, vocab 51866; about 1.60 B parameters, 6.4 GB in
+# f32), served through make_prefill_step / make_decode_step (the engine
+# takes no encoder frames): a batch of 4 seeded frame embeddings (4, 1500,
+# 1280) and 4 seeded prompts of 64 tokens, s_max 448 (the published decoder
+# context), 32 greedy new tokens; its decode equivalence prefills 56 of 64
+WHISPER = dict(arch="whisper-large-v3", tag="lm-whisper", batch=4,
+               prompt=64, s_max=448, new=32, decode_eq=((64, 56),))
 # rtol = atol, elementwise, the reference's own for this invariant
 # (tests/test_archs.py::test_decode_matches_full_forward, at its reduced
 # size): the chunkwise mLSTM and the step-by-step decode sum in different
@@ -666,6 +705,28 @@ def kernel_phase(torch, timer, path_shapes):
         return ((lambda: within_and_repeatable(kind, kern, plain)), kern,
                 plain, lib, nbytes, ops)
 
+    def flash_case(B, S, Sk, H, D, causal):
+        """Inputs of one flash_attention launch, q (B, S, H, D) over k, v
+        (B, Sk, H, D): (check, kernel, plain, SDPA at the same shapes,
+        bytes, operations)."""
+        q = randn(B, S, H, D)
+        k, v = (randn(B, Sk, H, D) for _ in range(2))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kern = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+        plain = lambda: chunked_attention(                 # noqa: E731
+            q, k, v, causal=causal, chunk=min(1024, Sk), skip_masked=causal)
+        # bytes: q, k, v read and o written once; operations: the two
+        # products over the causal triangle, diagonal included, or the
+        # S x Sk rectangle
+        ops = (2.0 * B * H * D * S * (S + 1) if causal
+               else 4.0 * B * H * D * S * Sk)
+        return ((lambda: close_and_repeatable("flash_attention", kern,
+                                              plain, FLASH_TOL)),
+                kern, plain,
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=causal),
+                8.0 * B * H * D * (S + Sk), ops)
+
     def pool_close(name, got, x, m_out):
         """The global pool: within POOL_TOL * mean |x| of each channel of
         the plain mean of ``x``."""
@@ -818,20 +879,8 @@ def kernel_phase(torch, timer, path_shapes):
         if kind.endswith("_encode") or "_decode" in kind:
             return codec_case(kind, arg_shapes)
         if kind == "flash_attention":
-            B, S, H, D = arg_shapes[0]
-            q, k, v = (randn(B, S, H, D) for _ in range(3))
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            kern = lambda: flash_attention(q, k, v)            # noqa: E731
-            plain = lambda: chunked_attention(                 # noqa: E731
-                q, k, v, causal=True, chunk=min(1024, S), skip_masked=True)
-            # bytes: q, k, v read and o written once; operations: the two
-            # products over the causal triangle, diagonal included
-            return ((lambda: close_and_repeatable(kind, kern, plain,
-                                                  FLASH_TOL)),
-                    kern, plain,
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                           is_causal=True),
-                    16.0 * B * S * H * D, 2.0 * B * H * D * S * (S + 1))
+            (B, S, H, D), (_, Sk, _, _), _, _, causal = arg_shapes
+            return flash_case(B, S, Sk, H, D, causal)
         if kind == "streamed_matmul":
             (m, k), (ks, n), (kd, _), _ = arg_shapes
             x = randn(m, k)
@@ -1024,6 +1073,21 @@ def kernel_phase(torch, timer, path_shapes):
             # the training instances at the same shapes
             for kind in ("flash_attention_lse", *BWD_KERNELS):
                 train_attention(kind, B, S, H, D, causal)[0]()
+    # keys of their own length (non-causal, the cross attention's): ragged
+    # Sk against a decode step's one query row and a 64-token prompt, at
+    # whisper's 20 heads of 64, held and timed against the bound and SDPA
+    print("  flash_attention, keys of their own length (B, Sq, Sk, H, D): "
+          "ms, plain ms, SDPA ms, bound ms (3xTF32 bound)")
+    for Sq in (1, 64):
+        for Sk in (1, 37, 1499):
+            check, kern, plain, lib, nbytes, ops = flash_case(
+                4, Sq, Sk, 20, 64, False)
+            check()
+            t_kern, t_plain, t_lib = timer(kern), timer(plain), timer(lib)
+            b, bound_by = bound_ms(nbytes, ops)
+            print(f"    (4, {Sq}, {Sk}, 20, 64): ms {t_kern:.4f} plain "
+                  f"{t_plain:.4f} SDPA {t_lib:.4f} bound {b:.5f} "
+                  f"({bound_by}, {bound_tf32x3_ms(nbytes, ops):.5f})")
     tile_checks(torch, SC, randn, exact)
     specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -1.0],
                             device="cuda")
@@ -1652,9 +1716,16 @@ def lm_config(arch: str, tag: str, n_layers):
     from repro_torch.models import param_shapes
     cfg = ARCHS[arch]
     if n_layers is not None:
+        gs = cfg.group_size
+        if gs == 1:
+            what = (f"{n_layers} of its {cfg.n_layers} layers, a homogeneous "
+                    f"stack of {cfg.pattern[0]} layers")
+        else:
+            n = ("one period" if n_layers == gs
+                 else f"{n_layers // gs} periods")
+            what = f"{n} of its pattern {list(cfg.pattern)}"
         print(f"[{tag}] {cfg.name}: depth cut from {cfg.n_layers} to "
-              f"{n_layers} layers (one period of its pattern "
-              f"{list(cfg.pattern)}), every width published")
+              f"{n_layers} layers ({what}), every width published")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     n = sum(math.prod(s) for s in param_shapes(cfg).values())
     print(f"[{tag}] {cfg.name}: {n} parameters reckoned from the shapes, "
@@ -1678,25 +1749,28 @@ def lm_prompts(cfg, tag, rng):
     return lengths, [rng.integers(0, cfg.vocab, n) for n in lengths]
 
 
-def decode_equivalence(torch, cfg, params, tag) -> None:
+def decode_equivalence(torch, cfg, params, tag, pairs=LM_DECODE_EQ,
+                       **inputs) -> None:
     """The reference's decode-equivalence invariant at published width on
-    the card: for each (S, prefill) of LM_DECODE_EQ, one seeded sequence of
-    S tokens through the full forward, then the first ``prefill`` tokens
-    prefilled and the rest decoded one by one, each step's logits held to
-    the full forward's at that position within rtol = atol =
-    LM_DECODE_TOL, elementwise."""
+    the card: for each (S, prefill) of ``pairs``, one seeded sequence of S
+    tokens through the full forward (with ``inputs``, an encoder-decoder's
+    ``enc_frames``), then the first ``prefill`` tokens prefilled and the
+    rest decoded one by one, each step's logits held to the full forward's
+    at that position within rtol = atol = LM_DECODE_TOL, elementwise."""
     import numpy as np
     from repro_torch.models import (decode_step, forward, init_cache,
                                     project_logits)
     rng = np.random.default_rng(LM_SEED + 1)
-    for S, pre in LM_DECODE_EQ:
+    for S, pre in pairs:
         toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
                                device="cuda")
-        x, _, _ = forward(params, cfg, toks)
+        with torch.no_grad():
+            x, _, _ = forward(params, cfg, toks, **inputs)
         full = project_logits(params, cfg, x[0])             # (S, vocab)
         del x
         cache = init_cache(cfg, 1, S, device="cuda")
-        _, cache, _ = forward(params, cfg, toks[:, :pre], cache=cache)
+        _, cache, _ = forward(params, cfg, toks[:, :pre], cache=cache,
+                              **inputs)
         worst = 0.0
         for t in range(pre, S):
             logits, cache = decode_step(params, cfg, toks[:, t:t + 1],
@@ -1859,6 +1933,8 @@ def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
         decode_equivalence(torch, cfg, params, tag)
     else:
         lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw)
+    if cfg.vlm_patches:
+        patch_check(torch, library, cfg, tag, params)
 
     # -- times ----------------------------------------------------------------
     ms = []
@@ -1996,6 +2072,250 @@ def lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw) -> None:
               f"{sum(r.out_tokens == q.out_tokens for r, q in zip(reqs, plain_reqs))}"
               f" of {LM_REQUESTS} equal")
     del plain
+
+
+def whisper_phase(torch, library):
+    """The encoder-decoder path: whisper-large-v3 at its published widths
+    and depth on the card, served through ``make_prefill_step`` /
+    ``make_decode_step`` (WHISPER).  One prefill of a batch of 4 (the
+    encoder over 1500 frames, the decoder over 64 tokens) and 31 greedy
+    decode steps, the launches counted from 0 around them: exactly 32
+    encoder + 32 self + 32 cross ``flash_attention`` launches in the
+    prefill, 32 (the cross attention over the cached encoder keys) a
+    decode step, no other kernel.  Then held to the plain route
+    (``use_kernels=False``) on the same weights: the encoder output, the
+    first-token logits and the k, v, xk and xv caches within LM_TOL x
+    max|plain|, and the token streams in lockstep until a plain-route
+    near-tie; the decode-equivalence invariant (56 of 64 tokens
+    prefilled); times of the encoder, the prefill and a decode step
+    against its byte bound; peak memory; a device profile of a prefill and
+    a decode step.  Returns (launches, launch shapes) of the counted
+    run."""
+    import numpy as np
+    from repro_torch.models import init_cache, init_params, param_count
+    from repro_torch.models.model import _encoder_forward, _leaves
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    on = card()
+    tag, B, S = WHISPER["tag"], WHISPER["batch"], WHISPER["prompt"]
+    s_max, new = WHISPER["s_max"], WHISPER["new"]
+    cfg = lm_config(WHISPER["arch"], tag, None)
+    L, E = cfg.n_layers, cfg.encoder_layers
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
+                         cfg)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    formula = int(cfg.param_counts()["total"])
+    print(f"[{tag}] {cfg.name}: {E} encoder and {L} decoder layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, {cfg.enc_frames} "
+          f"encoder frames, d_ff {cfg.d_ff} ({cfg.act}, {cfg.norm}), vocab "
+          f"{cfg.vocab}: {n_params} parameters ({formula} by param_counts, "
+          f"which leaves the norms out), f32 "
+          f"{4 * n_params} bytes on the card, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(LM_SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device="cuda")
+    frames = torch.randn((B, cfg.enc_frames, cfg.d_model),
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             LM_SEED + 2), device="cuda")
+    batch_in = {"tokens": toks, "enc_frames": frames}
+    steps = {k: (make_prefill_step(cfg, B, s_max, use_kernels=k),
+                 make_decode_step(cfg, B, s_max, use_kernels=k))
+             for k in (True, False)}
+    (prefill, decode), (plain_prefill, plain_decode) = steps[True], \
+        steps[False]
+    pos0 = torch.full((B,), S, dtype=torch.int64, device="cuda")
+
+    # -- the counted run ------------------------------------------------------
+    cache = init_cache(cfg, B, s_max, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    library.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, batch_in)
+    torch.cuda.synchronize()
+    first = library.launches()
+    stream = [logits.argmax(-1)]
+    for t in range(new - 1):
+        logits, cache = decode(params, cache, stream[-1][:, None], pos0 + t)
+        stream.append(logits.argmax(-1))
+    stream = torch.stack(stream, 1).cpu()                   # (B, new)
+    served_s = time.perf_counter() - t0
+    counts, shapes = library.launches(), library.launch_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    none = dict.fromkeys(library.SIGNATURES, 0)
+    for what, got, want in (
+            ("the prefill", first, none | {"flash_attention": E + 2 * L}),
+            ("the run", counts, none | {
+                "flash_attention": E + 2 * L + (new - 1) * L})):
+        if got != want:
+            raise AssertionError(f"[{tag}] launches of {what} {got}, "
+                                 f"expected {want}")
+    print(f"[{tag}] one prefill of {B} x {S} tokens over {B} x "
+          f"{cfg.enc_frames} frames and {new - 1} decode steps: "
+          f"{served_s:.3f} s, {B * new / served_s:.1f} generated tokens/s; "
+          f"launches: the prefill {first['flash_attention']} flash_attention "
+          f"({E} encoder, {L} self, {L} cross), the run "
+          f"{counts['flash_attention']} ({L} cross a decode step), no other "
+          f"kernel; peak device memory {peak} bytes ({peak - base} above "
+          f"the {base} bytes of weights, frames and cache); {on}")
+
+    # -- the kernel route against the plain route ----------------------------
+    worst = {}
+
+    def held(what, got, want):
+        err = float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                    1e-30)
+        worst[what] = err
+        if err > LM_TOL:
+            raise AssertionError(f"[{tag}] {what}: kernel vs plain {err:.3e} "
+                                 f"of max|plain|")
+    with torch.no_grad():
+        held("encoder output", _encoder_forward(params, cfg, frames, True),
+             _encoder_forward(params, cfg, frames, False))
+    lk, ck = prefill(params, init_cache(cfg, B, s_max, device="cuda"),
+                     batch_in)
+    lp, cp = plain_prefill(params, init_cache(cfg, B, s_max, device="cuda"),
+                           batch_in)
+    if not torch.equal(lk.argmax(-1).cpu(), stream[:, 0]):
+        raise AssertionError(f"[{tag}] a rerun's first tokens are not the "
+                             f"served ones")
+    held("first-token logits", lk, lp)
+    for n in ("k", "v", "xk", "xv"):
+        held(f"cache {n}", ck["pos_0"][n], cp["pos_0"][n])
+    del ck
+    print(f"[{tag}] kernel vs plain route, max|kernel - plain| of "
+          f"max|plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       worst.items()) + f" (tol {LM_TOL})")
+    # the plain route's own greedy streams beside the kernel route's: a row
+    # may part only where the plain route's top-2 margin is a near-tie
+    tok, parted = lp.argmax(-1), {}
+    for t in range(new):
+        if t:
+            lp, cp = plain_decode(params, cp, tok[:, None], pos0 + t - 1)
+            tok = lp.argmax(-1)
+        for b in range(B):
+            if b in parted or int(tok[b]) == int(stream[b, t]):
+                continue
+            top = lp[b].topk(2).values
+            margin, lim = (float(top[0] - top[1]),
+                           LM_TOL * float(lp[b].abs().max()))
+            parted[b] = t
+            print(f"[{tag}] row {b}: token streams part at token {t}; the "
+                  f"plain route's top-2 logit margin {margin:.3e} (tol "
+                  f"{lim:.3e})")
+            if margin >= lim:
+                raise AssertionError(f"[{tag}] row {b}: streams part at "
+                                     f"token {t} past a tie")
+    print(f"[{tag}] token streams of the two routes, in lockstep: "
+          f"{B - len(parted)} of {B} rows equal over {new} tokens")
+    del cp
+    decode_equivalence(torch, cfg, params, tag, WHISPER["decode_eq"],
+                       enc_frames=frames[:1])
+
+    # -- times -----------------------------------------------------------------
+    def host_ms(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def run_encoder():
+        with torch.no_grad():
+            return _encoder_forward(params, cfg, frames)
+
+    def run_prefill():
+        return prefill(params, init_cache(cfg, B, s_max, device="cuda"),
+                       batch_in)
+
+    def one_step():
+        logits, _ = decode(params, cache, stream[:, -1:].to("cuda"),
+                           pos0 + new)
+        return logits.argmax(-1).cpu()
+    enc_ms, pre_ms = host_ms(run_encoder, 5), host_ms(run_prefill, 5)
+    step_ms = host_ms(one_step, 10)
+    # a decode step reads every decoder weight but the cross keys' and
+    # values' projections (their products are cached) and the embedding
+    # table (of which B rows), and the whole cache once
+    w = sum(t.numel() for n, t in _leaves(params)
+            if not n.startswith(("encoder/", "embed"))
+            and not n.endswith(("cross/wk", "cross/wv")))
+    cache_bytes = sum(t.numel() * 4 for pj in cache.values()
+                      for t in pj.values())
+    read = 4 * (w + B * cfg.d_model) + cache_bytes
+    b_ms = read / PEAK_HBM_BYTES_S * 1e3
+    print(f"[{tag}] encoder {enc_ms:.3f} ms, prefill (encoder included) "
+          f"{pre_ms:.3f} ms for {B} x {S} tokens (median of 5, host clock); "
+          f"decode {step_ms:.3f} ms a step of {B} (median of 10, host clock "
+          f"to the sampled tokens), bound {b_ms:.3f} ms ({read} bytes: the "
+          f"decoder's weights but the cross k / v projections and the "
+          f"embedding table, {B} of its rows, and the cache's {cache_bytes} "
+          f"bytes once, at 3.35 TB/s); {B / step_ms * 1e3:.1f} tokens/s in "
+          f"steady decode; {on}")
+    profile_device(torch, f"[{tag}] profile of one prefill", run_prefill,
+                   pre_ms)
+    profile_device(torch, f"[{tag}] profile of one decode step", one_step,
+                   step_ms)
+    profile_host(torch, f"[{tag}] host profile of one decode step",
+                 one_step)
+    del params, cache
+    return counts, shapes
+
+
+def patch_check(torch, library, cfg, tag, params) -> None:
+    """A VLM's prefill with patch embeddings (LM_PATCH_PROMPT): one seeded
+    prompt whose first P positions are seeded patch embeddings, through
+    ``make_prefill_step`` on both routes; one ``flash_attention`` launch an
+    attention layer on the kernel route, and the last logits and every
+    cache leaf within LM_TOL x max|plain|."""
+    import numpy as np
+    from repro_torch.models import init_cache
+    from repro_torch.runtime.steps import make_prefill_step
+    S, P = LM_PATCH_PROMPT
+    toks = torch.as_tensor(np.random.default_rng(LM_SEED + 3).integers(
+        0, cfg.vocab, (1, S)), device="cuda")
+    patches = torch.randn((1, P, cfg.d_model),
+                          generator=torch.Generator(device="cuda").manual_seed(
+                              LM_SEED + 4), device="cuda")
+    batch_in = {"tokens": toks, "patch_embeds": patches}
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    out = {}
+    for kernels in (True, False):
+        step = make_prefill_step(cfg, 1, S, use_kernels=kernels)
+        torch.cuda.synchronize()
+        library.reset_launches()
+        t0 = time.perf_counter()
+        out[kernels] = step(params, init_cache(cfg, 1, S, device="cuda"),
+                            batch_in)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = library.launches()["flash_attention"]
+        if sum(library.launches().values()) != n or n != (
+                n_attn if kernels else 0):
+            raise AssertionError(f"[{tag}] launches of the patch prefill "
+                                 f"{library.launches()}")
+        print(f"[{tag}] prefill of {S} tokens, the first {P} patch "
+              f"embeddings, {'kernel' if kernels else 'plain'} route: "
+              f"{ms:.3f} ms (host clock, one run), {n} flash_attention "
+              f"launches; {card()}")
+    (lk, ck), (lp, cp) = out[True], out[False]
+    worst = 0.0
+    for what, g, w in [("logits", lk, lp)] + [
+            (f"{pj}/{n}", ck[pj][n], cp[pj][n]) for pj in cp for n in cp[pj]]:
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if err > LM_TOL:
+            raise AssertionError(f"[{tag}] patch prefill {what}: kernel vs "
+                                 f"plain {err:.3e} of max|plain|")
+    print(f"[{tag}] patch prefill, kernel vs plain route: last logits and "
+          f"every cache leaf within {worst:.3e} of max|plain| (tol {LM_TOL})")
+    library.reset_launches()
 
 
 def train_phase(torch, library):
@@ -2791,6 +3111,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lm_s[tag] = time.perf_counter() - t3
+    t3 = time.perf_counter()
+    lm[WHISPER["tag"]] = whisper_phase(torch, library)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_s[WHISPER["tag"]] = time.perf_counter() - t3
     t3 = time.perf_counter()
     trained = train_phase(torch, library)
     gc.collect()

@@ -1,6 +1,9 @@
 // flash_attention: blockwise softmax attention with the online-softmax
-// recurrence, o = softmax(q k^T * D^-1/2 [causal mask]) v over q, k, v, o of
-// shape (B, S, H, D) in f32, the KV heads already repeated to H.
+// recurrence, o = softmax(q k^T * D^-1/2 [causal mask]) v over q, o of shape
+// (B, S, H, D) and k, v of shape (B, Sk, H, D) in f32, the KV heads already
+// repeated to H.  A causal call has Sk == S; a non-causal one may have keys
+// of their own length (the encoder-decoder's cross attention: Sk = 1500
+// encoder frames against S decoder rows, S = 1 in a decode step).
 //
 // Replaces the TPU kernel _kernel of flash_attention (src/repro/kernels/
 // flash_attention.py), whose grid walks (B H, q blocks, kv blocks) in order
@@ -11,8 +14,10 @@
 // the mask is -2^30 as there, and the denominator is clamped at 1e-30.
 // Unlike the Pallas wrapper, which asks S % bq == 0, any S is taken: rows
 // past S are read as zeros and never written, keys past S are read as
-// zeros and get a score of -inf (an exact 0 after the exponential).  B and
-// H are read in place through the (B, S, H, D) strides; no fold copy.
+// zeros and get a score of -inf (an exact 0 after the exponential); the kv
+// loop runs to Sk and keys past Sk are masked in the tail tile the same way.
+// B and H are read in place through the (B, S, H, D) and (B, Sk, H, D)
+// strides; no fold copy.
 //
 // Bound on the H100: causal prefill at S = 512, D = 128 does about 2 S^2 D
 // operations per (b, h) on 4 S D values of 4 bytes, 64 operations per byte, so
@@ -39,7 +44,9 @@
 // diagonal (they would add exact zeros).  At D = 128 a 4-warp block takes
 // 111,616 bytes, so two blocks fit an SM.  Blocks of 4 warps (BQ = 64 query
 // rows); the heaviest causal q blocks are issued first.  The exponentials are
-// full expf (no fast math).
+// full expf (no fast math).  A cross-attention decode (S = 1 against Sk =
+// 1500 keys) runs one block per (b, h) with one active row: it reads K and
+// V once, 2 Sk D 4 bytes per (b, h), and is bound by those bytes.
 //
 // The training forward (flash_attention_lse) is the same kernel instantiated
 // with the compile-time flag LSE: it also writes each row's log-sum-exp of
@@ -78,8 +85,8 @@ __global__ void __launch_bounds__(32 * WARPS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       float* __restrict__ lse, int64_t S, int64_t H,
-                       int causal, float scale) {
+                       float* __restrict__ lse, int64_t S, int64_t Sk,
+                       int64_t H, int causal, float scale) {
   using L = Layout<D>;
   constexpr int NF = D / 8;  // k8 steps of q k^T, n fragments of o
   extern __shared__ __align__(16) float smem[];
@@ -93,24 +100,25 @@ flash_attention_kernel(const float* __restrict__ q,
   const int64_t bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * L::BQ;
   const int64_t row = H * D;  // stride between positions
-  const int64_t base = b * S * row + h * D;
+  const int64_t base = b * S * row + h * D;    // q and o
+  const int64_t kbase = b * Sk * row + h * D;  // k and v
 
   // a thread copies 16 bytes of each of rows r0 + RS i of a kv tile, at
   // column c4; the first tile is in flight while q is staged
   constexpr int RS = L::THREADS / (D / 4);
   const int r0 = tid / (D / 4), c4 = tid % (D / 4) * 4;
-  const float* kg = k + base + r0 * row + c4;
-  const float* vg = v + base + r0 * row + c4;
+  const float* kg = k + kbase + r0 * row + c4;
+  const float* vg = v + kbase + r0 * row + c4;
   auto load_kv = [&](int s, int64_t k0) {
     float* kd = kbuf + s * L::K + r0 * L::LDK + c4;
     float* vd = vbuf + s * L::V + r0 * L::LDV + c4;
 #pragma unroll
     for (int i = 0; i < BK / RS; ++i) {
-      // a key past S is zero-filled from a valid address that is not read
-      const bool in = k0 + r0 + RS * i < S;
+      // a key past Sk is zero-filled from a valid address that is not read
+      const bool in = k0 + r0 + RS * i < Sk;
       const int64_t at = (k0 + RS * i) * row;
-      tf32x3::cp_async16(kd + RS * i * L::LDK, in ? kg + at : k + base, in);
-      tf32x3::cp_async16(vd + RS * i * L::LDV, in ? vg + at : v + base, in);
+      tf32x3::cp_async16(kd + RS * i * L::LDK, in ? kg + at : k + kbase, in);
+      tf32x3::cp_async16(vd + RS * i * L::LDV, in ? vg + at : v + kbase, in);
     }
   };
   load_kv(0, 0);
@@ -131,9 +139,9 @@ flash_attention_kernel(const float* __restrict__ q,
   const int wr = warp * 16;
   const int64_t qw = q0 + wr;
   const bool active = qw < S;
-  const int64_t w_end = causal ? (qw + 16 < S ? qw + 16 : S) : S;
+  const int64_t w_end = causal ? (qw + 16 < S ? qw + 16 : S) : Sk;
   const int64_t q_end = q0 + L::BQ < S ? q0 + L::BQ : S;
-  const int64_t k_end = causal ? q_end : S;  // keys the block's rows need
+  const int64_t k_end = causal ? q_end : Sk;  // keys the block's rows need
   const int ntiles = (int)((k_end + BK - 1) / BK);
 
   // q is split once: each lane keeps the hi parts of its A fragments of
@@ -217,11 +225,12 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] += s_odd[j][e];
 
-    // mask (only a tile that reaches past S or past a row's diagonal),
+    // mask (only a tile that reaches past Sk or past a row's diagonal),
     // then the online softmax of rows g and g + 8; a row's 32 scores are
     // spread over the 4 lanes 4 g .. 4 g + 3
-    if (k0 + BK > S || (causal && k0 + BK - 1 > qw)) {
-      const int past = (int)(S - k0 < BK ? S - k0 : BK);  // keys >= it: past S
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > qw)) {
+      // keys from `past` on lie past Sk
+      const int past = (int)(Sk - k0 < BK ? Sk - k0 : BK);
       const int diag = (int)(qw - k0 < BK ? qw - k0 : BK);  // row 0's last key
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -321,8 +330,8 @@ flash_attention_kernel(const float* __restrict__ q,
 
 template <int D, bool LSE>
 int run_flash(const float* q, const float* k, const float* v, float* o,
-              float* lse, int64_t B, int64_t S, int64_t H, int causal,
-              cudaStream_t st) {
+              float* lse, int64_t B, int64_t S, int64_t Sk, int64_t H,
+              int causal, cudaStream_t st) {
   using L = Layout<D>;
   const cudaError_t err =
       tf32x3::set_shared_memory<flash_attention_kernel<D, LSE>>(
@@ -332,46 +341,54 @@ int run_flash(const float* q, const float* k, const float* v, float* o,
   // D^-1/2 rounded once to f32, as the reference's q * D ** -0.5
   const float scale = (float)(1.0 / std::sqrt((double)D));
   flash_attention_kernel<D, LSE><<<grid, L::THREADS, L::BYTES, st>>>(
-      q, k, v, o, lse, S, H, causal, scale);
+      q, k, v, o, lse, S, Sk, H, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <bool LSE>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             void* lse, int64_t B, int64_t S, int64_t H, int64_t D,
-             int64_t causal, void* stream) {
+             void* lse, int64_t B, int64_t S, int64_t Sk, int64_t H,
+             int64_t D, int64_t causal, void* stream) {
   if (B * S * H <= 0) return (int)cudaGetLastError();
+  // a causal call's keys are its queries' positions; no key, no softmax
+  if ((causal && Sk != S) || Sk <= 0) return (int)cudaErrorInvalidValue;
   const float *qf = (const float*)q, *kf = (const float*)k,
               *vf = (const float*)v;
   float *of = (float*)o, *lf = (float*)lse;
   cudaStream_t st = (cudaStream_t)stream;
   const int c = causal ? 1 : 0;
   switch (D) {
-    case 16: return run_flash<16, LSE>(qf, kf, vf, of, lf, B, S, H, c, st);
-    case 32: return run_flash<32, LSE>(qf, kf, vf, of, lf, B, S, H, c, st);
-    case 64: return run_flash<64, LSE>(qf, kf, vf, of, lf, B, S, H, c, st);
-    case 128: return run_flash<128, LSE>(qf, kf, vf, of, lf, B, S, H, c, st);
+    case 16:
+      return run_flash<16, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
+    case 32:
+      return run_flash<32, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
+    case 64:
+      return run_flash<64, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
+    case 128:
+      return run_flash<128, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, o: (B, S, H, D) f32, contiguous; D in {16, 32, 64, 128};
-// causal 0 or 1.
+// q, o: (B, S, H, D) and k, v: (B, Sk, H, D) f32, contiguous; D in {16, 32,
+// 64, 128}; causal 0 or 1, and a causal call has Sk == S.
 extern "C" int smof_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, int64_t B,
-                                    int64_t S, int64_t H, int64_t D,
-                                    int64_t causal, void* stream) {
-  return dispatch<false>(q, k, v, o, nullptr, B, S, H, D, causal, stream);
+                                    int64_t S, int64_t Sk, int64_t H,
+                                    int64_t D, int64_t causal,
+                                    void* stream) {
+  return dispatch<false>(q, k, v, o, nullptr, B, S, Sk, H, D, causal,
+                         stream);
 }
 
-// The same, and lse: (B, H, S) f32, each row's log-sum-exp of the scaled
-// scores.
+// The training forward: q, k, v, o of one (B, S, H, D) shape, and lse: (B,
+// H, S) f32, each row's log-sum-exp of the scaled scores.
 extern "C" int smof_flash_attention_lse(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int64_t B, int64_t S, int64_t H,
                                         int64_t D, int64_t causal,
                                         void* stream) {
-  return dispatch<true>(q, k, v, o, lse, B, S, H, D, causal, stream);
+  return dispatch<true>(q, k, v, o, lse, B, S, S, H, D, causal, stream);
 }

@@ -2,14 +2,17 @@
 the online-softmax recurrence (the reference package's
 ``kernels/flash_attention.py``), and its gradient for training.
 
-``q, k, v: (B, S, H, D)`` f32 with the KV heads already repeated to H;
-causal or not, scale ``D ** -0.5``, mask ``-2**30``, the softmax
-denominator clamped at ``1e-30``, and key blocks wholly above the diagonal
-skipped.  A CUDA tensor goes through the ``flash_attention`` kernel
-(``csrc/flash_attention.cu``), which takes any S (the Pallas wrapper asks
-``S % bq == 0``) and D in :data:`HEAD_DIMS`; a CPU tensor through the plain
-version, ``models.attention.chunked_attention`` with block skipping, the
-reference's own oracle for its kernel.
+``q: (B, S, H, D)`` and ``k, v: (B, Sk, H, D)`` f32 with the KV heads
+already repeated to H; causal (then Sk == S) or not (then keys of their
+own length, as the encoder-decoder's cross attention has), scale ``D **
+-0.5``, mask ``-2**30``, the softmax denominator clamped at ``1e-30``, and
+key blocks wholly above the diagonal skipped.  A CUDA tensor goes through
+the ``flash_attention`` kernel (``csrc/flash_attention.cu``), which takes
+any S and Sk (the Pallas wrapper asks ``S % bq == 0`` and one S) and D in
+:data:`HEAD_DIMS`; a CPU tensor through the plain version,
+``models.attention.chunked_attention`` with block skipping, the
+reference's own oracle for its kernel.  The training instances below take
+one S for q, k and v.
 
 Training goes through :class:`FlashAttention`, an autograd function.  Its
 forward is the same kernel instantiated to write each row's log-sum-exp
@@ -34,10 +37,20 @@ KERNEL_BQ = 64              # the kernels' query rows (and keys) a block
 NEG_INF = -2.0 ** 30        # the causal mask, the reference's
 
 
-def _check(name: str, q, k, v) -> tuple[int, int, int, int]:
-    if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
-        raise ValueError(f"{name}: q, k, v must share one (B, S, H, D) "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+def _check(name: str, q, k, v, *, own_keys: bool = False
+           ) -> tuple[int, int, int, int]:
+    """(B, S, H, D) of ``q``.  q, k and v share that shape; with
+    ``own_keys`` k and v share a (B, Sk, H, D) of their own, Sk >= 1."""
+    if own_keys:
+        fits = (k.dim() == 4 and k.shape[1] >= 1
+                and k.shape[:1] + k.shape[2:] == q.shape[:1] + q.shape[2:])
+    else:
+        fits = k.shape == q.shape
+    if q.dim() != 4 or k.shape != v.shape or not fits:
+        what = ("q (B, S, H, D) and k, v one (B, Sk, H, D)" if own_keys
+                else "q, k, v one (B, S, H, D)")
+        raise ValueError(f"{name}: {what} shape expected, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, S, H, D = q.shape
     if q.is_cuda:
@@ -56,16 +69,21 @@ def _operands(name: str, *named) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """(B, S, H, D) attention of ``q`` over ``k``, ``v`` (same shape), the
-    serving prefill's: no gradient flows through the kernel route."""
-    B, S, H, D = _check("flash_attention", q, k, v)
+    """(B, S, H, D) attention of ``q`` over ``k``, ``v`` of shape (B, Sk,
+    H, D): the serving prefill's, the encoder's and the cross attention's
+    (no gradient flows through the kernel route).  A causal call takes
+    Sk == S; a non-causal one any Sk >= 1 (S = 1 in a cross decode)."""
+    B, S, H, D = _check("flash_attention", q, k, v, own_keys=not causal)
+    Sk = k.shape[1]
     if not q.is_cuda:
         from ..models.attention import chunked_attention
-        return chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
-                                 skip_masked=causal)
+        return chunked_attention(q, k, v, causal=causal,
+                                 chunk=min(1024, Sk), skip_masked=causal)
     _operands("flash_attention", ("q", q), ("k", k), ("v", v))
     o = torch.empty_like(q)
-    launch("flash_attention", q, k, v, o, B, S, H, D, int(causal))
+    # the causal flag beside the shapes: it changes the work they fix
+    launch("flash_attention", q, k, v, o, B, S, Sk, H, D, int(causal),
+           flags=(bool(causal),))
     return o
 
 

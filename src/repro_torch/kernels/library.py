@@ -12,7 +12,7 @@ Every C entry point enqueues its kernel on the stream it is given (the
 caller's current PyTorch stream), allocates nothing and returns
 ``cudaGetLastError()``; :func:`launch` raises on a non-zero code and only
 then counts the launch in :data:`LAUNCHES`, and under the shapes of its
-tensors in :data:`LAUNCH_SHAPES`.
+tensors (and the flags its caller names) in :data:`LAUNCH_SHAPES`.
 """
 from __future__ import annotations
 
@@ -61,7 +61,7 @@ SIGNATURES = {
     "pool_decode_encode": "pppppppiiii",
     "act_relu_decode_encode": "pppppiii",
     "act_relu_decode": "pppiii",
-    "flash_attention": "ppppiiiii",
+    "flash_attention": "ppppiiiiii",
     "flash_attention_lse": "pppppiiiii",
     "flash_attention_bwd_dq": "ppppppppiiiii",
     "flash_attention_bwd_dkdv": "ppppppppiiiii",
@@ -70,7 +70,8 @@ SIGNATURES = {
 #: Launches of each kernel since the last :func:`reset_launches`.
 LAUNCHES: dict[str, int] = dict.fromkeys(SIGNATURES, 0)
 #: The same launches by ``(name, shapes of its tensor arguments)``: the
-#: shapes a run really gave each kernel.
+#: shapes a run really gave each kernel (followed by the launch's ``flags``
+#: where its caller passes them).
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 
@@ -194,9 +195,11 @@ def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: data is not {align}-byte aligned")
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, flags: tuple = ()) -> None:
     """Enqueue kernel ``name`` on the current stream of its first tensor's
-    device; raise if it was refused, else count the launch."""
+    device; raise if it was refused, else count the launch.  ``flags``
+    (values that change the work the shapes fix, such as attention's causal
+    mask) follow the shapes in :data:`LAUNCH_SHAPES`."""
     lib = load_library().lib
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
@@ -209,5 +212,5 @@ def launch(name: str, *args) -> None:
                            f"{lib.smof_error_string(code).decode()}")
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, tuple(tuple(a.shape) for a in args
-                               if isinstance(a, torch.Tensor)))] += 1
+                               if isinstance(a, torch.Tensor)) + flags)] += 1
 

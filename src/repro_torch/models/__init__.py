@@ -1,6 +1,7 @@
 """The LM stack on PyTorch: configs and the models of the reference
-package's ``models/``: GQA attention or the Mamba, mLSTM and sLSTM mixers
-(``models/ssm.py``), an FFN dense or a mixture of experts (prefill with the
+package's ``models/``: GQA attention (RoPE or M-RoPE) or the Mamba, mLSTM
+and sLSTM mixers (``models/ssm.py``), an FFN dense or a mixture of experts,
+and the encoder-decoder's encoder and cross attention (prefill with the
 ``flash_attention`` kernel, decode from the KV cache or the recurrent
 state, the training loss with its gradient through the backward
 kernels)."""

@@ -1,4 +1,5 @@
-"""GQA attention: chunked (flash-style) prefill and KV-cache decode, on
+"""GQA attention: chunked (flash-style) prefill and KV-cache decode, the
+whisper encoder's self-attention and the decoder's cross attention, on
 PyTorch tensors — the counterparts of the reference package's
 ``models/attention.py``.
 
@@ -11,18 +12,19 @@ versions on a CPU one) the serving prefill (:func:`prefill_attention` with
 ``inference=True``) runs ``flash_attention``, and the training forward
 (``inference=False``) runs ``FlashAttention``, whose gradient is the two
 backward kernels; ``use_kernels=False`` runs the scan, through autograd.
-The reference's sharding hints (``runtime/hints``) have no counterpart on
-one GPU and are left out.  Cross and encoder attention
-(whisper) are not ported yet (ROADMAP.md, Queue 1, item 11).
+The encoder's attention (:func:`encoder_attention`) and the cross attention
+(:func:`cross_attention`, keys of their own length) are non-causal and
+serve forward only: on the kernel route both run ``flash_attention(...,
+causal=False)``.  The reference's sharding hints (``runtime/hints``) have
+no counterpart on one GPU and are left out.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.flash_attention import NEG_INF, FlashAttention, flash_attention
-from .common import apply_rope, dense_init
-
-_LATER = "is not ported yet (ROADMAP.md, Queue 1, item 11)"
+from .common import (apply_mrope, apply_rope, dense_init,
+                     text_mrope_positions)
 
 
 def _divisor_chunk(n: int, target: int) -> int:
@@ -69,7 +71,9 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        raise NotImplementedError(f"M-RoPE ({cfg.name}) {_LATER}")
+        mpos = text_mrope_positions(pos)
+        q = apply_mrope(q, mpos, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, mpos, cfg.mrope_sections, cfg.rope_theta)
     return q, k, v
 
 
@@ -191,11 +195,59 @@ def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
     return out, (ck, cv)
 
 
-def cross_attention(*args, **kwargs):
-    """Decoder -> encoder cross attention (whisper)."""
-    raise NotImplementedError(f"cross attention (whisper) {_LATER}")
+def _noncausal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               chunk: int, use_kernels: bool) -> torch.Tensor:
+    """Non-causal attention of q (B, Sq, H, D) over k, v (B, Sk, KH, D):
+    the ``flash_attention`` kernel route (the KV heads repeated to H first
+    where KH < H) or the reference's scan in chunks of ``min(chunk, Sk)``
+    keys."""
+    if not use_kernels:
+        return chunked_attention(q, k, v, causal=False,
+                                 chunk=min(chunk, k.shape[1]))
+    if q.is_cuda and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        # the kernel has no backward: a gradient would stop here unseen
+        raise NotImplementedError(
+            "the gradient of the encoder's and the cross attention is not "
+            "ported yet (ROADMAP.md, Queue 1, item 16); use_kernels=False "
+            "differentiates the plain version")
+    G = q.shape[2] // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    return flash_attention(q, k.contiguous(), v.contiguous(), causal=False)
 
 
-def encoder_attention(*args, **kwargs):
-    """Non-causal self-attention of the whisper encoder."""
-    raise NotImplementedError(f"encoder attention (whisper) {_LATER}")
+def cross_kv(p: dict, enc: torch.Tensor, cfg) -> tuple:
+    """The encoder output's keys and values for one decoder layer's cross
+    attention, (B, T, KH, D) each: what a prefill writes to the cache as
+    ``xk`` and ``xv``."""
+    B, T, _ = enc.shape
+    k = (enc @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    v = (enc @ p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def cross_attention(p: dict, x: torch.Tensor, kv: tuple, cfg,
+                    chunk: int = 512, use_kernels: bool = True
+                    ) -> torch.Tensor:
+    """Decoder -> encoder cross attention (whisper): the queries of x (B,
+    S, d) over ``kv``, the encoder output's keys and values from
+    :func:`cross_kv` (projected once for the attention and the cache) or
+    the cache's in a decode step (S = 1).  The reference projects them
+    from the encoder output inside; no rotary embedding, as there."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    out = _noncausal(q, *kv, chunk, use_kernels)
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
+def encoder_attention(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
+                      chunk: int = 512, use_kernels: bool = True
+                      ) -> torch.Tensor:
+    """Non-causal self-attention of the whisper encoder over x (B, T,
+    d)."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, pos, repeat_kv=True)
+    out = _noncausal(q, k, v, chunk, use_kernels)
+    return out.reshape(B, T, cfg.n_heads * cfg.hd) @ p["wo"]

@@ -1,9 +1,8 @@
-"""Shared model components: initialisers, norms, gated activations and
-RoPE, on PyTorch tensors.
+"""Shared model components: initialisers, norms, gated activations, RoPE
+and M-RoPE, on PyTorch tensors.
 
 The counterparts of the reference package's ``models/common.py``, in f32
-arithmetic as there.  M-RoPE (qwen2-vl) is not ported yet (ROADMAP.md,
-Queue 1, item 11).
+arithmetic as there.
 """
 from __future__ import annotations
 
@@ -100,3 +99,39 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float = 1e6
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_sections_on(sections: tuple[int, int, int], half: int,
+                       device: torch.device) -> torch.Tensor:
+    """The position stream of each rotary frequency, ``[0] * s0 + [1] * s1
+    + [2] * s2``, on ``device``, made once."""
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim / 2 = {half}")
+    sec = np.concatenate([np.full(s, i) for i, s in enumerate(sections)])
+    return torch.as_tensor(sec, dtype=torch.int64, device=device)
+
+
+def apply_mrope(x: torch.Tensor, pos: torch.Tensor,
+                sections: tuple[int, int, int], theta: float = 1e6
+                ) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): the rotary frequencies are split into
+    three sections (temporal, height, width), each rotated by its own
+    position stream.  x: (..., S, H, D); pos: (3, ..., S), for pure text
+    three copies of the token index (:func:`text_mrope_positions`)."""
+    d = x.shape[-1]
+    freqs = _rope_freqs_on(d, theta, x.device)                   # (D/2,)
+    sec = _mrope_sections_on(tuple(sections), d // 2, x.device)
+    # each frequency's stream: (D/2, ..., S) -> (..., S, D/2)
+    pos_f = pos.float()[sec].movedim(0, -1)
+    ang = pos_f * freqs
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def text_mrope_positions(pos: torch.Tensor) -> torch.Tensor:
+    """For text-only tokens the three M-RoPE streams coincide."""
+    return pos[None].expand((3,) + tuple(pos.shape))

@@ -6,24 +6,32 @@ training loss — the counterparts of the reference package's
 Parameters keep the reference's pytree layout, stacked over *layer groups*
 (one period of the layer pattern): ``{"embed", "groups": {"pos_j": {...}},
 "final_norm", "lm_head"}`` with a leading group axis on every leaf under
-``groups``, so a tree from the reference's ``init_params`` carries over
-leaf for leaf (:func:`params_from_numpy`).  The cache keeps the
+``groups``, and for an encoder-decoder (whisper) each decoder layer's
+``norm_x`` and ``cross`` attention and ``"encoder": {"groups",
+"final_norm"}``, so a tree from the reference's ``init_params`` carries
+over leaf for leaf (:func:`params_from_numpy`).  The cache keeps the
 reference's layout too, ``{"pos_j": {...}}`` with a leading group axis on
 every leaf: an attention position's ``{"k", "v"}`` of shape ``(n_groups,
-B, s_max, KH, D)``, a Mamba, mLSTM or sLSTM position's recurrent state
-(``models/ssm.py``), so its pages compare 1:1.  The reference scans over
-the groups; here a Python loop runs them in the same order, each stacked
-leaf unbound once per forward (``unbind``'s backward stacks the group
-slices' gradients once, where a per-group index would add a zero-filled
-copy of the whole leaf per group).
+B, s_max, KH, D)`` (and an encoder-decoder's cross ``{"xk", "xv"}`` of
+``(n_groups, B, enc_frames, KH, D)``), a Mamba, mLSTM or sLSTM position's
+recurrent state (``models/ssm.py``), so its pages compare 1:1.  The
+reference scans over the groups; here a Python loop runs them in the same
+order, each stacked leaf unbound once per forward (``unbind``'s backward
+stacks the group slices' gradients once, where a per-group index would add
+a zero-filled copy of the whole leaf per group).
 
 Each position's mixer is attention, Mamba, mLSTM or sLSTM, by the layer
 pattern (the dense families, olmoe, grok-1, the hybrid jamba, xlstm), and a
 dense FFN or a mixture of experts follows it where the config has one;
 ``forward`` returns the experts' load-balancing loss summed over layers,
-as the reference does.  Encoder-decoder (whisper) and M-RoPE (qwen2-vl)
-raise ``NotImplementedError`` (ROADMAP.md, Queue 1, item 11); training
-runs the attention families only (Queue 1, item 15).  :func:`lm_loss`
+as the reference does.  An encoder-decoder (whisper) runs its encoder over
+the given frame embeddings first (``forward(enc_frames=)``), and each
+decoder layer attends to the encoder's keys and values after its
+self-attention, a prefill writing them to the cache once and a decode
+reading them; a VLM (qwen2-vl, M-RoPE) takes patch embeddings in place of
+its first token embeddings (``forward(patch_embeds=)``).  Training runs the
+decoder-only attention families (recurrent mixers: ROADMAP.md, Queue 1,
+item 15; the encoder-decoder: item 16).  :func:`lm_loss`
 is the reference's chunked next-token cross-entropy, and ``remat`` its
 rematerialisation of each layer group: ``"full"`` recomputes a group in the
 backward (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
@@ -32,6 +40,7 @@ unbatched matrix products (selective checkpointing), as
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -46,7 +55,6 @@ from .common import apply_norm, dense_init, norm_params
 from .config import ArchConfig
 
 Params = dict
-_LATER = "is not ported yet (ROADMAP.md, Queue 1, item 11)"
 LOSS_CHUNK = 512
 REMAT = ("none", "full", "dots")
 
@@ -59,10 +67,13 @@ def _check_supported(cfg: ArchConfig) -> None:
     if not kinds <= set(MIXERS):
         raise ValueError(f"{cfg.name}: unknown mixers "
                          f"{sorted(kinds - set(MIXERS))}")
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder {_LATER}")
-    if cfg.rope == "mrope":
-        raise NotImplementedError(f"{cfg.name}: M-RoPE {_LATER}")
+
+
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder stack's config: attention layers with a dense FFN, as
+    the reference's."""
+    return dataclasses.replace(cfg, pattern=("attn",), moe=None,
+                               encoder_layers=0)
 
 
 def _mixer_params(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype,
@@ -76,23 +87,20 @@ def _mixer_params(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype,
 # init
 # =============================================================================
 
-def init_params(gen: torch.Generator, cfg: ArchConfig,
-                dtype=torch.float32) -> Params:
-    """Random parameters drawn from ``gen`` on its device, in the
-    reference's layout and with its initialisers (truncated-normal fan-in,
-    0.02 for the embeddings, ones for the norms).  A torch generator gives
-    other numbers than the reference's key from the same seed; to run the
-    reference's weights, carry them over with :func:`params_from_numpy`."""
-    _check_supported(cfg)
+def _stack(gen: torch.Generator, cfg: ArchConfig, dtype, n_groups: int,
+           cross: bool) -> dict:
+    """``{pos_j: layer}`` with every leaf stacked over ``n_groups``."""
     dev = gen.device
-    lead = (cfg.n_groups,)
-    p: Params = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype,
-                                     scale=0.02)}
+    lead = (n_groups,)
     groups = {}
     for j in range(cfg.group_size):
         lp = {"norm1": norm_params(cfg.norm, cfg.d_model, dtype, dev, lead),
               "mixer": _mixer_params(gen, cfg.layer_kind(j), cfg, dtype,
                                      lead)}
+        if cross:
+            lp["norm_x"] = norm_params(cfg.norm, cfg.d_model, dtype, dev,
+                                       lead)
+            lp["cross"] = A.attn_params(gen, cfg, dtype, lead)
         if cfg.d_ff > 0:
             lp["norm2"] = norm_params(cfg.norm, cfg.d_model, dtype, dev,
                                       lead)
@@ -103,11 +111,32 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
             else:
                 lp["ffn"] = M.dense_ffn_params(gen, cfg, dtype, lead)
         groups[f"pos_{j}"] = lp
-    p["groups"] = groups
-    p["final_norm"] = norm_params(cfg.norm, cfg.d_model, dtype, dev)
+    return groups
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig,
+                dtype=torch.float32) -> Params:
+    """Random parameters drawn from ``gen`` on its device, in the
+    reference's layout and with its initialisers (truncated-normal fan-in,
+    0.02 for the embeddings, ones for the norms).  A torch generator gives
+    other numbers than the reference's key from the same seed; to run the
+    reference's weights, carry them over with :func:`params_from_numpy`."""
+    _check_supported(cfg)
+    dev = gen.device
+    p: Params = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype,
+                                     scale=0.02),
+                 "groups": _stack(gen, cfg, dtype, cfg.n_groups,
+                                  cross=cfg.is_encdec),
+                 "final_norm": norm_params(cfg.norm, cfg.d_model, dtype,
+                                           dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.vocab, cfg.d_model), dtype,
                                   scale=0.02)
+    if cfg.is_encdec:
+        p["encoder"] = {
+            "groups": _stack(gen, _encoder_cfg(cfg), dtype,
+                             cfg.encoder_layers, cross=False),
+            "final_norm": norm_params(cfg.norm, cfg.d_model, dtype, dev)}
     return p
 
 
@@ -155,17 +184,14 @@ def _mixer_shapes(kind: str, cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
             "out_proj": (d, d)}
 
 
-def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
-    """Every parameter's ``"/"``-joined tree path and shape."""
-    _check_supported(cfg)
-    d, ng = cfg.d_model, cfg.n_groups
-    layer = {"norm1/w": (d,)}
-    if cfg.norm == "layernorm":
-        layer["norm1/b"] = (d,)
-    if cfg.d_ff > 0:
-        layer["norm2/w"] = (d,)
-        if cfg.norm == "layernorm":
-            layer["norm2/b"] = (d,)
+def _stack_shapes(cfg: ArchConfig, n_groups: int, cross: bool
+                  ) -> dict[str, tuple[int, ...]]:
+    """:func:`_stack`'s leaves, ``pos_j/...`` paths with their shapes."""
+    d = cfg.d_model
+
+    def norm(name):
+        return {f"{name}/w": (d,)} | ({f"{name}/b": (d,)}
+                                      if cfg.norm == "layernorm" else {})
     gated = cfg.act in ("swiglu", "geglu")
     ffn = {"ffn/w_up": (d, cfg.d_ff), "ffn/w_down": (cfg.d_ff, d)}
     if gated:
@@ -177,18 +203,35 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
                "moe/w_down": (E, cfg.d_ff, d)}
         if gated:
             moe["moe/w_gate"] = (E, d, cfg.d_ff)
-    out = {"embed": (cfg.vocab, d)}
+    out = {}
     for j in range(cfg.group_size):
-        mixer = {f"mixer/{k}": s for k, s in
-                 _mixer_shapes(cfg.layer_kind(j), cfg).items()}
-        leaves = layer | mixer | ((moe if cfg.layer_is_moe(j) else ffn)
-                                  if cfg.d_ff > 0 else {})
-        out |= {f"groups/pos_{j}/{k}": (ng,) + s for k, s in leaves.items()}
-    out["final_norm/w"] = (d,)
-    if cfg.norm == "layernorm":
-        out["final_norm/b"] = (d,)
+        leaves = norm("norm1") | {
+            f"mixer/{k}": s for k, s in
+            _mixer_shapes(cfg.layer_kind(j), cfg).items()}
+        if cross:
+            leaves |= norm("norm_x") | {
+                f"cross/{k}": s for k, s in _mixer_shapes("attn", cfg).items()}
+        if cfg.d_ff > 0:
+            leaves |= norm("norm2") | (moe if cfg.layer_is_moe(j) else ffn)
+        out |= {f"pos_{j}/{k}": (n_groups,) + s for k, s in leaves.items()}
+    return out
+
+
+def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
+    """Every parameter's ``"/"``-joined tree path and shape."""
+    _check_supported(cfg)
+    d = cfg.d_model
+    final = {"w": (d,)} | ({"b": (d,)} if cfg.norm == "layernorm" else {})
+    out = {"embed": (cfg.vocab, d)}
+    out |= {f"groups/{k}": s for k, s in
+            _stack_shapes(cfg, cfg.n_groups, cfg.is_encdec).items()}
+    out |= {f"final_norm/{k}": s for k, s in final.items()}
     if not cfg.tie_embeddings:
         out["lm_head"] = (cfg.vocab, d)
+    if cfg.is_encdec:
+        out |= {f"encoder/groups/{k}": s for k, s in _stack_shapes(
+            _encoder_cfg(cfg), cfg.encoder_layers, False).items()}
+        out |= {f"encoder/final_norm/{k}": s for k, s in final.items()}
     return out
 
 
@@ -223,16 +266,18 @@ def param_count(params: Params) -> int:
 # =============================================================================
 
 def _apply_layer(lp: dict, x: torch.Tensor, cfg: ArchConfig, layer_idx: int,
-                 *, pos: torch.Tensor, cache: dict | None = None, mode: str,
+                 *, pos: torch.Tensor, enc: torch.Tensor | None = None,
+                 cache: dict | None = None, mode: str,
                  use_kernels: bool = True):
-    """One layer: its mixer, then its FFN or mixture of experts.  mode:
+    """One layer: its mixer, its cross attention to the encoder output
+    ``enc`` where it has one, then its FFN or mixture of experts.  mode:
     "full" (prefill) | "decode".  Returns (x, new_cache, aux): aux is the
     MoE load-balancing loss, None for a dense layer.  A decode writes the
     cache in place: attention at ``pos``, the recurrent mixers their whole
-    state (``copy_``), so the caller's tensors stay the cache."""
+    state (``copy_``), so the caller's tensors stay the cache; the cross
+    keys and values (``xk``, ``xv``), written by the prefill, are only
+    read."""
     kind = cfg.layer_kind(layer_idx)
-    if "cross" in lp:
-        raise NotImplementedError(f"cross-attention layers {_LATER}")
     aux = None
     h = apply_norm(cfg.norm, x, lp["norm1"])
     new_cache: dict = {}
@@ -265,6 +310,23 @@ def _apply_layer(lp: dict, x: torch.Tensor, cfg: ArchConfig, layer_idx: int,
             lp["mixer"], h, cfg, (cache["k"], cache["v"]), pos)
         new_cache = {"k": ck, "v": cv}
     x = x + out
+    if "cross" in lp:
+        hx = apply_norm(cfg.norm, x, lp["norm_x"])
+        if mode == "full":
+            # projected once, for the attention and the cache alike
+            kv = A.cross_kv(lp["cross"], enc, cfg)
+            if cache is not None:
+                for name, t in zip(("xk", "xv"), kv):
+                    if t.shape != cache[name].shape:
+                        raise ValueError(f"cross {name} {tuple(t.shape)} "
+                                         f"does not fit the cache's "
+                                         f"{tuple(cache[name].shape)}")
+                    new_cache[name] = t.to(cache[name].dtype)
+        else:
+            kv = (cache["xk"], cache["xv"])
+            new_cache |= {"xk": cache["xk"], "xv": cache["xv"]}
+        x = x + A.cross_attention(lp["cross"], hx, kv, cfg,
+                                  use_kernels=use_kernels)
     if cfg.d_ff > 0:
         h2 = apply_norm(cfg.norm, x, lp["norm2"])
         if "moe" in lp:
@@ -322,8 +384,9 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
                ) -> dict:
     """Stacked-over-groups cache, zeros: ``{pos_j: state}``, every leaf
     with the leading axis n_groups; an attention position's ``{"k", "v"}``
-    (n_groups, batch, s_max, KH, D) of ``dtype``, a recurrent mixer's
-    state as ``models/ssm.py``'s ``*_cache`` makes it (f32, Mamba's
+    (n_groups, batch, s_max, KH, D) of ``dtype`` (an encoder-decoder's also
+    ``{"xk", "xv"}``, (n_groups, batch, enc_frames, KH, D)), a recurrent
+    mixer's state as ``models/ssm.py``'s ``*_cache`` makes it (f32, Mamba's
     ``conv`` window of ``dtype``)."""
     _check_supported(cfg)
     cache = {}
@@ -333,6 +396,10 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
             shape = (batch, s_max, cfg.n_kv_heads, cfg.hd)
             c = {n: torch.zeros(shape, dtype=dtype, device=device)
                  for n in ("k", "v")}
+            if cfg.is_encdec:
+                shape = (batch, cfg.enc_frames, cfg.n_kv_heads, cfg.hd)
+                c |= {n: torch.zeros(shape, dtype=dtype, device=device)
+                      for n in ("xk", "xv")}
         else:
             c = getattr(S, f"{kind}_cache")(batch, cfg, dtype, device)
         cache[f"pos_{j}"] = {n: t.new_zeros((cfg.n_groups,) + t.shape)
@@ -344,27 +411,70 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
 # forward passes
 # =============================================================================
 
+def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+           patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """The token embeddings, the first P replaced by ``patch_embeds`` (B,
+    P, d) where the config takes patches (qwen2-vl)."""
+    x = F.embedding(tokens, params["embed"])
+    if patch_embeds is not None and cfg.vlm_patches:
+        P = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
+    return x
+
+
+def _encoder_forward(params: Params, cfg: ArchConfig, frames: torch.Tensor,
+                     use_kernels: bool = True) -> torch.Tensor:
+    """The whisper encoder over precomputed frame embeddings (B, T, d):
+    norm, non-causal self-attention and dense FFN in each of the
+    ``encoder_layers``, then the final norm."""
+    enc_cfg = _encoder_cfg(cfg)
+    pos = torch.arange(frames.shape[1], device=frames.device)[None]
+    x = frames
+    for gp in _unbind(params["encoder"]["groups"], cfg.encoder_layers):
+        lp = gp["pos_0"]
+        h = apply_norm(cfg.norm, x, lp["norm1"])
+        x = x + A.encoder_attention(lp["mixer"], h, enc_cfg, pos,
+                                    use_kernels=use_kernels)
+        h2 = apply_norm(cfg.norm, x, lp["norm2"])
+        x = x + M.apply_dense_ffn(lp["ffn"], h2, enc_cfg)
+    return apply_norm(cfg.norm, x, params["encoder"]["final_norm"])
+
+
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            enc_frames: torch.Tensor | None = None,
+            patch_embeds: torch.Tensor | None = None,
             cache: dict | None = None, pos_offset: torch.Tensor | None = None,
             use_kernels: bool = True, remat: str = "none"):
     """Full-sequence forward.  Returns (hidden, new_cache, aux_loss).
 
     tokens: (B, S) int.  With ``cache`` given (prefill), new per-layer KV
     caches of its shapes are returned, the prompt's keys and values in the
-    first S positions and zeros after.  ``pos_offset``: (B,) start
-    positions.  ``use_kernels`` lets the attention take the kernel route
-    (``flash_attention`` in a prefill, ``FlashAttention`` otherwise).
-    ``remat`` (one of :data:`REMAT`) rematerialises each layer group in
-    the backward; a prefill (``cache`` given) ignores it.
+    first S positions and zeros after (and an encoder-decoder's cross keys
+    and values of the encoder output).  ``enc_frames``: (B, enc_frames, d),
+    the encoder's input, which an encoder-decoder needs; ``patch_embeds``:
+    (B, P, d), in place of the first P token embeddings of a VLM.
+    ``pos_offset``: (B,) start positions.  ``use_kernels`` lets the
+    attention take the kernel route (``flash_attention`` in a prefill and
+    in the encoder's and the cross attention, ``FlashAttention`` in the
+    decoder's self-attention otherwise).  ``remat`` (one of :data:`REMAT`)
+    rematerialises each layer group in the backward; a prefill (``cache``
+    given) ignores it.
     """
     _check_supported(cfg)
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} not in {REMAT}")
     B, Sq = tokens.shape
-    x = F.embedding(tokens, params["embed"])
+    x = _embed(params, cfg, tokens, patch_embeds)
     pos = torch.arange(Sq, device=x.device)[None]
     if pos_offset is not None:
         pos = pos + pos_offset[:, None]
+    enc = None
+    if cfg.is_encdec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward takes "
+                             f"enc_frames of (B, {cfg.enc_frames}, "
+                             f"{cfg.d_model})")
+        enc = _encoder_forward(params, cfg, enc_frames, use_kernels)
     gs = cfg.group_size
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     groups = _unbind(params["groups"], cfg.n_groups)
@@ -373,7 +483,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             def group_body(x, aux, gp=gp):
                 for j in range(gs):
                     x, _, a = _apply_layer(gp[f"pos_{j}"], x, cfg, j,
-                                           pos=pos, mode="full",
+                                           pos=pos, enc=enc, mode="full",
                                            use_kernels=use_kernels)
                     if a is not None:
                         aux = aux + a
@@ -386,8 +496,8 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         new_gc = {}
         for j in range(gs):
             x, nc, a = _apply_layer(gp[f"pos_{j}"], x, cfg, j, pos=pos,
-                                    cache=gc[f"pos_{j}"], mode="full",
-                                    use_kernels=use_kernels)
+                                    enc=enc, cache=gc[f"pos_{j}"],
+                                    mode="full", use_kernels=use_kernels)
             new_gc[f"pos_{j}"] = nc
             if a is not None:
                 aux = aux + a
@@ -399,10 +509,13 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
-                pos: torch.Tensor, cache: dict):
+                pos: torch.Tensor, cache: dict, use_kernels: bool = True):
     """One decode step.  token: (B, 1); pos: (B,).  Returns (logits,
     cache); the cache's tensors are updated in place (attention's at
-    ``pos``, a recurrent mixer's whole state)."""
+    ``pos``, a recurrent mixer's whole state).  ``use_kernels`` lets an
+    encoder-decoder's cross attention over the cached encoder keys take
+    the ``flash_attention`` kernel; the self-attention decode is plain, as
+    the reference's."""
     _check_supported(cfg)
     x = F.embedding(token, params["embed"])
     for g in range(cfg.n_groups):
@@ -410,7 +523,8 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
         gc = _group(cache, g)
         for j in range(cfg.group_size):
             x, _, _ = _apply_layer(gp[f"pos_{j}"], x, cfg, j, pos=pos,
-                                   cache=gc[f"pos_{j}"], mode="decode")
+                                   cache=gc[f"pos_{j}"], mode="decode",
+                                   use_kernels=use_kernels)
     x = apply_norm(cfg.norm, x, params["final_norm"])
     return project_logits(params, cfg, x[:, 0]), cache
 
@@ -422,19 +536,26 @@ def project_logits(params: Params, cfg: ArchConfig, x: torch.Tensor
 
 
 def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, *, remat: str = "none",
+            labels: torch.Tensor, *, enc_frames: torch.Tensor | None = None,
+            patch_embeds: torch.Tensor | None = None, remat: str = "none",
             use_kernels: bool = True) -> torch.Tensor:
     """Next-token cross-entropy, computed in sequence chunks of
     ``min(LOSS_CHUNK, S)`` rows, each recomputed in the backward, so the
     full (B, S, V) logits tensor never materialises; plus 0.01 times the
-    experts' load-balancing loss, as the reference's."""
+    experts' load-balancing loss, as the reference's.  ``patch_embeds`` as
+    :func:`forward`'s; an encoder-decoder (``enc_frames``) is refused."""
+    if cfg.is_encdec or enc_frames is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training the encoder-decoder (the gradient of the "
+            f"cross attention, keys of their own length) is not ported yet "
+            f"(ROADMAP.md, Queue 1, item 16)")
     kinds = {cfg.layer_kind(j) for j in range(cfg.group_size)}
     if kinds != {"attn"}:
         raise NotImplementedError(
             f"{cfg.name}: training on {sorted(kinds - {'attn'})} mixers is "
             f"not ported yet (ROADMAP.md, Queue 1, item 15)")
-    x, _, aux = forward(params, cfg, tokens, remat=remat,
-                        use_kernels=use_kernels)
+    x, _, aux = forward(params, cfg, tokens, patch_embeds=patch_embeds,
+                        remat=remat, use_kernels=use_kernels)
     B, Sq, _ = x.shape
     C = min(LOSS_CHUNK, Sq)
     if Sq % C:

@@ -1,5 +1,5 @@
-"""The train step on PyTorch tensors — the counterpart of the reference
-package's ``runtime/steps.py`` on one GPU.
+"""The train, prefill and decode steps on PyTorch tensors — the
+counterparts of the reference package's ``runtime/steps.py`` on one GPU.
 
 :func:`make_train_step` returns ``step(params, opt_state, batch) ->
 (params, opt_state, metrics)``: the gradient of ``lm_loss`` over
@@ -7,11 +7,19 @@ package's ``runtime/steps.py`` on one GPU.
 (f32, or bf16 when the optimizer states are quantised; divided by the
 count; the loss their mean), then one AdamW update.  The port updates
 ``params`` and ``opt_state`` in place and returns them, where the reference
-returns new trees.  The reference's sharding hints (``runtime/hints.py``),
-its ``in_shardings`` and the abstract-shape builders (``abstract_*``,
-``input_specs``) serve a mesh, which one GPU has not: they wait for
-ROADMAP.md Queue 1, item 12.  The prefill and decode steps are the serving
-engine's (``serving/engine.py``).
+returns new trees.
+
+:func:`make_prefill_step` and :func:`make_decode_step` return the
+reference's ``step(params, cache, batch_in) -> (last_logits, cache)`` and
+``step(params, cache, token, pos) -> (logits, cache)``: the serving entry
+points of a model the engine does not take (an encoder-decoder, whose
+``batch_in`` carries ``enc_frames``; a VLM's ``patch_embeds`` likewise).
+The decode step writes the cache in place, as ``models.decode_step``.
+
+The reference's sharding hints (``runtime/hints.py``), its
+``in_shardings``, donation and the abstract-shape builders
+(``abstract_*``, ``input_specs``) serve a mesh, which one GPU has not: they
+wait for ROADMAP.md Queue 1, item 12.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ import numpy as np
 import torch
 
 from ..models.config import ArchConfig
-from ..models.model import _leaves, _tree, lm_loss
+from ..models.model import (_leaves, _tree, decode_step, forward, lm_loss,
+                            project_logits)
 from ..optim.adamw import AdamWConfig, adamw_update
 
 BF16_LATER = ("the LM stack and its kernels run in f32 only; bf16 is not "
@@ -46,14 +55,16 @@ def _on(batch: dict, device) -> dict:
 
 def loss_and_grads(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                    labels: torch.Tensor, *, remat: str = "full",
-                   use_kernels: bool = True) -> tuple[torch.Tensor, dict]:
+                   use_kernels: bool = True,
+                   patch_embeds: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, dict]:
     """``(loss, grads)`` of ``lm_loss`` at ``params``, the gradients as a
     tree of ``params``' layout.  ``params`` is left as it was (the leaves
     are differentiated through detached aliases, no copy)."""
     flat = dict(_leaves(params))
     leaves = {n: t.detach().requires_grad_(True) for n, t in flat.items()}
     loss = lm_loss(_tree(leaves), cfg, tokens, labels, remat=remat,
-                   use_kernels=use_kernels)
+                   use_kernels=use_kernels, patch_embeds=patch_embeds)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), _tree(dict(zip(leaves, grads)))
 
@@ -63,13 +74,15 @@ def accumulate_grads(params: dict, cfg: ArchConfig, batch: dict,
                      remat: str = "full", use_kernels: bool = True
                      ) -> tuple[torch.Tensor, dict]:
     """``(loss, grads)`` over ``microbatches`` equal slices of ``batch``
-    (rows in order), as the reference's scan: with more than one, each
-    slice's gradients are added into ``acc_dtype`` zeros, the sum divided
-    by the count, and the loss is the slices' mean."""
+    (rows in order; its ``patch_embeds`` too, where it has them), as the
+    reference's scan: with more than one, each slice's gradients are added
+    into ``acc_dtype`` zeros, the sum divided by the count, and the loss is
+    the slices' mean."""
     tokens, labels = batch["tokens"], batch["labels"]
+    patches = batch.get("patch_embeds")
     if microbatches <= 1:
         return loss_and_grads(params, cfg, tokens, labels, remat=remat,
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels, patch_embeds=patches)
     B = tokens.shape[0]
     if B % microbatches:
         raise ValueError(f"batch {B} is not a multiple of {microbatches} "
@@ -80,8 +93,10 @@ def accumulate_grads(params: dict, cfg: ArchConfig, batch: dict,
     losses = []
     for i in range(microbatches):
         sl = slice(i * rows, (i + 1) * rows)
-        loss, grads = loss_and_grads(params, cfg, tokens[sl], labels[sl],
-                                     remat=remat, use_kernels=use_kernels)
+        loss, grads = loss_and_grads(
+            params, cfg, tokens[sl], labels[sl], remat=remat,
+            use_kernels=use_kernels,
+            patch_embeds=None if patches is None else patches[sl])
         for n, g in _leaves(grads):
             acc[n].add_(g.to(acc_dtype))
         del grads
@@ -96,9 +111,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                     device: str | torch.device = "cuda",
                     use_kernels: bool = True) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``,
-    ``batch`` a dict of (B, S) ``tokens`` and ``labels`` (numpy or torch),
-    moved to ``device``; metrics ``loss``, ``lr`` and ``grad_norm``, 0-d
-    tensors.  ``microbatches`` defaults to :func:`auto_microbatches` of the
+    ``batch`` a dict of (B, S) ``tokens`` and ``labels`` (numpy or torch)
+    and, for a VLM, (B, P, d) ``patch_embeds``, moved to ``device``;
+    metrics ``loss``, ``lr`` and ``grad_norm``, 0-d tensors.
+    ``microbatches`` defaults to :func:`auto_microbatches` of the
     batch on one device.  ``use_kernels=False`` runs attention's plain
     version through autograd (the check of the kernel route)."""
     if dtype != torch.float32:
@@ -121,5 +137,62 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     return step
 
 
+def make_prefill_step(cfg: ArchConfig, batch: int, seq: int,
+                      dtype=torch.float32, device: str | torch.device = "cuda",
+                      use_kernels: bool = True) -> Callable:
+    """``step(params, cache, batch_in) -> (last_logits, cache)``:
+    ``batch_in`` a dict of (batch, S) ``tokens``, S <= ``seq``, and where
+    the model takes them (batch, enc_frames, d) ``enc_frames`` or (batch,
+    P, d) ``patch_embeds`` (numpy or torch), moved to ``device``; the
+    cache one of ``init_cache(cfg, batch, seq)``'s shapes, the new one
+    returned with the prompt's keys and values (and the encoder's cross
+    keys and values) and the last position's (batch, vocab) f32 logits.
+    ``use_kernels=False`` runs attention's plain version."""
+    if dtype != torch.float32:
+        raise NotImplementedError(f"dtype {dtype}: {BF16_LATER}")
+
+    def step(params, cache, batch_in):
+        batch_in = _on(batch_in, device)
+        tokens = batch_in["tokens"].long()
+        if tokens.shape[0] != batch or tokens.shape[1] > seq:
+            raise ValueError(f"tokens {tuple(tokens.shape)} do not fit the "
+                             f"step's batch {batch} and seq {seq}")
+        x, new_cache, _ = forward(params, cfg, tokens, cache=cache,
+                                  enc_frames=batch_in.get("enc_frames"),
+                                  patch_embeds=batch_in.get("patch_embeds"),
+                                  use_kernels=use_kernels)
+        return project_logits(params, cfg, x[:, -1]), new_cache
+
+    return step
+
+
+def make_decode_step(cfg: ArchConfig, batch: int, s_max: int,
+                     dtype=torch.float32, device: str | torch.device = "cuda",
+                     use_kernels: bool = True) -> Callable:
+    """``step(params, cache, token, pos) -> (logits, cache)``: one new
+    token (batch, 1) at positions ``pos`` (batch,) against a cache of
+    length ``s_max``, written in place and returned; (batch, vocab) f32
+    logits.  With ``use_kernels`` an encoder-decoder's cross attention over
+    the cached encoder keys takes the ``flash_attention`` kernel."""
+    if dtype != torch.float32:
+        raise NotImplementedError(f"dtype {dtype}: {BF16_LATER}")
+
+    def step(params, cache, token, pos):
+        token = torch.as_tensor(token, device=device).long()
+        pos = torch.as_tensor(pos, device=device).long()
+        if token.shape != (batch, 1) or pos.shape != (batch,):
+            raise ValueError(f"token {tuple(token.shape)} and pos "
+                             f"{tuple(pos.shape)} do not fit the step's "
+                             f"batch {batch}")
+        first = next(iter(cache.values()))
+        if "k" in first and first["k"].shape[2] != s_max:
+            raise ValueError(f"cache of length {first['k'].shape[2]}, the "
+                             f"step's s_max is {s_max}")
+        return decode_step(params, cfg, token, pos, cache,
+                           use_kernels=use_kernels)
+
+    return step
+
+
 __all__ = ["auto_microbatches", "loss_and_grads", "accumulate_grads",
-           "make_train_step"]
+           "make_train_step", "make_prefill_step", "make_decode_step"]

@@ -132,6 +132,9 @@ class ServingEngine:
     ``"auto"`` (the kernel route: the ``flash_attention`` kernel on a CUDA
     device, its plain version on the CPU), ``"cuda"`` (the kernel route,
     refused off the card) or ``"reference"`` (the plain scan everywhere).
+    An encoder-decoder config is refused: the engine has no encoder frames
+    to give it (the reference's fails inside its encoder), and it is served
+    through ``runtime.steps.make_prefill_step`` / ``make_decode_step``.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 4,
@@ -141,6 +144,11 @@ class ServingEngine:
                  metrics: MetricsRegistry | None = None,
                  device: str | torch.device = "cuda",
                  kernel_mode: str = "auto"):
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: the engine "
+                             f"takes no encoder frames; serve it through "
+                             f"runtime.steps.make_prefill_step and "
+                             f"make_decode_step")
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
@@ -315,7 +323,8 @@ class ServingEngine:
             last[b, 0] = self.slots[b].out_tokens[-1]
         logits, self.cache = decode_step(
             self.params, self.cfg, torch.as_tensor(last, device=self.device),
-            torch.as_tensor(self.pos, device=self.device), self.cache)
+            torch.as_tensor(self.pos, device=self.device), self.cache,
+            use_kernels=self.use_kernels)
         nxt = self.sampler(logits).cpu().numpy()
         self._c_decode.inc()
         for b in active:

@@ -811,6 +811,86 @@ def test_flash_attention_against_its_plain_version(gen, B, S, H, D, causal):
         q, k, v, causal=causal), rtol=2e-4, atol=2e-4)
 
 
+# (B, Sq, Sk, H, D): keys of their own length, non-causal (the cross
+# attention's: a decode step's one row, a prompt, ragged Sk and whisper's
+# 1500 frames), and the wider head
+FLASH_CROSS_SHAPES = [(4, Sq, Sk, 20, 64) for Sq in (1, 64, 77)
+                      for Sk in (1, 37, 1499, 1500)] + [(2, 33, 130, 8, 128)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D", FLASH_CROSS_SHAPES)
+def test_flash_attention_over_keys_of_their_own_length(gen, B, Sq, Sk, H,
+                                                        D):
+    """Non-causal q (B, Sq, H, D) over k, v (B, Sk, H, D): within rtol =
+    atol = 2e-4 of the plain scan and the plain softmax, one launch, a
+    second launch bit for bit the first; causal with Sk != Sq refused."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import chunked_attention
+    q = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+    k, v = (torch.randn(B, Sk, H, D, generator=gen, device="cuda")
+            for _ in range(2))
+    reset_launches()
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert launches()["flash_attention"] == 1
+    torch.testing.assert_close(got, chunked_attention(
+        q, k, v, causal=False, chunk=min(1024, Sk)), rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got, ref.flash_attention_ref(
+        q, k, v, causal=False), rtol=2e-4, atol=2e-4)
+    assert torch.equal(_bits(flash_attention(q, k, v, causal=False)),
+                       _bits(got))
+    if Sk != Sq:
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, causal=True)
+
+
+def test_whisper_steps_run_the_kernel(gen):
+    """Reduced whisper (2 encoder and 2 decoder layers) through the step
+    builders on the card: one flash launch per encoder layer and two per
+    decoder layer in a prefill, one per decoder layer in a decode step;
+    the last logits and every cache leaf within 2e-4 x max|plain| of the
+    plain route on the same weights, then three decode steps' logits."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    cfg = ARCHS["whisper-large-v3"].reduced(n_layers=2)
+    params = init_params(gen, cfg)
+    B, S, s_max = 2, 11, 32
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device="cuda"),
+             "enc_frames": torch.randn(B, cfg.enc_frames, cfg.d_model,
+                                       generator=gen, device="cuda")}
+    out = {}
+    for kernels in (True, False):
+        pre = make_prefill_step(cfg, B, s_max, use_kernels=kernels)
+        dec = make_decode_step(cfg, B, s_max, use_kernels=kernels)
+        reset_launches()
+        logits, cache = pre(params, init_cache(cfg, B, s_max), batch)
+        torch.cuda.synchronize()
+        n = cfg.encoder_layers + 2 * cfg.n_layers
+        assert launches()["flash_attention"] == (n if kernels else 0)
+        steps = [logits]
+        for t in range(3):
+            # the same tokens on both routes: the prompt's first three
+            logits, cache = dec(params, cache, batch["tokens"][:, t:t + 1],
+                                torch.full((B,), S + t, device="cuda"))
+            steps.append(logits)
+        torch.cuda.synchronize()
+        assert launches()["flash_attention"] == (
+            n + 3 * cfg.n_layers if kernels else 0)
+        out[kernels] = steps, cache
+    (sk, ck), (sp, cp) = out[True], out[False]
+    for got, want in list(zip(sk, sp)) + [(ck["pos_0"][n], cp["pos_0"][n])
+                                          for n in ("k", "v", "xk", "xv")]:
+        tol = 2e-4 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    # the kernel has no backward: a gradient through it is refused
+    from repro_torch.models import forward
+    params["groups"]["pos_0"]["cross"]["wq"].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 16"):
+        forward(params, cfg, batch["tokens"], enc_frames=batch["enc_frames"])
+
+
 def test_flash_attention_raises_without_its_library(gen, monkeypatch,
                                                     tmp_path):
     """No kernel library (it cannot be built): the wrapper and the

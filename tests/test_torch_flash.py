@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp                                     # noqa: E402
 
 from repro.kernels import ref as jref                       # noqa: E402
+from repro.models import attention as JA                    # noqa: E402
 from repro.kernels.flash_attention import (                 # noqa: E402
     flash_attention as jflash)
 
@@ -77,3 +78,38 @@ def test_wrapper_refuses_mismatched_shapes():
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :4], q)
+
+
+@pytest.mark.parametrize("Sq", [1, 64])
+@pytest.mark.parametrize("Sk", [1, 37, 1499])
+def test_keys_of_their_own_length_on_the_plain_route(Sq, Sk):
+    """Non-causal attention over Sk keys (the cross attention's, Sq = 1 in
+    a decode step) against the reference's plain softmax and its
+    chunked_attention, the oracle of its kernel."""
+    rng = np.random.default_rng(Sq * Sk)
+    q = rng.standard_normal((2, Sq, 2, 64), dtype=np.float32)
+    k, v = (rng.standard_normal((2, Sk, 2, 64), dtype=np.float32)
+            for _ in range(2))
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=False)
+    assert got.shape == (2, Sq, 2, 64)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    for want in (jref.flash_attention_ref(jq, jk, jv, causal=False),
+                 JA.chunked_attention(jq, jk, jv, causal=False,
+                                      chunk=min(512, Sk))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                                   atol=TOL)
+
+
+def test_causal_keys_of_their_own_length_are_refused():
+    """A causal call's keys are the queries' positions: Sk != Sq is
+    refused, as are k and v of different lengths and zero keys."""
+    q, k = torch.zeros(1, 8, 2, 16), torch.zeros(1, 5, 2, 16)
+    with pytest.raises(ValueError, match="one \\(B, S, H, D\\)"):
+        flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, q, causal=False)
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :0], k[:, :0], causal=False)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros(1, 5, 3, 16), torch.zeros(1, 5, 3, 16),
+                        causal=False)

@@ -97,13 +97,19 @@ def test_rmsnorm_and_rope_match_the_reference():
 
 
 def test_unported_families_raise():
+    """Every family is served now; what still refuses is whisper's
+    training (Queue 1, item 16) and whisper in the engine, which has no
+    encoder frames to give it (the step builders serve it)."""
+    whisper = ARCHS["whisper-large-v3"].reduced()
     for name in ("whisper-large-v3", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-            TM.init_cache(ARCHS[name].reduced(), 1, 8)
-    qwen = ARCHS["qwen2-vl-72b"].reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        TA._project_qkv(TA.attn_params(torch.Generator(), qwen),
-                        torch.zeros(1, 2, 64), qwen, torch.arange(2)[None])
+        cache = TM.init_cache(ARCHS[name].reduced(), 1, 8, device="cpu")
+        assert set(cache["pos_0"]) >= {"k", "v"}
+    params = TM.init_params(torch.Generator().manual_seed(0), whisper)
+    toks = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 16"):
+        TM.lm_loss(params, whisper, toks, toks)
+    with pytest.raises(ValueError, match="make_prefill_step"):
+        ServingEngine(whisper, params, device="cpu")
 
 
 # (Sq, Sk, H, KH, chunk, q_chunk, q_offset): S multiple and not of the
