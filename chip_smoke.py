@@ -119,7 +119,22 @@ and prints no result line):
    the plain route, two microbatches accumulated in bf16 bit for bit
    their definition, and four steps with a save after step 2 and a
    restore into a fresh loop, steps 3-4 bit for bit the uninterrupted
-   run's (raw checkpoints) or within the BFP8 bound (BFP8 ones);
+   run's (raw checkpoints) or within the BFP8 bound (BFP8 ones).  Then
+   yi-6b in bf16 (``lm-train-bf16``: the same step with bf16 parameters,
+   the bf16 attention instances, routes held to bf16_route_tol (2^-7
+   sqrt(depth) of max|plain|), 4 steps of
+   TRAIN_BF16_OPT, the fourth loss below the first, the launches counted).
+   bf16 is served too (``lm-serve-bf16``, after ``lm-serve``: yi-6b
+   through ``ServingEngine(dtype=bf16)``, the same prompts, schedule and
+   counters).  The staged executor (``lm-staged``): (a) yi-6b f32 on
+   ``lm-serve``'s weights in 4 stages, bit for bit the monolithic forward
+   with the boundary codec off, the reference's agreement and compression
+   checks with it on; (b) after the training paths, jamba-v0.1-52b in bf16
+   at its published widths, as many whole periods as half the host's
+   MemTotal holds (the cut printed), weights made on the card a group at a
+   time and kept in host memory, one period a stage: eq5_latency,
+   per-stage times and boundary bytes, peak memory below the card's and
+   the weights' bytes, the routes held with the measured near-tie rule;
 4. hold each kernel against its plain PyTorch version on the card, at every
    shape a path launched it with in phase 3 plus ragged shapes (c = 3, 24,
    40 for the codec variants, payloads with random padding bytes) and the
@@ -139,7 +154,14 @@ and prints no result line):
    their bound and SDPA at the same shapes; its lse instance and the two backward kernels
    at the train paths' shapes and at the same ragged shapes, within
    TRAIN_TOL x max(1, max|plain|) of their plain versions (the lse too)
-   and a second launch bit for bit the first; every tile
+   and a second launch bit for bit the first; the four bf16 instances
+   (flash_attention_bf16, flash_attention_lse_bf16,
+   flash_attention_bwd_dq_bf16, flash_attention_bwd_dkdv_bf16) at the bf16
+   paths' shapes and the same ragged ones, every bf16 element within one
+   bf16 ulp of its plain version (lse and delta as the f32 instances'),
+   two launches bit for bit, timed against SDPA in bf16 (forward; the
+   whole autograd backward for the pair) and bound by the bf16 tensor
+   cores' 989 TFLOP/s; every tile
    choice of every tiled kernel bit for bit its untiled launch; and time
    kernel, plain version and one PyTorch call as a yardstick (CUDA events,
    L2 flushed before every launch, median of REPS launches).  Besides the
@@ -194,10 +216,16 @@ PEAK_HBM_BYTES_S = 3.35e12
 # dense TF32 on the tensor cores; the kernels that split each f32 operand
 # into two TF32 terms (csrc/tf32x3.cuh) issue three products per product
 PEAK_TF32_FLOPS = 495e12
+# dense bf16 on the tensor cores (f32 accumulation): the least time for a
+# bf16 instance's work, whose bf16 products are exact in f32; the instances
+# themselves run the 3xTF32 body, so bound_tf32x3_ms is their own design's
+PEAK_BF16_FLOPS = 989e12
 TF32X3_KERNELS = ("streamed_matmul", "flash_attention", "conv2d",
                   "conv2d_encode", "conv2d_decode", "conv2d_decode_encode",
                   "flash_attention_lse", "flash_attention_bwd_dq",
-                  "flash_attention_bwd_dkdv")
+                  "flash_attention_bwd_dkdv", "flash_attention_bf16",
+                  "flash_attention_lse_bf16", "flash_attention_bwd_dq_bf16",
+                  "flash_attention_bwd_dkdv_bf16")
 
 FRAMES = 3
 REPS = 20
@@ -344,11 +372,16 @@ AUTOTUNE_SERVED = 20
 # cut to 8 of its 80 layers (about 9.51 B parameters, 38 GB in f32; the whole
 # model's 291 GB does not fit), served on text positions as the reference's
 # engine serves it, plus one prefill with patch embeddings.  Each entry:
-# (arch, tag, layers kept or None for the published depth)
-LM_PATHS = (("yi-6b", "lm-serve", None), ("olmoe-1b-7b", "lm-moe", None),
-            ("xlstm-1.3b", "lm-xlstm", None),
-            ("jamba-v0.1-52b", "lm-jamba", 8),
-            ("qwen2-vl-72b", "lm-qwen2vl", 8))
+# (arch, tag, layers kept or None for the published depth, working type).
+# lm-serve-bf16 serves yi-6b in bf16, the reference's default working type,
+# through the bf16 instance of flash_attention, on the same prompts and
+# schedule as lm-serve
+LM_PATHS = (("yi-6b", "lm-serve", None, "float32"),
+            ("yi-6b", "lm-serve-bf16", None, "bfloat16"),
+            ("olmoe-1b-7b", "lm-moe", None, "float32"),
+            ("xlstm-1.3b", "lm-xlstm", None, "float32"),
+            ("jamba-v0.1-52b", "lm-jamba", 8, "float32"),
+            ("qwen2-vl-72b", "lm-qwen2vl", 8, "float32"))
 # qwen2-vl's prefill with patches: (prompt tokens, patch positions), the
 # config's 1024 patch embeddings in place of the first token embeddings
 LM_PATCH_PROMPT = (1536, 1024)
@@ -363,6 +396,22 @@ LM_RESIDENT = 2
 # experts' plain-route logits within LM_TOL x max |logit|) under which a
 # mixture of experts may choose another expert
 LM_TOL = 2e-4              # of max |plain|
+# bf16's unit round-off: a rounding to bf16 moves x by at most BF16_U |x|,
+# and one bf16 ulp of x is at most 2 BF16_U |x|
+BF16_U = 2.0 ** -8
+# a bf16 path's kernel route against its plain route: the two differ only
+# in attention, whose kernel output is within one ulp of its plain version
+# (phase 4), and each layer passes that on through its own bf16 roundings:
+# a layer adds at most one ulp of the largest magnitude, 2 BF16_U of it.
+# Whether an element's rounding goes up or down on one route and not the
+# other is decided by f32 sums taken in another order, so the layers' ulps
+# come with independent signs and add in quadrature, not in line: L layers
+# (in training, and their backward, 2 L) stand at 2 BF16_U sqrt(L) of max
+# |plain|
+def bf16_route_tol(depth: int) -> float:
+    return 2 * BF16_U * math.sqrt(depth)
+
+
 # a host-evicted page back through the BFP8 codec, relative to max |page|
 # (the reference's test_bfp8_page_roundtrip_numerics)
 LM_BFP8_REL = 0.05
@@ -403,6 +452,34 @@ TRAIN_STEPS = 4
 TRAIN_OPT = dict(lr=3e-4, total_steps=4, quantize_states=True)
 TRAIN_KEEP = ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo")
 TRAIN_REDUCED = dict(seq_len=128, global_batch=2, microbatches=2)
+# lm-train-bf16: the same yi-6b step in bf16 (parameters and gradients
+# bf16, int8 AdamW states, the bf16 attention instances), the same batch.
+# Its schedule holds the first step's learning rate, 3e-6, and decays it.
+# Under TRAIN_OPT's growing warmup (3e-6, 6e-6, 9e-6) the fourth bf16 loss
+# rises past the first on both attention routes alike
+# (examples/torch_train_schedules.py --dtype bfloat16, PERF.md §6): with
+# int8 states a row's v rounds to 0 where its gradient is small, the update
+# there is amplified (m / (sqrt(v) + eps)), and a bf16 weight moves by
+# little else (lr is below half an ulp of every weight above 1.5e-3).  The
+# port's bf16 update equals the reference's to one ulp at every element,
+# amplified ones included (tests/test_torch_bf16.py); whether the
+# reference's own bf16 step overshoots alike at this width is open
+# (ROADMAP.md, Queue 3, fault 7)
+TRAIN_BF16_TAG = "lm-train-bf16"
+TRAIN_BF16_OPT = dict(lr=3e-6, warmup_steps=1, total_steps=4,
+                      quantize_states=True)
+# the staged executor (runtime/reconfigure.py): lm-staged runs yi-6b in f32
+# on the weights lm-serve made, through STAGED_YI_STAGES stages, and then
+# jamba-v0.1-52b in bf16 at its published widths, as many whole periods of
+# its pattern (each a layer group of 8: a stage) as fit in half the host's
+# memory (all 4, the full depth, from 160 GB up; at least 2), on
+# STAGED_TOKENS seeded tokens
+STAGED_YI_STAGES = 4
+STAGED_TOKENS = (2, 512)
+STAGED_ARCH = "jamba-v0.1-52b"
+STAGED_MIN_PERIODS = 2
+STAGED_AGREE = 0.9          # the reference's own argmax agreement, codec on
+STAGED_COMPRESSION = 0.6    # and its boundary compression bound
 # kernel route vs plain route, a gradient, a norm or the loss: of
 # max(1, max|plain|), the port's vertex tolerance (f32 sums in another
 # order through 32 layers and their recompute)
@@ -436,6 +513,13 @@ TPU_SRC = {
     # no Pallas counterpart: the gradient XLA takes of chunked_attention
     "flash_attention_bwd_dq": "src/repro/models/attention.py:68",
     "flash_attention_bwd_dkdv": "src/repro/models/attention.py:68",
+    # the bf16 instances: the Pallas kernel is type-generic (its blocks in
+    # f32, its output in o_ref's type); the backward pair is XLA's gradient
+    # of chunked_attention in bf16
+    "flash_attention_bf16": "src/repro/kernels/flash_attention.py:24",
+    "flash_attention_lse_bf16": "src/repro/kernels/flash_attention.py:24",
+    "flash_attention_bwd_dq_bf16": "src/repro/models/attention.py:68",
+    "flash_attention_bwd_dkdv_bf16": "src/repro/models/attention.py:68",
 }
 CUDA_SRC = {
     "streamed_matmul": "src/repro_torch/csrc/streamed_matmul.cu",
@@ -461,8 +545,16 @@ CUDA_SRC = {
     "flash_attention_lse": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dkdv": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bf16": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_lse_bf16": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dq_bf16":
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkdv_bf16":
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
 }
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+BF16_KERNELS = ("flash_attention_bf16", "flash_attention_lse_bf16",
+                "flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkdv_bf16")
 
 
 def sheet_phase(torch) -> None:
@@ -552,9 +644,10 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -586,6 +679,7 @@ def kernel_phase(torch, timer, path_shapes):
     # kernel vs plain, f32 sums in another order (streamed_matmul, conv2d):
     # rtol = atol = the tolerance phase 3 holds every vertex of a path to
     from repro_torch.testing.oracle import VERTEX_PARITY_TOL as MATMUL_TOL
+    from repro_torch.testing.ulp import bf16_ulp, f32_slack
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -632,6 +726,8 @@ def kernel_phase(torch, timer, path_shapes):
                     raise AssertionError(f"{name}: NaN at other places")
                 got, want = got[~nan], want[~nan]
             got, want = got.view(torch.int32), want.view(torch.int32)
+        elif got.dtype == torch.bfloat16:
+            got, want = got.view(torch.int16), want.view(torch.int16)
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: not bit-exact")
 
@@ -656,20 +752,63 @@ def kernel_phase(torch, timer, path_shapes):
         for a, b in zip(kern(), got):
             exact(name, a, b)
 
+    def within_ulp_and_repeatable(name, kern, plain, slack):
+        """A bf16 instance: every bf16 output within one bf16 ulp of the
+        plain version's value plus twice its f32 sums' slack (``slack``,
+        one per bf16 output in order: testing.ulp.f32_slack), every f32
+        output (lse,
+        delta) within TRAIN_TOL x max(1, max|plain|), as the f32
+        instances, and a second launch bit for bit the first."""
+        got = kern()
+        slack = iter(slack)
+        for g, w in zip(got, plain()):
+            w64 = w.double()
+            err = (g.double() - w64).abs()
+            note_err(name, err)
+            top = max(1.0, float(w64.abs().max()))
+            if w.dtype == torch.bfloat16:
+                bad = int((err > bf16_ulp(w) + 2 * next(slack)).sum())
+            else:
+                bad = int((err > TRAIN_TOL * top).sum())
+            if bad:
+                raise AssertionError(f"{name}: {bad} of {err.numel()} "
+                                     f"values past one bf16 ulp (f32: "
+                                     f"{TRAIN_TOL} x max(1, max|plain|)); "
+                                     f"max abs err {float(err.max())}")
+        for a, b in zip(kern(), got):
+            exact(name, a, b)
+
     def train_attention(kind, B, S, H, D, causal=True):
         """Inputs of one training-attention launch: (check, kernel, plain,
         yardstick or None, bytes, operations).  o and lse come from the
-        plain forward; the yardstick is F.scaled_dot_product_attention
-        (f32), forward for the lse instance, its autograd backward (dq,
-        dk and dv together) for each backward kernel."""
-        q, k, v, do = (randn(B, S, H, D) for _ in range(4))
+        plain forward; the yardstick is F.scaled_dot_product_attention in
+        the instance's type, forward for the lse instance, its autograd
+        backward (dq, dk and dv together) for each backward kernel.  A
+        ``_bf16`` kind takes bf16 q, k, v, o and dO (lse and delta f32)."""
+        base = kind.removesuffix("_bf16")
+        dtype = torch.float32 if kind == base else torch.bfloat16
+        es = 4.0 if kind == base else 2.0      # bytes an operand value
+        q, k, v, do = (randn(B, S, H, D).to(dtype) for _ in range(4))
         o, lse = chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
                                    skip_masked=causal, return_lse=True)
         n = B * S * H * D
+
+        def check(kern, plain):
+            if dtype == torch.float32:
+                return lambda: within_and_repeatable(kind, kern, plain)
+
+            def held():
+                sl = f32_slack(q, k, v, causal, do)
+                within_ulp_and_repeatable(kind, kern, plain, {
+                    "flash_attention_lse": (sl["o"],),
+                    "flash_attention_bwd_dq": (sl["dq"],),
+                    "flash_attention_bwd_dkdv": (sl["dk"], sl["dv"]),
+                }[base])
+            return held
         # the forward's two products over the causal triangle (diagonal
         # included) or the square
         fwd = 2.0 * B * H * D * (S * (S + 1) if causal else 2 * S * S)
-        if kind == "flash_attention_lse":
+        if base == "flash_attention_lse":
             kern = lambda: FA.flash_attention_lse(     # noqa: E731
                 q, k, v, causal=causal)
             plain = lambda: chunked_attention(          # noqa: E731
@@ -678,15 +817,15 @@ def kernel_phase(torch, timer, path_shapes):
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=causal)
-            return ((lambda: within_and_repeatable(kind, kern, plain)), kern,
-                    plain, lib, 4.0 * (4 * n + B * H * S), fwd)
-        if kind == "flash_attention_bwd_dq":
+            return (check(kern, plain), kern, plain, lib,
+                    es * 4 * n + 4.0 * B * H * S, fwd)
+        if base == "flash_attention_bwd_dq":
             kern = lambda: FA.flash_attention_bwd_dq(  # noqa: E731
                 q, k, v, o, do, lse, causal)
             plain = lambda: FA.flash_attention_bwd_dq_plain(  # noqa: E731
                 q, k, v, o, do, lse, causal)
             # q, k, v, o, dO, lse in; dq, delta out; s, dP and dQ
-            nbytes, ops = 4.0 * (6 * n + 2 * B * H * S), 1.5 * fwd
+            nbytes, ops = es * 6 * n + 8.0 * B * H * S, 1.5 * fwd
         else:
             delta = FA.flash_attention_bwd_dq_plain(q, k, v, o, do, lse,
                                                     causal)[1]
@@ -695,22 +834,22 @@ def kernel_phase(torch, timer, path_shapes):
             plain = lambda: FA.flash_attention_bwd_dkdv_plain(  # noqa: E731
                 q, k, v, do, lse, delta, causal)
             # q, k, v, dO, lse, delta in; dk, dv out; s, dP, dV and dK
-            nbytes, ops = 4.0 * (6 * n + 2 * B * H * S), 2.0 * fwd
+            nbytes, ops = es * 6 * n + 8.0 * B * H * S, 2.0 * fwd
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         dot = do.transpose(1, 2).contiguous()
         lib = lambda: torch.autograd.grad(     # noqa: E731
             ot, (qt, kt, vt), dot, retain_graph=True)
-        return ((lambda: within_and_repeatable(kind, kern, plain)), kern,
-                plain, lib, nbytes, ops)
+        return check(kern, plain), kern, plain, lib, nbytes, ops
 
-    def flash_case(B, S, Sk, H, D, causal):
+    def flash_case(B, S, Sk, H, D, causal, dtype=torch.float32):
         """Inputs of one flash_attention launch, q (B, S, H, D) over k, v
-        (B, Sk, H, D): (check, kernel, plain, SDPA at the same shapes,
+        (B, Sk, H, D) of ``dtype`` (bf16: the flash_attention_bf16
+        instance): (check, kernel, plain, SDPA at the same shapes and type,
         bytes, operations)."""
-        q = randn(B, S, H, D)
-        k, v = (randn(B, Sk, H, D) for _ in range(2))
+        q = randn(B, S, H, D).to(dtype)
+        k, v = (randn(B, Sk, H, D).to(dtype) for _ in range(2))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         kern = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
         plain = lambda: chunked_attention(                 # noqa: E731
@@ -720,12 +859,18 @@ def kernel_phase(torch, timer, path_shapes):
         # S x Sk rectangle
         ops = (2.0 * B * H * D * S * (S + 1) if causal
                else 4.0 * B * H * D * S * Sk)
-        return ((lambda: close_and_repeatable("flash_attention", kern,
-                                              plain, FLASH_TOL)),
-                kern, plain,
+        if dtype == torch.float32:
+            check = lambda: close_and_repeatable(        # noqa: E731
+                "flash_attention", kern, plain, FLASH_TOL)
+        else:
+            check = lambda: within_ulp_and_repeatable(   # noqa: E731
+                "flash_attention_bf16", lambda: (kern(),),
+                lambda: (plain(),), (f32_slack(q, k, v, causal)["o"],))
+        es = q.element_size()
+        return (check, kern, plain,
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=causal),
-                8.0 * B * H * D * (S + Sk), ops)
+                2.0 * es * B * H * D * (S + Sk), ops)
 
     def pool_close(name, got, x, m_out):
         """The global pool: within POOL_TOL * mean |x| of each channel of
@@ -874,13 +1019,15 @@ def kernel_phase(torch, timer, path_shapes):
     def case(kind, arg_shapes):
         """Inputs at one launch's shapes: (check, kernel, plain, yardstick
         or None, bytes moved, operations)."""
-        if kind == "flash_attention_lse" or kind in BWD_KERNELS:
+        base = kind.removesuffix("_bf16")
+        if base == "flash_attention_lse" or base in BWD_KERNELS:
             return train_attention(kind, *arg_shapes[0])
+        if base == "flash_attention":
+            (B, S, H, D), (_, Sk, _, _), _, _, causal = arg_shapes
+            return flash_case(B, S, Sk, H, D, causal, torch.float32
+                              if kind == base else torch.bfloat16)
         if kind.endswith("_encode") or "_decode" in kind:
             return codec_case(kind, arg_shapes)
-        if kind == "flash_attention":
-            (B, S, H, D), (_, Sk, _, _), _, _, causal = arg_shapes
-            return flash_case(B, S, Sk, H, D, causal)
         if kind == "streamed_matmul":
             (m, k), (ks, n), (kd, _), _ = arg_shapes
             x = randn(m, k)
@@ -965,7 +1112,8 @@ def kernel_phase(torch, timer, path_shapes):
         if kind == "pool":
             pool_shapes.append((arg_shapes[0], arg_shapes[1][0], nbytes,
                                 t_kern, t_lib, union[key]))
-        b, bound_by = bound_ms(nbytes, ops)
+        b, bound_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS
+                               if kind in BF16_KERNELS else PEAK_F32_FLOPS)
         if kind in ("bfp8_quant", "bfp8_dequant"):
             stripe, payload = ((arg_shapes[0], arg_shapes[1]) if kind ==
                                "bfp8_quant" else (arg_shapes[2],
@@ -1070,9 +1218,12 @@ def kernel_phase(torch, timer, path_shapes):
                   chunked_attention(q, k, v, causal=causal,
                                     chunk=min(1024, S), skip_masked=causal),
                   FLASH_TOL, FLASH_TOL)
-            # the training instances at the same shapes
+            # the training instances at the same shapes, and every bf16
+            # instance
             for kind in ("flash_attention_lse", *BWD_KERNELS):
                 train_attention(kind, B, S, H, D, causal)[0]()
+                train_attention(kind + "_bf16", B, S, H, D, causal)[0]()
+            flash_case(B, S, S, H, D, causal, torch.bfloat16)[0]()
     # keys of their own length (non-causal, the cross attention's): ragged
     # Sk against a decode step's one query row and a 64-token prompt, at
     # whisper's 20 heads of 64, held and timed against the bound and SDPA
@@ -1080,14 +1231,18 @@ def kernel_phase(torch, timer, path_shapes):
           "ms, plain ms, SDPA ms, bound ms (3xTF32 bound)")
     for Sq in (1, 64):
         for Sk in (1, 37, 1499):
-            check, kern, plain, lib, nbytes, ops = flash_case(
-                4, Sq, Sk, 20, 64, False)
-            check()
-            t_kern, t_plain, t_lib = timer(kern), timer(plain), timer(lib)
-            b, bound_by = bound_ms(nbytes, ops)
-            print(f"    (4, {Sq}, {Sk}, 20, 64): ms {t_kern:.4f} plain "
-                  f"{t_plain:.4f} SDPA {t_lib:.4f} bound {b:.5f} "
-                  f"({bound_by}, {bound_tf32x3_ms(nbytes, ops):.5f})")
+            for dtype in (torch.float32, torch.bfloat16):
+                check, kern, plain, lib, nbytes, ops = flash_case(
+                    4, Sq, Sk, 20, 64, False, dtype)
+                check()
+                t_kern, t_plain, t_lib = timer(kern), timer(plain), timer(lib)
+                b, bound_by = bound_ms(nbytes, ops, PEAK_F32_FLOPS
+                                       if dtype == torch.float32
+                                       else PEAK_BF16_FLOPS)
+                print(f"    (4, {Sq}, {Sk}, 20, 64) {dtype}: ms "
+                      f"{t_kern:.4f} plain {t_plain:.4f} SDPA {t_lib:.4f} "
+                      f"bound {b:.5f} ({bound_by}, "
+                      f"{bound_tf32x3_ms(nbytes, ops):.5f})")
     tile_checks(torch, SC, randn, exact)
     specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -1.0],
                             device="cuda")
@@ -1790,10 +1945,13 @@ def decode_equivalence(torch, cfg, params, tag, pairs=LM_DECODE_EQ,
         del cache, full
 
 
-def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
+def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None,
+                   dtype: str = "float32", keep: bool = False):
     """An LM serving path: ``ServingEngine`` on ``arch`` at its published
     widths on the card (its depth cut to ``n_layers`` where given), the
-    prefill attention through the flash_attention kernel.  Checks the
+    prefill attention through the flash_attention kernel (weights, cache
+    and the kernel instance of ``dtype``; bf16 paths hold the routes to
+    ``bf16_route_tol`` of their depth).  Checks the
     counters (read from ``metrics_text()``) against the schedule, worked
     out with the cache leaves' own sizes; one flash launch per attention
     layer and prompt and no other kernel; a resident restore of every leaf
@@ -1803,10 +1961,11 @@ def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
     decode-equivalence invariant instead (``decode_equivalence``).  Then
     times prefill and decode and the host BFP8 codec, profiles one of each
     on the device and the host, and reads the peak memory.  Returns
-    (launches, launch shapes) of the served run."""
+    (launches, launch shapes) of the served run, and with ``keep`` the
+    config and the weights too."""
     import numpy as np
     from repro_torch.models import init_cache, init_params, param_count
-    from repro_torch.models.model import decode_step
+    from repro_torch.models.model import _leaves, decode_step
     from repro_torch.obs.metrics import parse_metrics_text
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import _page_names
@@ -1814,12 +1973,15 @@ def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
     cfg = lm_config(arch, tag, n_layers)
     kinds = [cfg.layer_kind(j) for j in range(cfg.group_size)]
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    wt = getattr(torch, dtype)
+    flash = "flash_attention" + ("" if wt == torch.float32 else "_bf16")
+    tol = LM_TOL if wt == torch.float32 else bf16_route_tol(cfg.n_layers)
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
-                         cfg)
+                         cfg, dtype=wt)
     torch.cuda.synchronize()
     n_params = param_count(params)
-    w_bytes = 4 * n_params
+    w_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
     experts = ("" if cfg.moe is None else
                f", {cfg.moe.n_experts} experts top {cfg.moe.top_k} "
                f"(capacity factor {cfg.moe.capacity_factor})")
@@ -1829,15 +1991,15 @@ def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
     print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
           f"{cfg.hd}{mixers}, d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab}: "
-          f"{n_params} parameters, f32 {w_bytes} bytes on the card, made in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{n_params} parameters, {dtype} {w_bytes} bytes on the card, "
+          f"made in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(LM_SEED)
     lengths, prompts = lm_prompts(cfg, tag, rng)
-    kw = dict(max_batch=LM_SLOTS, s_max=LM_S_MAX, device="cuda")
+    kw = dict(max_batch=LM_SLOTS, s_max=LM_S_MAX, device="cuda", dtype=wt)
     eng = ServingEngine(cfg, params, evict_to_host=True,
                         resident_limit=LM_RESIDENT, **kw)
     # one slot's page of every cache leaf, from init_cache's own shapes
-    pages = dict(_page_names(init_cache(cfg, 1, LM_S_MAX,
+    pages = dict(_page_names(init_cache(cfg, 1, LM_S_MAX, dtype=wt,
                                            device="meta")))
     page_values = [t.numel() for t in pages.values()]
     state = [n for n in pages if not n.endswith(("/k", "/v"))]
@@ -1869,7 +2031,7 @@ def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
     counts, shapes = library.launches(), library.launch_shapes()
     peak = torch.cuda.max_memory_allocated()
     expected = dict.fromkeys(library.SIGNATURES, 0) | {
-        "flash_attention": n_attn * LM_REQUESTS}
+        flash: n_attn * LM_REQUESTS}
     if counts != expected:
         raise AssertionError(f"[{tag}] launches {counts}, expected "
                              f"{expected}")
@@ -1903,18 +2065,22 @@ def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
             raise AssertionError(f"[{tag}] resident restore of {name} is "
                                  f"not bit for bit")
         page = evicted[name]
-        rel = float((c[:, 0] - page).abs().max() / page.abs().max())
+        rel = float((c[:, 0] - page).abs().max().float()
+                    / page.abs().max().float())
         if not 0.0 < rel < LM_BFP8_REL:
             raise AssertionError(f"[{tag}] host restore of {name} off by "
                                  f"{rel}")
         if rel > worst:
             worst, worst_at = rel, name
-    state_set = 4 * sum(v for n, v in zip(pages, page_values) if n in state)
+    state_set = sum(v * pages[n].element_size()
+                    for n, v in zip(pages, page_values) if n in state)
+    set_bytes = sum(v * pages[n].element_size()
+                    for n, v in zip(pages, page_values))
     print(f"[{tag}] restores of all {len(page_values)} leaves: resident bit "
           f"for bit; host (request {host_rid}) max|restored - page| / "
           f"max|page| at most {worst:.4f} ({worst_at}; bound {LM_BFP8_REL}); "
-          f"host BFP8 codec on one slot's page-set ({4 * sum(page_values)} "
-          f"f32 bytes, {state_set} of them recurrent state): device -> host "
+          f"host BFP8 codec on one slot's page-set ({set_bytes} bytes, "
+          f"{state_set} of them recurrent state): device -> host "
           f"copy and encode {statistics.median(evict_s):.3f} s a set "
           f"(median of {len(evict_s)}), decode and restore {restore_s:.3f} "
           f"s; {on}")
@@ -1932,7 +2098,8 @@ def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
               f"its kernel route and plain route are one computation")
         decode_equivalence(torch, cfg, params, tag)
     else:
-        lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw)
+        lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw, tol,
+                  measured_ties=wt != torch.float32)
     if cfg.vlm_patches:
         patch_check(torch, library, cfg, tag, params)
 
@@ -1961,10 +2128,13 @@ def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
         one_step()
         steps.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(steps)
-    cache_bytes = sum(t.numel() * 4 for _, t in _page_names(eng.cache))
-    state_bytes = sum(t.numel() * 4 for n, t in _page_names(eng.cache)
-                      if n in state)
-    read = w_bytes - 4 * params["embed"].numel() + cache_bytes + state_bytes
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for _, t in _page_names(eng.cache))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for n, t in _page_names(eng.cache) if n in state)
+    emb = params["embed"]
+    read = (w_bytes - emb.numel() * emb.element_size() + cache_bytes
+            + state_bytes)
     b_ms = read / PEAK_HBM_BYTES_S * 1e3
     print(f"[{tag}] decode: {step_ms:.3f} ms per lockstep step of "
           f"{LM_SLOTS} slots (median of 10, host clock to the sampled "
@@ -1983,22 +2153,33 @@ def lm_serve_phase(torch, library, arch: str, tag: str, n_layers=None):
     if state:
         profile_host(torch, f"[{tag}] host profile of one prefill "
                      f"({len(long)} tokens)", lambda: eng.run_prefill(long))
-    del eng, params
+    del eng
+    if keep:
+        return counts, shapes, cfg, params
+    del params
     return counts, shapes
 
 
-def lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw) -> None:
+def lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw,
+              tol=LM_TOL, measured_ties: bool = False) -> None:
     """The kernel route against the plain route on the same weights: every
     prefill again on both (first-token logits and every cache leaf within
-    LM_TOL of max|plain|), then the token streams; with a mixture of
-    experts the router's choices of every prefill and decode step
-    (``moe_prefill_check``, ``moe_streams``)."""
+    ``tol`` of max|plain|), then the token streams (parted only at a
+    plain-route top-2 margin below ``tol`` x max|logit|); with a mixture
+    of experts the router's choices of every prefill and decode step
+    (``moe_prefill_check``, ``moe_streams``).  ``measured_ties`` takes the
+    near-tie margin from the routes' own logits instead: a greedy choice
+    swaps two tokens only where their plain-route margin is at most the
+    two logits' moves together, so the first token may part only at a
+    margin of at most 2 max|kernel - plain| of that prefill's logits, and
+    a stream only at 2 delta, delta the largest such difference over the
+    prefills (its decode steps part on caches that differ alike)."""
     import numpy as np
     from repro_torch.serving import ServingEngine
     log = LastLogits(torch)
     plain = ServingEngine(cfg, params, kernel_mode="reference", sampler=log,
                           **kw)
-    worst = 0.0
+    worst = delta = 0.0
     for i, (p, r) in enumerate(zip(prompts, reqs)):
         if cfg.moe is not None:
             lk, ck, lp, cp, held = moe_prefill_check(torch, cfg, tag, i, eng,
@@ -2026,25 +2207,29 @@ def lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw) -> None:
         else:
             pages.insert(0, ("logits", lk, lp))
         for what, g, w in pages:
-            err = float((g - w).abs().max()) / max(float(w.abs().max()),
-                                                   1e-30)
+            err = float((g - w).abs().max().float()) / max(
+                float(w.abs().max().float()), 1e-30)
             worst = max(worst, err)
-            if err > LM_TOL:
+            if err > tol:
                 raise AssertionError(f"[{tag}] request {i} {what}: kernel vs "
                                      f"plain {err:.3e} of max|plain|")
+        moved = float((lk - lp).abs().max())
+        if held is None:
+            delta = max(delta, moved)
         if int(lk.argmax()) != int(lp.argmax()) and held is None:
             top = lp[0].topk(2).values
             margin = float(top[0] - top[1])
-            lim = LM_TOL * float(lp.abs().max())
+            lim = (2 * moved if measured_ties
+                   else tol * float(lp.abs().max()))
             print(f"[{tag}] request {i}: first tokens differ; the plain "
                   f"route's top-2 logit margin {margin:.3e} (tol {lim:.3e})")
-            if margin >= lim:
+            if not (margin <= lim if measured_ties else margin < lim):
                 raise AssertionError(f"[{tag}] request {i}: first tokens "
                                      f"differ past a tie")
         del ck, cp
     print(f"[{tag}] kernel vs plain route, first-token logits and every "
           f"cache leaf of the 8 prefills: max|kernel - plain| at most "
-          f"{worst:.3e} of max|plain| (tol {LM_TOL})")
+          f"{worst:.3e} of max|plain| (tol {tol})")
     if cfg.moe is not None:
         moe_streams(torch, cfg, tag, params, prompts, reqs, plain, log, kw)
     else:
@@ -2061,11 +2246,14 @@ def lm_routes(torch, cfg, tag, params, eng, prompts, reqs, kw) -> None:
                 [prompts[i], q.out_tokens[:t]]))
             top = logits[0].topk(2).values
             margin = float(top[0] - top[1])
-            lim = LM_TOL * float(logits.abs().max())
+            lim = (2 * delta if measured_ties
+                   else tol * float(logits.abs().max()))
             print(f"[{tag}] request {i}: token streams part at token {t}; "
                   f"the plain route's top-2 logit margin there {margin:.3e} "
-                  f"(tol {lim:.3e})")
-            if margin >= lim:
+                  f"(tol {lim:.3e}"
+                  + (f": 2 x the prefills' largest logit difference "
+                     f"{delta:.3e})" if measured_ties else ")"))
+            if not (margin <= lim if measured_ties else margin < lim):
                 raise AssertionError(f"[{tag}] request {i}: streams part at "
                                      f"token {t} past a tie")
         print(f"[{tag}] token streams of the two routes: "
@@ -2580,6 +2768,355 @@ def train_phase(torch, library):
                       "run (raw checkpoint), states included"))
     out[tag] = (counts, shapes)
     return out
+
+
+def train_bf16_phase(torch, library):
+    """lm-train-bf16: yi-6b at its published widths in bf16 (parameters and
+    gradients bf16, int8 AdamW states, remat full, the same one microbatch
+    of 1 x TRAIN_SEQ tokens as lm-train, AdamW TRAIN_BF16_OPT).  The
+    kernel route's loss, every
+    gradient norm and the full gradients of embed and layers 0 and 31's
+    attention projections held to the plain route's within
+    bf16_route_tol(2 x 32 layers) of max|plain| (the forward's layers and
+    the backward's); then TRAIN_STEPS steps of make_train_step(dtype=bf16)
+    in FaultTolerantLoop: finite losses, the fourth below the first, every
+    parameter still bf16, exactly 2 x 32 flash_attention_lse_bf16 and 32
+    of each bf16 backward kernel a step; ms a step and the peak memory
+    beside lm-train's f32 run.  Returns {tag: (launches, launch shapes)}."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import init_params, param_count
+    from repro_torch.models.model import _leaves
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime.fault import FaultConfig, FaultTolerantLoop
+    from repro_torch.runtime.steps import loss_and_grads, make_train_step
+    tag, on = TRAIN_BF16_TAG, card()
+    cfg = ARCHS[TRAIN_ARCH]
+    L = cfg.n_layers
+    t_phase = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
+                         cfg, dtype=torch.bfloat16)
+    batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                     global_batch=1)).batch_at(0)
+    toks, labs = (torch.from_numpy(batch[k]).cuda()
+                  for k in ("tokens", "labels"))
+    w_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    print(f"[{tag}] {cfg.name}: {param_count(params)} parameters, "
+          f"{w_bytes} bytes in bf16; one microbatch of 1 x {TRAIN_SEQ} "
+          f"tokens, remat full, AdamW {TRAIN_BF16_OPT}")
+    tol = bf16_route_tol(2 * L)
+
+    def kept(use_kernels):
+        loss, grads = loss_and_grads(params, cfg, toks, labs, remat="full",
+                                     use_kernels=use_kernels)
+        norms, full = {}, {}
+        for name, g in _leaves(grads):
+            norms[name] = float(torch.linalg.vector_norm(g.float()))
+            if name == "embed":
+                full[name] = g
+            for leaf in TRAIN_KEEP:
+                if name.endswith(leaf):
+                    for layer in (0, L - 1):
+                        full[f"{name}[{layer}]"] = g[layer].clone()
+        del grads
+        return float(loss), norms, full
+
+    def held(what, got, want):
+        if isinstance(want, float):
+            err, scale = abs(got - want), abs(want)
+        else:
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+        lim = tol * scale
+        if not err <= lim:
+            raise AssertionError(f"[{tag}] {what}: kernel route vs plain "
+                                 f"route {err:.3e} > {lim:.3e}")
+        return err / lim if lim else 0.0
+
+    lk, nk, fk = kept(True)
+    lp, np_, fp = kept(False)
+    worst = [held("loss", lk, lp)]
+    worst += [held(f"norm of {n}", nk[n], np_[n]) for n in np_]
+    worst += [held(n, fk[n], fp[n]) for n in fp]
+    print(f"[{tag}] kernel vs plain route on one backward from the same "
+          f"bf16 weights: loss {lk:.6f} vs {lp:.6f}, {len(np_)} gradient "
+          f"norms and {len(fp)} full gradients within {tol} x max|plain| "
+          f"(2 x 2^-8 x sqrt({2 * L}) layers, forward and backward), the "
+          f"worst at "
+          f"{max(worst):.4f} of it")
+    del fk, fp
+
+    opt_cfg = AdamWConfig(**TRAIN_BF16_OPT)
+    opt = init_opt_state(params, opt_cfg)
+    dtypes = {name: t.dtype for name, t in _leaves(params)}
+    step = make_train_step(cfg, opt_cfg, remat="full", dtype=torch.bfloat16,
+                           device="cuda")
+    losses = []
+
+    def run_step(state, b):
+        p, o = state
+        p, o, metrics = step(p, o, b)
+        losses.append(float(metrics["loss"]))
+        return (p, o)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = FaultTolerantLoop(run_step, CheckpointStore(tmp),
+                                 FaultConfig(checkpoint_every=50))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        library.reset_launches()
+        state = loop.run((params, opt), lambda s: batch, start_step=0,
+                         num_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        counts, shapes = library.launches(), library.launch_shapes()
+        peak = torch.cuda.max_memory_allocated()
+    expected = dict.fromkeys(library.SIGNATURES, 0) | {
+        "flash_attention_lse_bf16": 2 * L * TRAIN_STEPS,
+        "flash_attention_bwd_dq_bf16": L * TRAIN_STEPS,
+        "flash_attention_bwd_dkdv_bf16": L * TRAIN_STEPS}
+    if counts != expected:
+        raise AssertionError(f"[{tag}] launches {counts}, expected "
+                             f"{expected}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] losses {losses}: not finite, or the "
+                             f"last not below the first")
+    for name, t in _leaves(state[0]):
+        if t.dtype != dtypes[name]:
+            raise AssertionError(f"[{tag}] parameter {name} is {t.dtype}, "
+                                 f"made {dtypes[name]}")
+    walls = [r.wall_s for r in loop.records]
+    step_s = statistics.median(walls[1:])
+    print(f"[{tag}] {TRAIN_STEPS} steps in FaultTolerantLoop, losses "
+          f"{[round(x, 6) for x in losses]} (the last below the first); "
+          f"{step_s * 1e3:.3f} ms a step (host clock to the loss, median of "
+          f"steps 2-{TRAIN_STEPS}: {[round(w * 1e3, 3) for w in walls]}), "
+          f"{TRAIN_SEQ / step_s:.1f} tokens/s; peak device memory {peak} "
+          f"bytes (lm-train's f32 run: 66552842240 in PERF.md); launches "
+          f"{({k: n for k, n in counts.items() if n})}; {on}")
+    profile_device(torch, f"[{tag}] profile of one step",
+                   lambda: run_step(state, batch), step_s * 1e3)
+    del state, opt, params, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+    return {tag: (counts, shapes)}
+
+
+def staged_yi_phase(torch, library, cfg, params):
+    """lm-staged, part (a): yi-6b in f32 on the weights lm-serve made,
+    copied to host memory, through StagedExecutor(n_stages=4) on the kernel
+    route: with the boundary codec off the logits of 2 x 512 seeded tokens
+    bit for bit the monolithic forward + project_logits on the card; with
+    it on, argmax agreement above STAGED_AGREE and boundary_compression
+    below STAGED_COMPRESSION (the reference's own checks).  Returns
+    (launches, launch shapes) of the two staged runs."""
+    import numpy as np
+    from repro_torch.models import forward, project_logits
+    from repro_torch.runtime.reconfigure import StagedExecutor
+    tag, on = "lm-staged", card()
+    toks = torch.as_tensor(np.random.default_rng(LM_SEED + 2).integers(
+        0, cfg.vocab, STAGED_TOKENS), device="cuda")
+    with torch.no_grad():
+        x, _, _ = forward(params, cfg, toks)
+        want = project_logits(params, cfg, x)
+    del x
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the executor copies the card's weights to host memory once
+    raw = StagedExecutor(cfg, params, n_stages=STAGED_YI_STAGES,
+                         compress_boundary=False, device="cuda")
+    copy_s = time.perf_counter() - t0
+    library.reset_launches()
+    got = raw.forward_logits(toks)
+    comp = StagedExecutor(cfg, raw.host_params, n_stages=STAGED_YI_STAGES,
+                          compress_boundary=True, device="cuda")
+    got_c = comp.forward_logits(toks)
+    torch.cuda.synchronize()
+    counts, shapes = library.launches(), library.launch_shapes()
+    expected = dict.fromkeys(library.SIGNATURES, 0) | {
+        "flash_attention_lse": 2 * cfg.n_layers}
+    if counts != expected:
+        raise AssertionError(f"[{tag}] launches {counts}, expected "
+                             f"{expected}")
+    if not bit_equal(torch, got, want):
+        raise AssertionError(f"[{tag}] staged logits are not bit for bit "
+                             f"the monolithic forward's (max abs diff "
+                             f"{float((got - want).abs().max())})")
+    agree = float((got_c.argmax(-1) == got.argmax(-1)).float().mean())
+    eq5 = comp.eq5_latency(batch=STAGED_TOKENS[0])
+    print(f"[{tag}] (a) {cfg.name} f32, {STAGED_YI_STAGES} stages "
+          f"{raw.stages} on {STAGED_TOKENS[0]} x {STAGED_TOKENS[1]} seeded "
+          f"tokens: codec off, logits bit for bit the monolithic forward; "
+          f"codec on, argmax agreement {agree:.4f} (above {STAGED_AGREE}), "
+          f"eq5 {json.dumps(eq5)}; per stage (compute_s, reconfig_s) "
+          f"codec off {[(round(t.compute_s, 4), round(t.reconfig_s, 4)) for t in raw.timings]}, "
+          f"on {[(round(t.compute_s, 4), round(t.reconfig_s, 4)) for t in comp.timings]}; "
+          f"weights to host {copy_s:.2f} s; {on}")
+    if not (agree > STAGED_AGREE
+            and eq5["boundary_compression"] < STAGED_COMPRESSION):
+        raise AssertionError(f"[{tag}] codec on: agreement {agree}, "
+                             f"compression {eq5['boundary_compression']}")
+    del raw, comp
+    gc.collect()
+    return counts, shapes
+
+
+def _mem_total() -> int:
+    """The host's MemTotal, bytes (/proc/meminfo)."""
+    for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemTotal:"):
+            return int(line.split()[1]) * 1024
+    raise AssertionError("no MemTotal in /proc/meminfo")
+
+
+def staged_jamba_phase(torch, library):
+    """lm-staged, part (b): jamba-v0.1-52b in bf16 at its published widths
+    through StagedExecutor, one period of its pattern (a layer group of 8)
+    a stage: the whole depth where half the host's memory holds its
+    weights, else the most whole periods (at least STAGED_MIN_PERIODS)
+    that fit, the cut printed with MemTotal.  The weights are made on the
+    card a group at a time from the seeded generator and moved to host
+    memory.  The kernel route with the codec on is the path (its launches
+    counted, eq5_latency, per-stage compute_s / reconfig_s, the boundary
+    bytes and the peak device memory, below the card's and the weights'
+    bytes); then the kernel route and the plain route with the codec off,
+    the router's choices held by testing.routing.hold_routing, measured
+    (the parting layer's router logits within bf16_route_tol of the depth,
+    a flip only within twice their largest difference), the logits within
+    bf16_route_tol of the depth where no choice flips; the codec's argmax agreement with the raw
+    kernel route is printed.  Returns (launches, launch shapes) of the
+    path's run."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.common import dense_init, norm_params
+    from repro_torch.models.model import _leaves, _stack, _tree
+    from repro_torch.runtime.reconfigure import StagedExecutor
+    from repro_torch.testing.routing import RoutingTape, hold_routing
+    tag, on = "lm-staged", card()
+    t_phase = time.perf_counter()
+    full = ARCHS[STAGED_ARCH]
+    gs, bf16 = full.group_size, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+
+    def group():
+        """One layer group's leaves on the card, (1, ...) each."""
+        return dict(_leaves(_stack(gen, full, bf16, 1, cross=False)))
+    first = group()
+    period = sum(t.numel() * t.element_size() for t in first.values())
+    d, V = full.d_model, full.vocab
+    rest = 2 * V * d * 2 + 2 * d            # embed, lm_head, final norm
+    mem = _mem_total()
+    fit = int((mem // 2 - rest) // period)
+    periods = (full.n_layers // gs if mem >= 160e9 else
+               max(STAGED_MIN_PERIODS, min(full.n_layers // gs, fit)))
+    cfg = dataclasses.replace(full, n_layers=periods * gs)
+    w_bytes = periods * period + rest
+    print(f"[{tag}] (b) {full.name} bf16: host MemTotal {mem} bytes; a "
+          f"period of its pattern {list(full.pattern)} holds {period} bytes "
+          f"of weights, embedding, head and norm {rest}; "
+          + (f"the whole model ({full.n_layers} layers, {w_bytes} bytes) "
+             f"fits in half of it" if periods * gs == full.n_layers else
+             f"depth cut from {full.n_layers} to {cfg.n_layers} layers "
+             f"({periods} periods, {w_bytes} bytes; {fit} fit within half "
+             f"of MemTotal, at least {STAGED_MIN_PERIODS} are run)")
+          + f"; {periods} stages of one period each, every width published")
+    groups = {n: torch.empty((periods,) + tuple(t.shape[1:]), dtype=t.dtype)
+              for n, t in first.items()}
+    t0 = time.perf_counter()
+    for g in range(periods):
+        made = first if g == 0 else group()
+        for n, t in made.items():
+            groups[n][g].copy_(t[0])
+        del made
+    del first
+    host = {"embed": dense_init(gen, (V, d), bf16, scale=0.02).cpu(),
+            "groups": _tree(groups),
+            "final_norm": norm_params(full.norm, d, bf16, "cpu"),
+            "lm_head": dense_init(gen, (V, d), bf16, scale=0.02).cpu()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] (b) weights made on the card a group at a time and moved "
+          f"to host memory in {time.perf_counter() - t0:.2f} s: "
+          f"{sum(t.numel() * t.element_size() for _, t in _leaves(host))} "
+          f"bytes")
+    toks = torch.as_tensor(np.random.default_rng(LM_SEED + 3).integers(
+        0, cfg.vocab, STAGED_TOKENS), device="cuda")
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+    def staged(**kw):
+        return StagedExecutor(cfg, host, n_stages=periods, dtype=bf16,
+                              device="cuda", **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    library.reset_launches()
+    ex = staged()
+    t0 = time.perf_counter()
+    got_c = ex.forward_logits(toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, shapes = library.launches(), library.launch_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    expected = dict.fromkeys(library.SIGNATURES, 0) | {
+        "flash_attention_lse_bf16": n_attn}
+    if counts != expected:
+        raise AssertionError(f"[{tag}] launches {counts}, expected "
+                             f"{expected}")
+    eq5 = ex.eq5_latency(batch=STAGED_TOKENS[0])
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    print(f"[{tag}] (b) {STAGED_TOKENS[0]} x {STAGED_TOKENS[1]} seeded "
+          f"tokens, kernel route, codec on: {wall:.3f} s host clock; eq5 "
+          f"{json.dumps(eq5)}; per stage (compute_s, reconfig_s, boundary "
+          f"raw, sent bytes) "
+          f"{[(round(t.compute_s, 4), round(t.reconfig_s, 4), t.boundary_bytes_raw, t.boundary_bytes_sent) for t in ex.timings]}; "
+          f"peak device memory {peak} bytes ({peak - base} above what was "
+          f"held before), the card {card_bytes}, the weights {w_bytes}; "
+          f"launches {({k: n for k, n in counts.items() if n})}; {on}")
+    if not (peak < card_bytes and peak < w_bytes):
+        raise AssertionError(f"[{tag}] peak {peak} not below the card's "
+                             f"{card_bytes} and the weights' {w_bytes}")
+    if not eq5["boundary_compression"] < STAGED_COMPRESSION:
+        raise AssertionError(f"[{tag}] boundary compression "
+                             f"{eq5['boundary_compression']}")
+    del ex
+    tol = bf16_route_tol(cfg.n_layers)
+    with RoutingTape() as tape:
+        got = staged(compress_boundary=False).forward_logits(toks)
+        rk = tape.take()
+        plain = staged(compress_boundary=False,
+                       use_kernels=False).forward_logits(toks)
+        rp = tape.take()
+    layers = [n for n in range(cfg.n_layers) if cfg.layer_is_moe(n)]
+    hold = hold_routing(rk, rp, tol, measured=True)
+    agree = float((got_c.argmax(-1) == got.argmax(-1)).float().mean())
+    if hold.parted is None:
+        err = float((got - plain).abs().max() / plain.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"[{tag}] kernel vs plain route logits "
+                                 f"{err:.3e} of max|plain| > {tol}")
+        what = (f"every router choice alike; logits within {err:.3e} of "
+                f"max|plain| (tol {tol})")
+    else:
+        top = float(rp[hold.parted].logits.float().abs().max())
+        what = (f"the routes part in layer {layers[hold.parted]} at "
+                f"{len(hold.flips)} near-tie(s) (plain logit gaps "
+                f"{[f'{f.gap:.3e}' for f in hold.flips]}, each at most 2 x "
+                f"the layer's largest router-logit difference "
+                f"{hold.delta:.3e}, which is {hold.delta / top:.3e} of "
+                f"max|plain router logit| (tol {tol})), the logits past it "
+                f"not compared")
+    print(f"[{tag}] (b) kernel vs plain route, codec off: {what}; dropped "
+          f"(token, k) pairs kernel {sum(r.dropped for r in rk)}, plain "
+          f"{sum(r.dropped for r in rp)}; codec on vs off argmax agreement "
+          f"{agree:.4f} (printed: the codec's step moves the routers' "
+          f"inputs by far more than a near-tie); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del host, groups, got, got_c, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, shapes
 
 
 class LastLogits:
@@ -3103,9 +3640,18 @@ def main() -> int:
     fuzzed = fuzz_phase(torch, library)
     t2 = time.perf_counter()
     lm, lm_s = {}, {}
-    for arch, tag, n_layers in LM_PATHS:
+    for arch, tag, n_layers, dtype in LM_PATHS:
         t3 = time.perf_counter()
-        lm[tag] = lm_serve_phase(torch, library, arch, tag, n_layers)
+        if tag == "lm-serve":
+            # lm-staged's first part runs on the weights this path made
+            c, sh, cfg, params = lm_serve_phase(
+                torch, library, arch, tag, n_layers, dtype, keep=True)
+            lm[tag] = (c, sh)
+            lm["lm-staged-yi"] = staged_yi_phase(torch, library, cfg, params)
+            del params
+        else:
+            lm[tag] = lm_serve_phase(torch, library, arch, tag, n_layers,
+                                     dtype)
         # the model is released: the next LM path, then phase 4, start
         # with the card's memory free
         gc.collect()
@@ -3120,10 +3666,14 @@ def main() -> int:
     trained = train_phase(torch, library)
     gc.collect()
     torch.cuda.empty_cache()
+    trained |= train_bf16_phase(torch, library)
+    t4 = time.perf_counter()
+    lm["lm-staged-jamba"] = staged_jamba_phase(torch, library)
+    lm_s["lm-staged-jamba"] = time.perf_counter() - t4
     print(f"served path {t1 - t0:.1f} s, fuzz path {t2 - t1:.1f} s, LM "
           f"serving paths " + ", ".join(f"{k} {v:.1f} s"
                                         for k, v in lm_s.items())
-          + f", LM training paths {time.perf_counter() - t3:.1f} s; device "
+          + f", LM training paths {t4 - t3:.1f} s; device "
           f"memory held after them {torch.cuda.memory_allocated()} bytes")
     # launches and launch shapes per frame (staged), per stream
     # (pipelined), per flush (served) or over the phase (fuzz)
@@ -3150,6 +3700,11 @@ def main() -> int:
         elif name == "flash_attention_lse" or name in BWD_KERNELS:
             tol = (f"{TRAIN_TOL} x max(1, max|plain|) vs plain, every "
                    f"output; two launches bit-exact")
+        elif name in BF16_KERNELS:
+            tol = (f"one bf16 ulp of plain + 2 x 2^-24 (n + D) x each "
+                   f"element's sum of absolute terms, lse and delta "
+                   f"{TRAIN_TOL} x max(1, max|plain|); two launches "
+                   f"bit-exact")
         elif name.startswith("conv2d"):
             tol = (f"bit-exact vs the conv2d kernel on the decode kernel's "
                    f"output and the codec, {MATMUL_TOL} vs plain; two "

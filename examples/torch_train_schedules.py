@@ -1,12 +1,14 @@
 """The LM train step of the PyTorch port under two AdamW warmup schedules.
 
     PYTHONPATH=src python examples/torch_train_schedules.py    # yi-6b, card
+    PYTHONPATH=src python examples/torch_train_schedules.py --dtype bfloat16
     PYTHONPATH=src python examples/torch_train_schedules.py --smoke \
         --device cpu --seq 128
 
 Trains the same random weights (a seeded generator) for ``--steps`` steps
-on one repeated batch (``TokenPipeline.batch_at(0)``), f32 with int8 AdamW
-states and remat "full", once per schedule and attention route, and
+on one repeated batch (``TokenPipeline.batch_at(0)``), in ``--dtype`` (f32
+or bf16 parameters) with int8 AdamW states and remat "full", once per
+schedule and attention route, and
 prints the losses, gradient norms and step times.  The schedules are
 ``lr`` with one warmup step, and ``lr`` with the optimizer's default 100
 (the one ``python -m repro_torch.launch.train`` uses); the routes are the
@@ -36,7 +38,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     cfg = ARCHS[args.arch].reduced() if args.smoke else ARCHS[args.arch]
     batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                      global_batch=1)).batch_at(0)
@@ -44,13 +49,13 @@ def main(argv: list[str] | None = None) -> None:
     for warmup in (1, 100):
         for use_kernels in (True, False):
             gen = torch.Generator(device=args.device).manual_seed(0)
-            params = init_params(gen, cfg)
+            params = init_params(gen, cfg, dtype=dtype)
             opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=warmup,
                                   total_steps=args.steps,
                                   quantize_states=True)
             opt = init_opt_state(params, opt_cfg)
             step = make_train_step(cfg, opt_cfg, device=args.device,
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels, dtype=dtype)
             losses, norms, secs = [], [], []
             for _ in range(args.steps):
                 t0 = time.perf_counter()
@@ -59,7 +64,8 @@ def main(argv: list[str] | None = None) -> None:
                 norms.append(round(float(m["grad_norm"]), 3))
                 secs.append(round(time.perf_counter() - t0, 3))
             route = "kernel" if use_kernels else "plain"
-            print(f"{cfg.name} lr {args.lr} warmup {warmup}, {route} route: "
+            print(f"{cfg.name} {args.dtype} lr {args.lr} warmup {warmup}, "
+                  f"{route} route: "
                   f"losses {losses}, grad_norm {norms}, s a step {secs}")
             del params, opt, step
             gc.collect()

@@ -2,8 +2,8 @@
 the online-softmax recurrence (the reference package's
 ``kernels/flash_attention.py``), and its gradient for training.
 
-``q: (B, S, H, D)`` and ``k, v: (B, Sk, H, D)`` f32 with the KV heads
-already repeated to H; causal (then Sk == S) or not (then keys of their
+``q: (B, S, H, D)`` and ``k, v: (B, Sk, H, D)`` f32 or bf16 with the KV
+heads already repeated to H; causal (then Sk == S) or not (then keys of their
 own length, as the encoder-decoder's cross attention has), scale ``D **
 -0.5``, mask ``-2**30``, the softmax denominator clamped at ``1e-30``, and
 key blocks wholly above the diagonal skipped.  A CUDA tensor goes through
@@ -24,6 +24,14 @@ saves ``q, k, v, o, lse``; its backward launches
 XLA differentiates ``chunked_attention``.  On a CPU tensor both directions
 take the plain versions, ``chunked_attention(return_lse=True)`` and
 :func:`flash_attention_backward_plain`.
+
+Each kernel has an f32 and a bf16 instance, picked by the operands' type
+(``flash_attention_bf16``, ``flash_attention_lse_bf16``,
+``flash_attention_bwd_dq_bf16``, ``flash_attention_bwd_dkdv_bf16``): q, k,
+v, o, dO, dQ, dK and dV of that type, lse and delta f32 either way.  A bf16
+instance rounds where the plain route does: q^ = bf16(q * bf16(D^-1/2))
+(the reference's ``q * D ** -0.5``, its scale a weak type converted to
+bf16), then f32 arithmetic throughout, then one rounding of each output.
 """
 from __future__ import annotations
 
@@ -62,9 +70,26 @@ def _check(name: str, q, k, v, *, own_keys: bool = False
     return B, S, H, D
 
 
-def _operands(name: str, *named) -> None:
+#: the operand types with a kernel instance, and the suffix of its name
+INSTANCES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def _operands(name: str, dtype: torch.dtype, *named) -> str:
+    """Check every operand (lse and delta are f32 whatever ``dtype``) and
+    return the name of the instance for ``dtype``."""
+    if dtype not in INSTANCES:
+        raise ValueError(f"{name}: no instance for {dtype}; have "
+                         f"{sorted(map(str, INSTANCES))}")
     for what, t in named:
-        check_operand(f"{name} {what}", t, torch.float32)
+        want = torch.float32 if what in ("lse", "delta") else dtype
+        check_operand(f"{name} {what}", t, want)
+    return name + INSTANCES[dtype]
+
+
+def _scale(D: int, dtype: torch.dtype) -> float:
+    """D^-1/2 as the reference multiplies an array of ``dtype`` by it."""
+    from ..models.common import typed_scale
+    return typed_scale(D ** -0.5, dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,10 +104,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         from ..models.attention import chunked_attention
         return chunked_attention(q, k, v, causal=causal,
                                  chunk=min(1024, Sk), skip_masked=causal)
-    _operands("flash_attention", ("q", q), ("k", k), ("v", v))
+    name = _operands("flash_attention", q.dtype, ("q", q), ("k", k),
+                     ("v", v))
     o = torch.empty_like(q)
     # the causal flag beside the shapes: it changes the work they fix
-    launch("flash_attention", q, k, v, o, B, S, Sk, H, D, int(causal),
+    launch(name, q, k, v, o, B, S, Sk, H, D, int(causal),
            flags=(bool(causal),))
     return o
 
@@ -97,10 +123,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         from ..models.attention import chunked_attention
         return chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
                                  skip_masked=causal, return_lse=True)
-    _operands("flash_attention_lse", ("q", q), ("k", k), ("v", v))
+    name = _operands("flash_attention_lse", q.dtype, ("q", q), ("k", k),
+                     ("v", v))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    launch("flash_attention_lse", q, k, v, o, lse, B, S, H, D, int(causal))
+    launch(name, q, k, v, o, lse, B, S, H, D, int(causal))
     return o, lse
 
 
@@ -118,16 +145,25 @@ def _scores(qs, kt, q0, q1, k0, k1, causal):
     return s
 
 
+def _wide(*ts):
+    """Each tensor in f32 if its type is narrower (bf16), else as it is
+    (an f64 gradcheck keeps f64)."""
+    return tuple(t.float() if t.element_size() < 4 else t for t in ts)
+
+
 def flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, *,
                                  block: int = KERNEL_BQ):
     """The plain version of ``flash_attention_bwd_dq``: ``(dq, delta)``,
-    delta = rowsum(dO * O) as (B, H, S).  Walks query blocks of ``block``
-    rows over the keys at or below their diagonal, as the kernel does."""
+    delta = rowsum(dO * O) as (B, H, S) f32.  Walks query blocks of
+    ``block`` rows over the keys at or below their diagonal, as the kernel
+    does; in f32 from q^ (rounded to q's type) and the other operands, dq
+    rounded once to q's type."""
     B, S, H, D = q.shape
-    scale = D ** -0.5
-    qs = q * scale
+    scale = _scale(D, q.dtype)
+    qs, = _wide(q * scale)
+    k, v, o, do = _wide(k, v, o, do)
     delta = (do * o).sum(-1).transpose(1, 2).contiguous()
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, dtype=qs.dtype, device=q.device)
     for q0 in range(0, S, block):
         q1 = min(q0 + block, S)
         k1 = q1 if causal else S
@@ -136,16 +172,19 @@ def flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, *,
         dp = torch.einsum("bqhd,bkhd->bhqk", do[:, q0:q1], v[:, :k1])
         ds = p * (dp - delta[:, :, q0:q1, None])
         dq[:, q0:q1] = torch.einsum("bhqk,bkhd->bqhd", ds, k[:, :k1]) * scale
-    return dq, delta
+    return dq.to(q.dtype), delta
 
 
 def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal: bool, *,
                                    block: int = KERNEL_BQ):
     """The plain version of ``flash_attention_bwd_dkdv``: ``(dk, dv)``.
     Walks key blocks of ``block`` keys over the query rows at or above
-    their diagonal, as the kernel does."""
+    their diagonal, as the kernel does; in f32 as the dq version, dk and dv
+    rounded once to k's type."""
     B, S, H, D = q.shape
-    qs = q * D ** -0.5
+    qs, = _wide(q * _scale(D, q.dtype))
+    dtype = k.dtype
+    k, v, do = _wide(k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     for k0 in range(0, S, block):
         k1 = min(k0 + block, S)
@@ -156,7 +195,7 @@ def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal: bool, *,
         ds = p * (dp - delta[:, :, q0:, None])
         dv[:, k0:k1] = torch.einsum("bhqk,bqhd->bkhd", p, do[:, q0:])
         dk[:, k0:k1] = torch.einsum("bhqk,bqhd->bkhd", ds, qs[:, q0:])
-    return dk, dv
+    return dk.to(dtype), dv.to(dtype)
 
 
 def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool):
@@ -185,11 +224,10 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool):
     _fits("flash_attention_bwd_dq", q, o, lse, do)
     if not q.is_cuda:
         return flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal)
-    _operands("flash_attention_bwd_dq", ("q", q), ("k", k), ("v", v),
-              ("o", o), ("dout", do), ("lse", lse))
+    name = _operands("flash_attention_bwd_dq", q.dtype, ("q", q), ("k", k),
+                     ("v", v), ("o", o), ("dout", do), ("lse", lse))
     dq, delta = torch.empty_like(q), torch.empty_like(lse)
-    launch("flash_attention_bwd_dq", q, k, v, o, do, lse, dq, delta, B, S, H,
-           D, int(causal))
+    launch(name, q, k, v, o, do, lse, dq, delta, B, S, H, D, int(causal))
     return dq, delta
 
 
@@ -204,11 +242,11 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool):
                          f"{tuple(delta.shape)}, lse {tuple(lse.shape)}")
     if not q.is_cuda:
         return flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
-    _operands("flash_attention_bwd_dkdv", ("q", q), ("k", k), ("v", v),
-              ("dout", do), ("lse", lse), ("delta", delta))
+    name = _operands("flash_attention_bwd_dkdv", q.dtype, ("q", q),
+                     ("k", k), ("v", v), ("dout", do), ("lse", lse),
+                     ("delta", delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    launch("flash_attention_bwd_dkdv", q, k, v, do, lse, delta, dk, dv, B, S,
-           H, D, int(causal))
+    launch(name, q, k, v, do, lse, delta, dk, dv, B, S, H, D, int(causal))
     return dk, dv
 
 
@@ -265,4 +303,4 @@ __all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
            "flash_attention_backward", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkdv", "flash_attention_backward_plain",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkdv_plain",
-           "backward_occupancy", "HEAD_DIMS"]
+           "backward_occupancy", "HEAD_DIMS", "INSTANCES"]

@@ -65,6 +65,11 @@ SIGNATURES = {
     "flash_attention_lse": "pppppiiiii",
     "flash_attention_bwd_dq": "ppppppppiiiii",
     "flash_attention_bwd_dkdv": "ppppppppiiiii",
+    # the bf16 instances of the attention kernels (lse and delta f32)
+    "flash_attention_bf16": "ppppiiiiii",
+    "flash_attention_lse_bf16": "pppppiiiii",
+    "flash_attention_bwd_dq_bf16": "ppppppppiiiii",
+    "flash_attention_bwd_dkdv_bf16": "ppppppppiiiii",
 }
 
 #: Launches of each kernel since the last :func:`reset_launches`.

@@ -11,8 +11,10 @@ fault-tolerant: async checkpoints, deterministic data resume, straggler
 logging (``runtime/fault.py``).  Parameters come from ``init_params`` with
 a generator seeded on the device.  ``--mesh`` takes ``host`` only (one
 device): ``single`` and ``multi`` build the reference's production mesh,
-which waits for ROADMAP.md Queue 1, item 12; ``--dtype bfloat16`` waits
-for item 14 (the port's LM stack and its kernels are f32 only).
+which waits for ROADMAP.md Queue 1, item 12.  ``--dtype bfloat16`` makes
+the parameters bf16 (the reference's default working type; the port's
+default stays ``float32``), and attention takes the kernels' bf16
+instances on the card.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from ..data.pipeline import DataConfig, TokenPipeline
 from ..models import init_params
 from ..optim.adamw import AdamWConfig, init_opt_state
 from ..runtime.fault import FaultConfig, FaultTolerantLoop
-from ..runtime.steps import BF16_LATER, make_train_step
+from ..runtime.steps import make_train_step
 
 MESH_LATER = ("a production mesh (--mesh single|multi) is not ported yet "
               "(ROADMAP.md, Queue 1, item 12)")
@@ -53,8 +55,6 @@ def main(argv: list[str] | None = None) -> None:
 
     if args.mesh != "host":
         raise NotImplementedError(MESH_LATER)
-    if args.dtype != "float32":
-        raise NotImplementedError(f"--dtype {args.dtype}: {BF16_LATER}")
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = cfg.reduced()
@@ -64,10 +64,11 @@ def main(argv: list[str] | None = None) -> None:
                                     global_batch=args.batch))
     store = CheckpointStore(args.ckpt_dir, keep_last=3)
 
-    step_fn = make_train_step(cfg, opt_cfg, remat=args.remat,
+    dtype = getattr(torch, args.dtype)
+    step_fn = make_train_step(cfg, opt_cfg, remat=args.remat, dtype=dtype,
                               device=args.device)
     params = init_params(torch.Generator(device=args.device).manual_seed(0),
-                         cfg)
+                         cfg, dtype=dtype)
     opt = init_opt_state(params, opt_cfg)
 
     losses = []

@@ -24,7 +24,7 @@ import torch
 
 from ..kernels.flash_attention import NEG_INF, FlashAttention, flash_attention
 from .common import (apply_mrope, apply_rope, dense_init,
-                     text_mrope_positions)
+                     text_mrope_positions, typed_scale)
 
 
 def _divisor_chunk(n: int, target: int) -> int:
@@ -93,7 +93,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
     G = H // KH
-    scale = D ** -0.5
+    # q * D ** -0.5 rounds to q's type before the f32 blocks (bf16: q^)
+    scale = typed_scale(D ** -0.5, q.dtype)
     chunk = _divisor_chunk(Sk, chunk)
     q_chunk = _divisor_chunk(Sq, q_chunk)
     nk, nq = Sk // chunk, Sq // q_chunk
@@ -185,12 +186,15 @@ def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
     cv[rows, pos] = v[:, 0].to(cv.dtype)
     KH, D = cfg.n_kv_heads, cfg.hd
     G = cfg.n_heads // KH
-    qf = (q * D ** -0.5).reshape(B, KH, G, D).to(ck.dtype)
-    s = torch.einsum("bhgd,bkhd->bhgk", qf, ck).float()
+    qf = (q * typed_scale(D ** -0.5, q.dtype)).reshape(B, KH, G, D).to(
+        ck.dtype)
+    # the reference's mixed-precision dots: the cache's type in, f32 sums
+    # and result (a bf16 product is exact in f32)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf.float(), ck.float())
     mask = torch.arange(S_max, device=ck.device)[None] <= pos[:, None]
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", w.to(cv.dtype), cv).float()
+    o = torch.einsum("bhgk,bkhd->bhgd", w.to(cv.dtype).float(), cv.float())
     out = o.reshape(B, 1, cfg.n_heads * D).to(x.dtype) @ p["wo"]
     return out, (ck, cv)
 

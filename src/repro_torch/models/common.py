@@ -1,8 +1,9 @@
 """Shared model components: initialisers, norms, gated activations, RoPE
 and M-RoPE, on PyTorch tensors.
 
-The counterparts of the reference package's ``models/common.py``, in f32
-arithmetic as there.
+The counterparts of the reference package's ``models/common.py``: the norms
+and rotary embeddings compute in f32 and cast back to the input's type, as
+there, so a bf16 model rounds where the reference's does.
 """
 from __future__ import annotations
 
@@ -24,6 +25,15 @@ def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std).to(dtype)
+
+
+def typed_scale(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: what the
+    reference multiplies by when it scales an array of ``dtype`` by a
+    Python number (a weak type, converted to the array's type first).  A
+    bf16 tensor times the result rounds once, as there; an f32 one is
+    unchanged."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 # -- norms ---------------------------------------------------------------------

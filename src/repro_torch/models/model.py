@@ -238,8 +238,11 @@ def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
 def params_from_numpy(tree: dict, cfg: ArchConfig,
                       device: str | torch.device = "cuda") -> Params:
     """The reference's ``init_params`` tree, as nested dicts of numpy
-    arrays, as the port's parameters: f32 tensors on ``device`` in the same
-    layout.  Every leaf :func:`param_shapes` names must be there with its
+    arrays, as the port's parameters on ``device`` in the same layout: a
+    bf16 leaf (ml_dtypes' ``bfloat16``, which numpy has not: carried by its
+    ``uint16`` bits) as ``torch.bfloat16``, every other leaf as f32, as the
+    reference keeps its routers, gates and state scales in f32 under a bf16
+    tree.  Every leaf :func:`param_shapes` names must be there with its
     shape, and no other."""
     want = param_shapes(cfg)
     got = dict(_leaves(tree))
@@ -249,11 +252,16 @@ def params_from_numpy(tree: dict, cfg: ArchConfig,
                          f"{sorted(set(got) - set(want))}")
     out = {}
     for name, a in got.items():
-        a = np.asarray(a, dtype=np.float32)
+        a = np.asarray(a)
         if a.shape != want[name]:
             raise ValueError(f"{name}: shape {a.shape}, expected "
                              f"{want[name]}")
-        out[name] = torch.from_numpy(a.copy()).to(device)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
+        out[name] = t.to(device)
     return _tree(out)
 
 

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init
+from .common import dense_init, typed_scale
 
 # Mamba prefill steps whose discretisation is computed at once (bounds the
 # (B, L, d_inner, d_state) temporaries)
@@ -186,7 +186,8 @@ def _mlstm_qkv_gates(p: dict, x: torch.Tensor, cfg):
     dh = cfg.d_inner // H
     xm, z = (x @ p["in_proj"]).chunk(2, dim=-1)
     q = (xm * p["wq"]).reshape(B, S, H, dh)
-    k = (xm * p["wk"]).reshape(B, S, H, dh) * dh ** -0.5
+    k = (xm * p["wk"]).reshape(B, S, H, dh) * typed_scale(dh ** -0.5,
+                                                         xm.dtype)
     v = xm.reshape(B, S, H, dh)
     gates = x.float() @ p["gate_proj"] + p["gate_bias"]
     i_gate, f_gate = gates.chunk(2, dim=-1)                  # (B, S, H)

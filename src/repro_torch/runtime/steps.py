@@ -16,6 +16,10 @@ points of a model the engine does not take (an encoder-decoder, whose
 ``batch_in`` carries ``enc_frames``; a VLM's ``patch_embeds`` likewise).
 The decode step writes the cache in place, as ``models.decode_step``.
 
+``dtype`` names the working type of the parameters and the cache, f32 or
+bf16 (the reference's default); as in the reference, the step computes in
+the types of the tensors it is given.
+
 The reference's sharding hints (``runtime/hints.py``), its
 ``in_shardings``, donation and the abstract-shape builders
 (``abstract_*``, ``input_specs``) serve a mesh, which one GPU has not: they
@@ -33,8 +37,13 @@ from ..models.model import (_leaves, _tree, decode_step, forward, lm_loss,
                             project_logits)
 from ..optim.adamw import AdamWConfig, adamw_update
 
-BF16_LATER = ("the LM stack and its kernels run in f32 only; bf16 is not "
-              "ported yet (ROADMAP.md, Queue 1, item 14)")
+#: the working types of the steps: the parameters' (and the cache's)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_dtype(dtype) -> None:
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype} not in {DTYPES}")
 
 
 def auto_microbatches(batch: int, devices: int = 1,
@@ -117,8 +126,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     ``microbatches`` defaults to :func:`auto_microbatches` of the
     batch on one device.  ``use_kernels=False`` runs attention's plain
     version through autograd (the check of the kernel route)."""
-    if dtype != torch.float32:
-        raise NotImplementedError(f"dtype {dtype}: {BF16_LATER}")
+    _check_dtype(dtype)
     # f32 accumulation by default; bf16 when the optimizer states are
     # already int8-quantised, as the reference
     acc_dtype = torch.bfloat16 if opt_cfg.quantize_states else torch.float32
@@ -148,8 +156,7 @@ def make_prefill_step(cfg: ArchConfig, batch: int, seq: int,
     returned with the prompt's keys and values (and the encoder's cross
     keys and values) and the last position's (batch, vocab) f32 logits.
     ``use_kernels=False`` runs attention's plain version."""
-    if dtype != torch.float32:
-        raise NotImplementedError(f"dtype {dtype}: {BF16_LATER}")
+    _check_dtype(dtype)
 
     def step(params, cache, batch_in):
         batch_in = _on(batch_in, device)
@@ -174,8 +181,7 @@ def make_decode_step(cfg: ArchConfig, batch: int, s_max: int,
     length ``s_max``, written in place and returned; (batch, vocab) f32
     logits.  With ``use_kernels`` an encoder-decoder's cross attention over
     the cached encoder keys takes the ``flash_attention`` kernel."""
-    if dtype != torch.float32:
-        raise NotImplementedError(f"dtype {dtype}: {BF16_LATER}")
+    _check_dtype(dtype)
 
     def step(params, cache, token, pos):
         token = torch.as_tensor(token, device=device).long()

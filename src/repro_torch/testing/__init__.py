@@ -18,6 +18,9 @@ oracles), after the reference package's ``repro.testing``.
 ``routing``
     the mixture-of-experts router's choices on the kernel and the plain
     route of one LM: a recorder, and the near-tie rule that holds a flip.
+``ulp``
+    a bf16 attention output against its plain version: one ulp plus a
+    per-element bound on what the f32 sums of either side may leave.
 """
 from .gen import (FuzzCase, GenConfig, mutate_plan, random_case,
                   random_exec_graph, random_plan)

@@ -13,7 +13,11 @@ installed; :func:`hold_routing` holds one forward's records on the kernel
 route to the plain route's: the layers before the first that differs
 choose alike and keep alike; in that layer every changed choice is a
 near-tie on the plain route (the plain route's router logits of the two
-experts within ``tol`` x max |router logit| of the token), and a changed
+experts within ``tol`` x max |router logit| of the token; or, ``measured``,
+within twice the largest difference delta between the two routes' router
+logits in that layer, delta itself within ``tol`` x max |plain router
+logit| of the layer: a choice can swap two experts only where their gap
+is at most the two logits' moves together), and a changed
 capacity verdict (``keep``) comes at or after the first changed choice of
 its group in the (T * k) priority order, since queue slots follow from the
 choices.  Past that layer the two routes no longer compute on like inputs,
@@ -75,18 +79,21 @@ class Flip:
 @dataclasses.dataclass(frozen=True)
 class RoutingHold:
     """``parted``: the first MoE layer whose routing differs (None where
-    every layer routes alike); its ``flips`` and the count of changed
-    capacity verdicts there."""
+    every layer routes alike); its ``flips``, the count of changed
+    capacity verdicts there and, when measured, the largest difference
+    ``delta`` between the two routes' router logits in it."""
     parted: int | None
     flips: tuple[Flip, ...] = ()
     keep_changes: int = 0
+    delta: float | None = None
 
 
 def hold_routing(kernel: list[Routing], plain: list[Routing],
-                 tol: float) -> RoutingHold:
+                 tol: float, measured: bool = False) -> RoutingHold:
     """Hold one forward's MoE layers on the kernel route to the plain
-    route's (the rule of the module docstring).  Raises AssertionError
-    naming the layer, group and token of a flip past it."""
+    route's (the rule of the module docstring; ``measured`` takes the
+    near-tie limit from the two routes' router logits).  Raises
+    AssertionError naming the layer, group and token of a flip past it."""
     if len(kernel) != len(plain):
         raise AssertionError(f"{len(kernel)} MoE layers on the kernel "
                              f"route, {len(plain)} on the plain route")
@@ -96,14 +103,23 @@ def hold_routing(kernel: list[Routing], plain: list[Routing],
         if torch.equal(ki, pi) and torch.equal(kk, pk):
             continue
         logits = p.logits.float().cpu()
+        delta = None
+        if measured:
+            delta = float((k.logits.float().cpu() - logits).abs().max())
+            top = float(logits.abs().max())
+            if not delta <= tol * top:
+                raise AssertionError(
+                    f"MoE layer {layer}: the routes' router logits "
+                    f"{delta:.3e} apart, past {tol} x max|plain| "
+                    f"({tol * top:.3e})")
         flips = []
         for g, t, j in (ki != pi).nonzero().tolist():
             row = logits[g, t]
             a, b = int(pi[g, t, j]), int(ki[g, t, j])
             gap = float((row[a] - row[b]).abs())
-            lim = tol * float(row.abs().max())
+            lim = 2 * delta if measured else tol * float(row.abs().max())
             flips.append(Flip(layer, g, t, j, a, b, gap, lim))
-            if not gap < lim:
+            if not (gap <= lim if measured else gap < lim):
                 raise AssertionError(
                     f"MoE layer {layer}, group {g}, token {t}: rank {j} "
                     f"took expert {b} on the kernel route, {a} on the plain "
@@ -123,5 +139,5 @@ def hold_routing(kernel: list[Routing], plain: list[Routing],
                     f"MoE layer {layer}, group {g}: the capacity verdict of "
                     f"pair {at} (token {at // K}, rank {at % K}) changed "
                     f"before any choice changed")
-        return RoutingHold(layer, tuple(flips), int(kept.sum()))
+        return RoutingHold(layer, tuple(flips), int(kept.sum()), delta)
     return RoutingHold(None)

@@ -1294,3 +1294,77 @@ def test_checkpoint_resume_on_the_card(gen, tmp_path, bfp8):
             assert torch.equal(a, b), name
         elif a.is_floating_point():
             assert bool(b.isfinite().all()), name
+
+
+# =============================================================================
+# the bf16 instances of the attention kernels, and the staged LM executor
+# =============================================================================
+
+def _within_one_bf16_ulp(got, want, slack):
+    """Every bf16 element within one ulp of the plain value plus twice its
+    f32 sums' slack (``slack``, one per bf16 output in order:
+    testing.ulp.f32_slack); f32 outputs (lse, delta) within 2e-4 x max(1,
+    max|plain|)."""
+    from repro_torch.testing.ulp import past_one_ulp
+    slack = iter(slack)
+    for g, w in zip(got, want):
+        if w.dtype == torch.bfloat16:
+            assert past_one_ulp(g, w, next(slack)) == 0
+        else:
+            err = (g.double() - w.double()).abs()
+            top = max(1.0, float(w.double().abs().max()))
+            assert float(err.max()) <= 2e-4 * top
+
+
+@pytest.mark.parametrize("B,S,H,D", [(1, 64, 2, 16), (2, 300, 2, 64),
+                                     (1, 77, 4, 128), (2, 130, 2, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_instances_within_one_ulp(gen, B, S, H, D, causal):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.testing.ulp import f32_slack
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen,
+                               device="cuda").bfloat16() for _ in range(4))
+    plain = chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
+                              skip_masked=causal, return_lse=True)
+    sl = f32_slack(q, k, v, causal, do)
+    reset_launches()
+    _within_one_bf16_ulp((FA.flash_attention(q, k, v, causal=causal),),
+                         plain[:1], (sl["o"],))
+    o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
+    _within_one_bf16_ulp((o, lse), plain, (sl["o"],))
+    o, lse = plain
+    dq = FA.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
+    pdq = FA.flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal)
+    _within_one_bf16_ulp(dq, pdq, (sl["dq"],))
+    dkdv = FA.flash_attention_bwd_dkdv(q, k, v, do, lse, pdq[1], causal)
+    _within_one_bf16_ulp(dkdv, FA.flash_attention_bwd_dkdv_plain(
+        q, k, v, do, lse, pdq[1], causal), (sl["dk"], sl["dv"]))
+    n = launches()
+    assert all(n[f"{k}_bf16"] == 1 for k in (
+        "flash_attention", "flash_attention_lse", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkdv"))
+    assert torch.equal(FA.flash_attention(q, k, v, causal=causal).view(
+        torch.int16), FA.flash_attention(q, k, v, causal=causal).view(
+        torch.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_executor_is_the_monolithic_forward(gen, dtype):
+    """Reduced yi-6b staged over 4 stages with the codec off: bit for bit
+    the monolithic forward on the kernel route."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import forward, init_params, project_logits
+    from repro_torch.runtime.reconfigure import StagedExecutor
+    cfg = ARCHS["yi-6b"].reduced(n_layers=4)
+    params = init_params(gen, cfg, dtype=dtype)
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        x, _, _ = forward(params, cfg, toks)
+        want = project_logits(params, cfg, x)
+    ex = StagedExecutor(cfg, params, n_stages=4, compress_boundary=False,
+                        dtype=dtype)
+    assert ex.host_params["embed"].device.type == "cpu"
+    assert torch.equal(ex.forward_logits(toks), want)
+    assert len(ex.timings) == 4

@@ -200,6 +200,22 @@ def test_hold_routing_refuses_a_flip_past_a_near_tie():
         hold_routing([kernel], [plain, plain], TOL)
 
 
+def test_hold_routing_measures_its_near_ties():
+    """measured: a flip is a near-tie within twice the routes' largest
+    router-logit difference, which is itself held within tol x max|plain|
+    of the layer."""
+    plain = _routing([[1.0, 0.5, 0.5 + 1e-6, 0.0], [0.0, 1.0, 0.2, 0.1]])
+    kernel = _routing([[1.0, 0.5 + 1e-6, 0.5, 0.0], [0.0, 1.0, 0.2, 0.1]])
+    hold = hold_routing([kernel], [plain], TOL, measured=True)
+    (flip,) = hold.flips
+    assert hold.delta == pytest.approx(1e-6, rel=0.1)
+    assert flip.gap <= flip.limit == 2 * hold.delta
+    # the same flip beside a router logit that moved past tol is refused
+    moved = _routing([[1.0, 0.5 + 1e-6, 0.5, 0.0], [0.0, 1.0, 0.3, 0.1]])
+    with pytest.raises(AssertionError, match="router logits"):
+        hold_routing([moved], [plain], TOL, measured=True)
+
+
 def test_hold_routing_orders_capacity_changes_after_choices():
     """Capacity 1 a expert (cf 1, 2 tokens): token 1's pair on expert 0
     drops.  A changed verdict with no earlier changed choice is refused;

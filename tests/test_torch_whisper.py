@@ -270,8 +270,17 @@ def test_step_builders_match_the_reference(weights):
              {"tokens": _toks((B, s_max + 1), 72), "enc_frames": frames})
     with pytest.raises(ValueError):
         tdec(tp, tcache, tok[:1], pos[:1])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 14"):
-        TS.make_prefill_step(CFG, B, s_max, dtype=torch.bfloat16)
+    # bf16, refused until the port took it: the step builders take it, and
+    # a prefill on bf16 weights and cache gives f32 logits, a bf16 cache
+    bpre = TS.make_prefill_step(CFG, B, s_max, dtype=torch.bfloat16,
+                                device="cpu")
+    bp = {n: t.to(torch.bfloat16) for n, t in TM._leaves(tp)}
+    bl, bcache = bpre(TM._tree(bp), TM.init_cache(
+        CFG, B, s_max, dtype=torch.bfloat16, device="cpu"),
+        {"tokens": toks,
+         "enc_frames": torch.from_numpy(frames).to(torch.bfloat16)})
+    assert bl.dtype == torch.float32 and torch.isfinite(bl).all()
+    assert all(t.dtype == torch.bfloat16 for _, t in TM._leaves(bcache))
 
 
 @pytest.mark.parametrize("use_kernels", [True, False])
