@@ -161,13 +161,16 @@ and prints no result line):
    bf16 ulp of its plain version (lse and delta as the f32 instances'),
    two launches bit for bit, timed against SDPA in bf16 (forward; the
    whole autograd backward for the pair) and bound by the bf16 tensor
-   cores' 989 TFLOP/s; every tile
+   cores' 989 TFLOP/s (the bf16 backward pair, which issues its own bf16
+   products, P and dS in two pieces, also by those products:
+   ``bound_products_ms``); every tile
    choice of every tiled kernel bit for bit its untiled launch; and time
    kernel, plain version and one PyTorch call as a yardstick (CUDA events,
    L2 flushed before every launch, median of REPS launches).  Besides the
    f32 bound, the kernels that run on the tensor cores through the 3xTF32
    split (``csrc/tf32x3.cuh``: streamed_matmul, flash_attention and its
-   lse instance, the two backward kernels, the four conv2d variants) get
+   lse instance, both in f32 and bf16, the two f32 backward kernels, the
+   four conv2d variants) get
    the split's bound, the larger of the bytes' time
    and 3 x operations at 495 TFLOP/s dense TF32 (``bound_tf32x3_ms``):
    their times may fall below the f32 FMA bound; they are also held bit
@@ -217,15 +220,21 @@ PEAK_HBM_BYTES_S = 3.35e12
 # into two TF32 terms (csrc/tf32x3.cuh) issue three products per product
 PEAK_TF32_FLOPS = 495e12
 # dense bf16 on the tensor cores (f32 accumulation): the least time for a
-# bf16 instance's work, whose bf16 products are exact in f32; the instances
-# themselves run the 3xTF32 body, so bound_tf32x3_ms is their own design's
+# bf16 instance's work, whose bf16 products are exact in f32; the forward
+# instances run the 3xTF32 body, so bound_tf32x3_ms is their own design's
 PEAK_BF16_FLOPS = 989e12
 TF32X3_KERNELS = ("streamed_matmul", "flash_attention", "conv2d",
                   "conv2d_encode", "conv2d_decode", "conv2d_decode_encode",
                   "flash_attention_lse", "flash_attention_bwd_dq",
                   "flash_attention_bwd_dkdv", "flash_attention_bf16",
-                  "flash_attention_lse_bf16", "flash_attention_bwd_dq_bf16",
-                  "flash_attention_bwd_dkdv_bf16")
+                  "flash_attention_lse_bf16")
+# the bf16 backward pair (csrc/flash_attention_bwd_bf16.cu) issues its own
+# bf16 products: s and dP once, dQ (dq) or dV and dK (dkdv) once a piece of
+# P or dS, two pieces; the counted operations are 3 (dq) and 4 (dkdv)
+# products, so its own bound (bound_products_ms) takes them times 4 / 3 and
+# 6 / 4 at PEAK_BF16_FLOPS
+BF16_PRODUCTS = {"flash_attention_bwd_dq_bf16": 4 / 3,
+                 "flash_attention_bwd_dkdv_bf16": 6 / 4}
 
 FRAMES = 3
 REPS = 20
@@ -548,9 +557,9 @@ CUDA_SRC = {
     "flash_attention_bf16": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_lse_bf16": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dq_bf16":
-        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro_torch/csrc/flash_attention_bwd_bf16.cu",
     "flash_attention_bwd_dkdv_bf16":
-        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro_torch/csrc/flash_attention_bwd_bf16.cu",
 }
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 BF16_KERNELS = ("flash_attention_bf16", "flash_attention_lse_bf16",
@@ -698,6 +707,8 @@ def kernel_phase(torch, timer, path_shapes):
             for n in TPU_SRC}
     for n in TF32X3_KERNELS:
         rows[n]["bound_tf32x3_ms"] = 0.0
+    for n in BF16_PRODUCTS:
+        rows[n]["bound_products_ms"] = 0.0
 
     def note_err(name, err):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
@@ -1122,11 +1133,14 @@ def kernel_phase(torch, timer, path_shapes):
                                  union[key]))
         b3 = (bound_tf32x3_ms(nbytes, ops) if kind in TF32X3_KERNELS
               else None)
+        bp = (bound_ms(nbytes, ops * BF16_PRODUCTS[kind], PEAK_BF16_FLOPS)[0]
+              if kind in BF16_PRODUCTS else None)
         print(f"  {kind} {arg_shapes}: ms {t_kern:.4f} plain {t_plain:.4f} "
               f"library {'-' if t_lib is None else f'{t_lib:.4f}'} bound "
               f"{b:.4f} ({bound_by})"
-              f"{'' if b3 is None else f', 3xTF32 bound {b3:.4f}'}, on the "
-              f"paths x{union[key]}")
+              f"{'' if b3 is None else f', 3xTF32 bound {b3:.4f}'}"
+              f"{'' if bp is None else f', own products bound {bp:.4f}'}, "
+              f"on the paths x{union[key]}")
         row = rows[kind]
         for pname, shapes in path_shapes.items():
             n = shapes.get(key, 0)
@@ -1139,6 +1153,8 @@ def kernel_phase(torch, timer, path_shapes):
             row["bound_ms"] += n * b
             if b3 is not None:
                 row["bound_tf32x3_ms"] += n * b3
+            if bp is not None:
+                row["bound_products_ms"] += n * bp
             bound_parts[kind][bound_by] += n * b
             row["bound_by"] = max(bound_parts[kind],
                                   key=bound_parts[kind].get)
@@ -3609,11 +3625,11 @@ def main() -> int:
             print(f"  {line.strip()} [{kernel}]")
         elif line.startswith("==") or "spill" in line:
             print(f"  {line.strip()}")
-        # the 3xTF32 kernels keep their tiles in registers, the pool and
-        # dwconv families their sums and tap windows, the codec its blocks:
-        # no spills
+        # the tensor-core kernels keep their tiles in registers, the pool
+        # and dwconv families their sums and tap windows, the codec its
+        # blocks: no spills
         if (source in ("streamed_matmul.cu", "flash_attention.cu",
-                       "flash_attention_bwd.cu",
+                       "flash_attention_bwd.cu", "flash_attention_bwd_bf16.cu",
                        "conv2d.cu", "conv2d_decode.cu", "streaming_conv.cu",
                        "dwconv.cu", "bfp8.cu")
                 and "spill" in line
@@ -3718,6 +3734,8 @@ def main() -> int:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         b3 = ("" if "bound_tf32x3_ms" not in r
               else f"3xTF32 bound {r['bound_tf32x3_ms']:.4f} ")
+        if "bound_products_ms" in r:
+            b3 += f"own products bound {r['bound_products_ms']:.4f} "
         print(f"kernel {name:22s} launches {r['launches']:3d} "
               f"max_abs_err {r['max_abs_err']:.3e} (tol {tol}) "
               f"ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library {lib} "

@@ -1,10 +1,11 @@
 // The element types of the attention kernels' operands in global memory:
-// f32, or bf16 (__nv_bfloat16).  The kernels stage every operand in shared
-// memory as f32 and compute in f32 whatever the type, so a bf16 instance
-// differs from the f32 one only where values cross global memory: a load
-// widens each bf16 value to f32 (exact), q^ = q D^-1/2 is rounded to the
-// operand type as the plain route rounds it (round_to), and each output is
-// rounded once, to nearest even, as it is stored.
+// f32, or bf16 (__nv_bfloat16).  The forward kernels (flash_attention.cu)
+// stage every operand in shared memory as f32 and compute in f32 whatever
+// the type, so a bf16 instance differs from the f32 one only where values
+// cross global memory: a load widens each bf16 value to f32 (exact), q^ = q
+// D^-1/2 is rounded to the operand type as the plain route rounds it
+// (round_to), and each output is rounded once, to nearest even, as it is
+// stored (store2, which the bf16 backward pair uses too).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,11 +22,6 @@ using bf16 = __nv_bfloat16;
 
 template <typename T>
 constexpr bool is_f32 = std::is_same_v<T, float>;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) {
-  return __bfloat162float(x);
-}
 
 // 4 consecutive values as f32: one 16-byte load (f32) or one 8-byte load
 // (bf16); the address is aligned to 4 values

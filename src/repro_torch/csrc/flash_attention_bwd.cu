@@ -69,13 +69,8 @@
 // flash_attention_bwd_dq also writes D_i of its rows, which
 // flash_attention_bwd_dkdv (launched after it on the same stream) reads.
 //
-// The bf16 instances (flash_attention_bwd_dq_bf16, _dkdv_bf16) take q, k, v,
-// o, dO bf16 and write dQ, dK, dV bf16 (elem.cuh); lse and delta stay f32.
-// Every value is widened to f32 as it is staged (the moving tiles by a
-// synchronous load and store in place of cp.async), q^ = bf16(q
-// bf16(D^-1/2)) wherever q is read (the planes of dq, the tile of dkdv), the
-// body is the f32 one, and each output is rounded once as it is stored:
-// dQ = bf16(dS K bf16(D^-1/2)), the plain route's rounding points.
+// The bf16 pair (flash_attention_bwd_dq_bf16, _dkdv_bf16) has a body of its
+// own on the bf16 tensor cores: flash_attention_bwd_bf16.cu.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -116,13 +111,13 @@ __device__ __forceinline__ int at(int r, int c) {
 }
 
 // Rows r0 .. r0 + 63 of a (S, row)-strided operand, times scale (one f32
-// product, rounded to T), split into the hi and lo planes of their A
-// fragments: word (p, d, lane) holds rows 16 p + g and 16 p + g + 8,
-// columns 8 d + t and 8 d + t + 4 in a's order; rows past S as zeros.
-template <typename T, int D>
+// product), split into the hi and lo planes of their A fragments: word (p,
+// d, lane) holds rows 16 p + g and 16 p + g + 8, columns 8 d + t and 8 d +
+// t + 4 in a's order; rows past S as zeros.
+template <int D>
 __device__ __forceinline__ void split_rows(uint4* __restrict__ hi,
                                            uint4* __restrict__ lo,
-                                           const T* __restrict__ src,
+                                           const float* __restrict__ src,
                                            int64_t r0, int64_t S,
                                            int64_t row, float scale) {
   using L = Layout<D>;
@@ -133,10 +128,7 @@ __device__ __forceinline__ void split_rows(uint4* __restrict__ hi,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int64_t pos = r0 + r + 8 * (i & 1);
-      x[i] = pos < S ? elem::round_to<T>(
-                           elem::to_float(src[pos * row + c + 4 * (i >> 1)]) *
-                           scale)
-                     : 0.0f;
+      x[i] = pos < S ? src[pos * row + c + 4 * (i >> 1)] * scale : 0.0f;
     }
     uint4 h, l;
     tf32x3::split(x[0], h.x, l.x);
@@ -158,11 +150,10 @@ __device__ __forceinline__ tf32x3::FragA frag_a(const uint4* hi,
 }
 
 // cp.async of rows r0 .. r0 + 31 of a (S, row)-strided operand into a
-// swizzled [TILE][LD] tile, rows past S zero-filled; a bf16 operand is
-// loaded, widened to f32 and stored instead
-template <typename T, int D>
+// swizzled [TILE][LD] tile, rows past S zero-filled
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int64_t r0, int64_t S,
                                           int64_t row) {
   using L = Layout<D>;
@@ -174,14 +165,8 @@ __device__ __forceinline__ void load_tile(float* dst,
       const int r = idx / C4, c = idx % C4 * 4;
       // a row past S is zero-filled from a valid address that is not read
       const bool in = r0 + r < S;
-      if constexpr (elem::is_f32<T>) {
-        tf32x3::cp_async16(dst + at<L::LD>(r, c),
-                           in ? src + (r0 + r) * row + c : src, in);
-      } else {
-        *reinterpret_cast<float4*>(dst + at<L::LD>(r, c)) =
-            in ? elem::load4(src + (r0 + r) * row + c)
-               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
+      tf32x3::cp_async16(dst + at<L::LD>(r, c),
+                         in ? src + (r0 + r) * row + c : src, in);
     }
   }
 }
@@ -228,12 +213,12 @@ __device__ __forceinline__ void store_slice(float* sl, const float (&x)[2][4],
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ o,
-              const T* __restrict__ dout, const float* __restrict__ lse,
-              T* __restrict__ dq, float* __restrict__ delta, int64_t S,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ o,
+              const float* __restrict__ dout, const float* __restrict__ lse,
+              float* __restrict__ dq, float* __restrict__ delta, int64_t S,
               int64_t H, int causal, float scale) {
   using L = Layout<D>;
   constexpr int LD = L::LD;
@@ -258,8 +243,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   auto load_kv = [&](int s, int64_t k0) {
     float* st = ring + 2 * s * L::TILEF;
-    load_tile<T, D>(st, k + base, k0, S, row);
-    load_tile<T, D>(st + L::TILEF, v + base, k0, S, row);
+    load_tile<D>(st, k + base, k0, S, row);
+    load_tile<D>(st + L::TILEF, v + base, k0, S, row);
   };
   load_kv(0, 0);
   tf32x3::cp_async_commit();
@@ -270,10 +255,9 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qp = q0 + r;
     float acc = 0.0f;
     if (qp < S) {
-      const T* orow = o + base + qp * row;
-      const T* drow = dout + base + qp * row;
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(elem::to_float(drow[d]), elem::to_float(orow[d]), acc);
+      const float* orow = o + base + qp * row;
+      const float* drow = dout + base + qp * row;
+      for (int d = lane; d < D; d += 32) acc = fmaf(drow[d], orow[d], acc);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -284,8 +268,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (qp < S) delta[bh * S + qp] = acc;
     }
   }
-  split_rows<T, D>(qh, ql, q + base, q0, S, row, scale);
-  split_rows<T, D>(gh, gl, dout + base, q0, S, row, 1.0f);
+  split_rows<D>(qh, ql, q + base, q0, S, row, scale);
+  split_rows<D>(gh, gl, dout + base, q0, S, row, 1.0f);
   __syncthreads();
 
   // the pair's rows q0 + 16 pair + [0, 16); in the accumulator layout a
@@ -387,21 +371,21 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int64_t qp = qp0 + g + 8 * r;
     if (qp >= S) continue;
-    T* out = dq + base + qp * row + half * (D / 2) + 2 * t;
+    float* out = dq + base + qp * row + half * (D / 2) + 2 * t;
 #pragma unroll
     for (int j = 0; j < L::NH; ++j)
-      elem::store2(out + 8 * j, acc[j][2 * r] * scale,
-                   acc[j][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int64_t S, int64_t H, int causal,
+                const float* __restrict__ delta, float* __restrict__ dk,
+                float* __restrict__ dv, int64_t S, int64_t H, int causal,
                 float scale) {
   using L = Layout<D>;
   constexpr int LD = L::LD;
@@ -426,8 +410,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   auto load_q = [&](int s, int64_t q0) {
     float* st = ring + 2 * s * L::TILEF;
-    load_tile<T, D>(st, q + base, q0, S, row);
-    load_tile<T, D>(st + L::TILEF, dout + base, q0, S, row);
+    load_tile<D>(st, q + base, q0, S, row);
+    load_tile<D>(st + L::TILEF, dout + base, q0, S, row);
     if (tid < 2 * TILE) {
       const int64_t qp = q0 + tid % TILE;
       const bool in = qp < S;
@@ -438,8 +422,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   load_q(0, (int64_t)first * TILE);
   tf32x3::cp_async_commit();
-  split_rows<T, D>(kh, kl, k + base, k0, S, row, 1.0f);
-  split_rows<T, D>(vh, vl, v + base, k0, S, row, 1.0f);
+  split_rows<D>(kh, kl, k + base, k0, S, row, 1.0f);
+  split_rows<D>(vh, vl, v + base, k0, S, row, 1.0f);
 
   // the pair's keys k0 + 16 pair + [0, 16): rows of the accumulators
   const int64_t kp0 = k0 + 16 * pair;
@@ -484,11 +468,9 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       tile_b2<LD>(gt, 16 * half, d, lane, gb);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        tf32x3::mma_tf32x3(
-            s[d & 1][j], ka,
-            tf32x3::split_b(
-                elem::round_to<T>(__uint_as_float(qb[j][0]) * scale),
-                elem::round_to<T>(__uint_as_float(qb[j][1]) * scale)));
+        tf32x3::mma_tf32x3(s[d & 1][j], ka,
+                           tf32x3::split_b(__uint_as_float(qb[j][0]) * scale,
+                                           __uint_as_float(qb[j][1]) * scale));
         tf32x3::mma_tf32x3(dp[d & 1][j], va,
                            tf32x3::split_b(__uint_as_float(gb[j][0]),
                                            __uint_as_float(gb[j][1])));
@@ -532,8 +514,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = half * (D / 2) + 8 * j + g;
         gr[j][0] = gt[at<LD>(kk + t, c)];
         gr[j][1] = gt[at<LD>(kk + t + 4, c)];
-        qr[j][0] = elem::round_to<T>(qt[at<LD>(kk + t, c)] * scale);
-        qr[j][1] = elem::round_to<T>(qt[at<LD>(kk + t + 4, c)] * scale);
+        qr[j][0] = qt[at<LD>(kk + t, c)] * scale;
+        qr[j][1] = qt[at<LD>(kk + t + 4, c)] * scale;
       }
 #pragma unroll
       for (int j = 0; j < L::NH; ++j) {
@@ -551,96 +533,43 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t at_row = base + kp * row + half * (D / 2) + 2 * t;
 #pragma unroll
     for (int j = 0; j < L::NH; ++j) {
-      elem::store2(dk + at_row + 8 * j, ak[j][2 * r], ak[j][2 * r + 1]);
-      elem::store2(dv + at_row + 8 * j, av[j][2 * r], av[j][2 * r + 1]);
+      *reinterpret_cast<float2*>(dk + at_row + 8 * j) =
+          make_float2(ak[j][2 * r], ak[j][2 * r + 1]);
+      *reinterpret_cast<float2*>(dv + at_row + 8 * j) =
+          make_float2(av[j][2 * r], av[j][2 * r + 1]);
     }
   }
 }
 
-template <typename T, int D>
-int run_dq(const T* q, const T* k, const T* v, const T* o, const T* dout,
-           const float* lse, T* dq, float* delta, int64_t B, int64_t S,
-           int64_t H, int causal, cudaStream_t st) {
+template <int D>
+int run_dq(const float* q, const float* k, const float* v, const float* o,
+           const float* dout, const float* lse, float* dq, float* delta,
+           int64_t B, int64_t S, int64_t H, int causal, cudaStream_t st) {
   const size_t bytes = Layout<D>::DQ;
   const cudaError_t err =
-      tf32x3::set_shared_memory<bwd_dq_kernel<T, D>>((int)bytes);
+      tf32x3::set_shared_memory<bwd_dq_kernel<D>>((int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + ROWS - 1) / ROWS));
-  bwd_dq_kernel<T, D><<<grid, THREADS, bytes, st>>>(
+  bwd_dq_kernel<D><<<grid, THREADS, bytes, st>>>(
       q, k, v, o, dout, lse, dq, delta, S, H, causal,
-      elem::head_scale<T>(D));
+      elem::head_scale<float>(D));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int run_dkdv(const T* q, const T* k, const T* v, const T* dout,
-             const float* lse, const float* delta, T* dk, T* dv, int64_t B,
-             int64_t S, int64_t H, int causal, cudaStream_t st) {
+template <int D>
+int run_dkdv(const float* q, const float* k, const float* v,
+             const float* dout, const float* lse, const float* delta,
+             float* dk, float* dv, int64_t B, int64_t S, int64_t H,
+             int causal, cudaStream_t st) {
   const size_t bytes = Layout<D>::DKDV;
   const cudaError_t err =
-      tf32x3::set_shared_memory<bwd_dkdv_kernel<T, D>>((int)bytes);
+      tf32x3::set_shared_memory<bwd_dkdv_kernel<D>>((int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + ROWS - 1) / ROWS));
-  bwd_dkdv_kernel<T, D><<<grid, THREADS, bytes, st>>>(
+  bwd_dkdv_kernel<D><<<grid, THREADS, bytes, st>>>(
       q, k, v, dout, lse, delta, dk, dv, S, H, causal,
-      elem::head_scale<T>(D));
+      elem::head_scale<float>(D));
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_dq(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, const void* lse, void* dq, void* delta,
-                int64_t B, int64_t S, int64_t H, int64_t D, int64_t causal,
-                void* stream) {
-  if (B * S * H <= 0) return (int)cudaGetLastError();
-  const T *qf = (const T*)q, *kf = (const T*)k, *vf = (const T*)v,
-          *of = (const T*)o, *df = (const T*)dout;
-  const float* lf = (const float*)lse;
-  T* dqf = (T*)dq;
-  float* delf = (float*)delta;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int c = causal ? 1 : 0;
-  switch (D) {
-    case 16:
-      return run_dq<T, 16>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
-    case 32:
-      return run_dq<T, 32>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
-    case 64:
-      return run_dq<T, 64>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
-    case 128:
-      return run_dq<T, 128>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c,
-                            st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int dispatch_dkdv(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dk, void* dv, int64_t B, int64_t S, int64_t H,
-                  int64_t D, int64_t causal, void* stream) {
-  if (B * S * H <= 0) return (int)cudaGetLastError();
-  const T *qf = (const T*)q, *kf = (const T*)k, *vf = (const T*)v,
-          *df = (const T*)dout;
-  const float *lf = (const float*)lse, *delf = (const float*)delta;
-  T *dkf = (T*)dk, *dvf = (T*)dv;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int c = causal ? 1 : 0;
-  switch (D) {
-    case 16:
-      return run_dkdv<T, 16>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c,
-                             st);
-    case 32:
-      return run_dkdv<T, 32>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c,
-                             st);
-    case 64:
-      return run_dkdv<T, 64>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c,
-                             st);
-    case 128:
-      return run_dkdv<T, 128>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c,
-                              st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // dynamic shared memory bytes, registers a thread and resident blocks an
@@ -663,8 +592,8 @@ int occupancy(size_t bytes, int64_t* out) {
 template <int D>
 int occupancy_of(int64_t kernel, int64_t* out) {
   return kernel == 0
-             ? occupancy<bwd_dq_kernel<float, D>>(Layout<D>::DQ, out)
-             : occupancy<bwd_dkdv_kernel<float, D>>(Layout<D>::DKDV, out);
+             ? occupancy<bwd_dq_kernel<D>>(Layout<D>::DQ, out)
+             : occupancy<bwd_dkdv_kernel<D>>(Layout<D>::DKDV, out);
 }
 
 }  // namespace
@@ -675,8 +604,24 @@ extern "C" int smof_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* delta, int64_t B,
     int64_t S, int64_t H, int64_t D, int64_t causal, void* stream) {
-  return dispatch_dq<float>(q, k, v, o, dout, lse, dq, delta, B, S, H, D,
-                            causal, stream);
+  if (B * S * H <= 0) return (int)cudaGetLastError();
+  const float *qf = (const float*)q, *kf = (const float*)k,
+              *vf = (const float*)v, *of = (const float*)o,
+              *df = (const float*)dout, *lf = (const float*)lse;
+  float *dqf = (float*)dq, *delf = (float*)delta;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int c = causal ? 1 : 0;
+  switch (D) {
+    case 16:
+      return run_dq<16>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
+    case 32:
+      return run_dq<32>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
+    case 64:
+      return run_dq<64>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
+    case 128:
+      return run_dq<128>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // q, k, v, dout, dk, dv: (B, S, H, D) f32, contiguous; lse, delta (the dq
@@ -685,26 +630,25 @@ extern "C" int smof_flash_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int64_t B,
     int64_t S, int64_t H, int64_t D, int64_t causal, void* stream) {
-  return dispatch_dkdv<float>(q, k, v, dout, lse, delta, dk, dv, B, S, H, D,
-                              causal, stream);
-}
-
-// The bf16 instances: the tensors of the f32 entries' shapes bf16 but lse
-// and delta, which stay f32.
-extern "C" int smof_flash_attention_bwd_dq_bf16(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* dq, void* delta, int64_t B,
-    int64_t S, int64_t H, int64_t D, int64_t causal, void* stream) {
-  return dispatch_dq<elem::bf16>(q, k, v, o, dout, lse, dq, delta, B, S, H,
-                                 D, causal, stream);
-}
-
-extern "C" int smof_flash_attention_bwd_dkdv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int64_t B,
-    int64_t S, int64_t H, int64_t D, int64_t causal, void* stream) {
-  return dispatch_dkdv<elem::bf16>(q, k, v, dout, lse, delta, dk, dv, B, S,
-                                   H, D, causal, stream);
+  if (B * S * H <= 0) return (int)cudaGetLastError();
+  const float *qf = (const float*)q, *kf = (const float*)k,
+              *vf = (const float*)v, *df = (const float*)dout,
+              *lf = (const float*)lse, *delf = (const float*)delta;
+  float *dkf = (float*)dk, *dvf = (float*)dv;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int c = causal ? 1 : 0;
+  switch (D) {
+    case 16:
+      return run_dkdv<16>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c, st);
+    case 32:
+      return run_dkdv<32>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c, st);
+    case 64:
+      return run_dkdv<64>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c, st);
+    case 128:
+      return run_dkdv<128>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c,
+                           st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // out[0..2]: dynamic shared memory bytes, registers a thread and resident

@@ -20,7 +20,8 @@ too (``flash_attention_lse``: ``lse`` of shape (B, H, S), f32), and it
 saves ``q, k, v, o, lse``; its backward launches
 ``flash_attention_bwd_dq`` (dQ and ``delta`` = rowsum(dO * O)) and then
 ``flash_attention_bwd_dkdv`` (dK, dV) on the same stream
-(``csrc/flash_attention_bwd.cu``).  The reference has no backward kernel:
+(``csrc/flash_attention_bwd.cu``; the bf16 pair
+``csrc/flash_attention_bwd_bf16.cu``).  The reference has no backward kernel:
 XLA differentiates ``chunked_attention``.  On a CPU tensor both directions
 take the plain versions, ``chunked_attention(return_lse=True)`` and
 :func:`flash_attention_backward_plain`.
@@ -32,6 +33,10 @@ v, o, dO, dQ, dK and dV of that type, lse and delta f32 either way.  A bf16
 instance rounds where the plain route does: q^ = bf16(q * bf16(D^-1/2))
 (the reference's ``q * D ** -0.5``, its scale a weak type converted to
 bf16), then f32 arithmetic throughout, then one rounding of each output.
+The bf16 backward pair has a body of its own
+(``csrc/flash_attention_bwd_bf16.cu``): its products run on the bf16
+tensor cores, P and dS as the sum of two bf16 pieces
+(``ref.bf16_pieces``).
 """
 from __future__ import annotations
 
@@ -260,22 +265,29 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool):
 
 def backward_occupancy(head_dim: int) -> dict[str, tuple[int, int, int]]:
     """``{kernel: (dynamic shared memory bytes, registers a thread,
-    resident blocks an SM)}`` of the two backward instances at
-    ``head_dim``, as the current card reports them."""
+    resident blocks an SM)}`` of the four backward kernels (the f32 pair
+    and the bf16 pair) at ``head_dim``, as the current card reports
+    them."""
     import ctypes
-    fn = load_library().lib.smof_flash_attention_bwd_occupancy
-    fn.argtypes = [ctypes.c_int64, ctypes.c_int64,
-                   ctypes.POINTER(ctypes.c_int64)]
-    fn.restype = ctypes.c_int
+    lib = load_library().lib
     out = {}
-    for i, name in enumerate(("flash_attention_bwd_dq",
-                              "flash_attention_bwd_dkdv")):
-        vals = (ctypes.c_int64 * 3)()
-        code = fn(head_dim, i, vals)
-        if code:
-            raise RuntimeError(f"{name}: occupancy at head_dim {head_dim} "
-                               f"failed with CUDA error {code}")
-        out[name] = tuple(vals)
+    for suffix, entry in (("", "smof_flash_attention_bwd_occupancy"),
+                          ("_bf16",
+                           "smof_flash_attention_bwd_bf16_occupancy")):
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                       ctypes.POINTER(ctypes.c_int64)]
+        fn.restype = ctypes.c_int
+        for i, base in enumerate(("flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkdv")):
+            name = base + suffix
+            vals = (ctypes.c_int64 * 3)()
+            code = fn(head_dim, i, vals)
+            if code:
+                raise RuntimeError(f"{name}: occupancy at head_dim "
+                                   f"{head_dim} failed with CUDA error "
+                                   f"{code}")
+            out[name] = tuple(vals)
     return out
 
 

@@ -43,6 +43,22 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(x - hi)
 
 
+def bf16_pieces(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """The bf16 split of ``csrc/flash_attention_bwd_bf16.cu`` on f32 ``x``:
+    ``n`` pieces, each the bf16 rounding (to nearest even) of what the ones
+    before it leave, ``x - p_1 - ... - p_(i-1)`` (exact in f32), as f32
+    tensors of bf16 values.  Two pieces carry 16 of x's 24 bits, three all
+    of them.  The bf16 backward kernels multiply P and dS by a bf16 operand
+    as the sum of their pieces' products (each exact in f32); the CPU
+    tests emulate that from these, no path calls it."""
+    out = []
+    for _ in range(n):
+        p = x.to(torch.bfloat16).float()
+        out.append(p)
+        x = x - p
+    return out
+
+
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """1x1 channel mixing (conv/matmul/deconv): y = x @ w, in f32."""
     return torch.matmul(x, w)

@@ -13,7 +13,15 @@ weighted by P is weighted by P (1 + s_abs) (the 1 covers exp's and the
 normalisation's few roundings).  dS = P (dP - D) cancels, so its terms
 are taken as P (|dO| |v|^T + rowsum(|dO| o_abs)) (1 + s_abs).  The
 products of a 3xTF32 split add at most 2^-21 of each term, within the
-(n + D) factor.  Computed in f64 on the inputs' device.
+(n + D) factor.  The bf16 backward pair (csrc/flash_attention_bwd_bf16.cu)
+takes s and dP from two bf16 operands, each product exact in f32, and
+multiplies P or dS by a bf16 operand as two bf16 pieces of it
+(kernels.ref.bf16_pieces), which leave at most 2^-16 of each term: within
+twice the (n + D) factor from n + D = 128 up (2 x 2^-24 x 128 = 2^-16),
+and below that within it or the one ulp unless an element cancels to a
+small fraction of its absolute terms; tests/test_torch_bf16.py emulates
+the pieces and finds no element past the rule at the shapes
+chip_smoke.py's phase 4 takes.  Computed in f64 on the inputs' device.
 """
 from __future__ import annotations
 

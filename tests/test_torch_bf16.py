@@ -533,6 +533,87 @@ def test_f32_slack_bounds_the_plain_routes_sums(S, Sk, D, causal):
     held(dv, torch.einsum("bhqk,bqhd->bkhd", p, dd), sl["dv"])
 
 
+#: the bf16 shapes chip_smoke.py's phase 4 holds the bf16 backward kernels
+#: at, causal and not, and yi-6b's train shape (causal)
+BWD_BF16_CASES = ([(s, c) for s in ((2, 1, 3, 16), (1, 63, 4, 64),
+                                    (2, 300, 2, 16), (1, 77, 32, 128),
+                                    (1, 1000, 2, 64), (1, 130, 2, 32))
+                   for c in (True, False)] + [((1, 1024, 32, 128), True)])
+
+
+def _bwd_bf16_emulated(q, k, v, do, lse, delta, causal, pieces):
+    """(dq, dk, dv) as ``csrc/flash_attention_bwd_bf16.cu`` computes them,
+    in plain PyTorch: s = q^ k^T and dP = dO v^T from bf16 operands (each
+    product exact in f32) summed in f32; P = exp(s - lse), dS = P (dP -
+    delta); dQ, dK and dV as the sum over the ``pieces`` bf16 pieces of dS
+    or P (``ref.bf16_pieces``, the smallest first) of that piece's product
+    with the bf16 operand, in f32; dQ times bf16(D^-1/2); each output
+    rounded once."""
+    from repro_torch.kernels import ref
+    S, D = q.shape[1], q.shape[3]
+    sc = FA._scale(D, q.dtype)
+
+    def f(t):
+        return t.float().transpose(1, 2)
+    qh, kk, vv, dd = f(q * sc), f(k), f(v), f(do)
+    s = qh @ kk.transpose(-1, -2)
+    if causal:
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                          FA.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dd @ vv.transpose(-1, -2) - delta[..., None])
+
+    def prod(a, b):
+        return sum(x @ b for x in reversed(ref.bf16_pieces(a, pieces)))
+
+    def back(t):
+        return t.transpose(1, 2).to(BF16)
+    return (back(prod(ds, kk) * sc), back(prod(ds.transpose(-1, -2), qh)),
+            back(prod(p.transpose(-1, -2), dd)))
+
+
+def _bwd_bf16_past(shape, causal, pieces, seed=81):
+    """How many of the emulated (dq, dk, dv) lie past one bf16 ulp of the
+    plain versions plus twice their f32 slack (``testing.ulp``, the rule
+    phase 4 holds the kernels to), on seeded bf16 operands."""
+    from repro_torch.testing.ulp import f32_slack, past_one_ulp
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g).to(BF16) for _ in "qkvd")
+    o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
+    dq, delta = FA.flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal)
+    dk, dv = FA.flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                               causal)
+    sl = f32_slack(q, k, v, causal, do)
+    got = _bwd_bf16_emulated(q, k, v, do, lse, delta, causal, pieces)
+    return {n: past_one_ulp(g_, w, sl[n])
+            for n, g_, w in zip(("dq", "dk", "dv"), got, (dq, dk, dv))}
+
+
+@pytest.mark.parametrize("pieces", [2, 3], ids=["two-pieces", "three"])
+@pytest.mark.parametrize("shape,causal", BWD_BF16_CASES, ids=[
+    f"{'x'.join(map(str, s))}{'-causal' if c else ''}"
+    for s, c in BWD_BF16_CASES])
+def test_bf16_backward_pieces_hold_the_ulp_rule(shape, causal, pieces):
+    """The bf16 backward kernels' arithmetic, emulated, within the rule
+    phase 4 holds them to (testing.ulp.past_one_ulp with f32_slack,
+    both unchanged) at every bf16 shape phase 4 takes.  Three pieces
+    carry P and dS exactly, so they differ from the plain f32 products
+    only in the order of the sums; two pieces leave up to 2^-16 of each
+    term, and hold the rule here too, at every shape, the ragged ones and
+    S = 1 included: the kernels take two (three products would cost 8
+    bf16 products in dkdv where two cost 6)."""
+    assert _bwd_bf16_past(shape, causal, pieces) == dict.fromkeys(
+        ("dq", "dk", "dv"), 0)
+
+
+def test_one_bf16_piece_misses_the_ulp_rule():
+    """The control: P and dS rounded once to bf16 (one piece) before their
+    products miss the same rule by many elements, so the rule does tell
+    the pieces apart."""
+    past = _bwd_bf16_past((1, 63, 4, 64), True, 1)
+    assert past["dv"] > 100 and past["dq"] > 0 and past["dk"] > 0
+
+
 # =============================================================================
 # the train step, the engine, checkpoints, the CLI
 # =============================================================================

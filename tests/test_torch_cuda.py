@@ -1169,20 +1169,28 @@ def test_flash_backward_kernels_against_their_plain_versions(gen, B, S, H,
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_flash_backward_kernels_fit_the_card(gen, D):
-    """Each backward instance launches at least one block an SM with its
+    """Each f32 backward kernel launches at least one block an SM with its
     shared memory (planes of 64 rows x D in hi and lo for two operands, a
     2-stage ring of two 32-row tiles, D rows of at least 32 floats, its
-    slices and row statistics) within the H100's 227 KB a block."""
+    slices and row statistics) within the H100's 227 KB a block; each bf16
+    one two blocks (two stationary operands of 64 bf16 rows, a 3-stage
+    ring of two 32-row tiles, D of the rows or lse and D of 3 tiles)."""
     from repro_torch.kernels.flash_attention import backward_occupancy
     ld = max(D, 32)
     want = {"flash_attention_bwd_dq": 4 * 64 * D * 4
             + 4 * (4 * 32 * ld + 4 * 16 * 36 + 2 * 64),
             "flash_attention_bwd_dkdv": 4 * 64 * D * 4
-            + 4 * (4 * 32 * ld + 8 * 16 * 36 + 4 * 32)}
+            + 4 * (4 * 32 * ld + 8 * 16 * 36 + 4 * 32),
+            "flash_attention_bwd_dq_bf16": 2 * (2 * 64 * D + 6 * 32 * D)
+            + 4 * 64,
+            "flash_attention_bwd_dkdv_bf16": 2 * (2 * 64 * D + 6 * 32 * D)
+            + 4 * 6 * 32}
     got = backward_occupancy(D)
+    assert set(got) == set(want)
     for name, (nbytes, regs, blocks) in got.items():
         assert nbytes == want[name] <= 232_448, name
-        assert 0 < regs <= 255 and blocks >= 1, (name, regs, blocks)
+        assert 0 < regs <= 255 and blocks >= (
+            2 if name.endswith("_bf16") else 1), (name, regs, blocks)
 
 
 def test_flash_attention_autograd_on_the_card(gen):
