@@ -13,8 +13,8 @@ and prints no result line):
    more, and a 256 MiB pinned copy each way beside the sheet's host link;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
    (a ptxas spill in a tiled source fails the run), and print the backward
-   attention kernels' shared memory, registers and blocks an SM at each
-   head width;
+   attention kernels' and the bf16 forward pair's shared memory, registers
+   and blocks an SM at each head width;
 3. the main paths, one after the other, on the u200 sheet.  Staged (one
    frame at a
    time): the paper-width UNet (widths 64-1024, 368x480 input), then X3D-M
@@ -161,15 +161,16 @@ and prints no result line):
    bf16 ulp of its plain version (lse and delta as the f32 instances'),
    two launches bit for bit, timed against SDPA in bf16 (forward; the
    whole autograd backward for the pair) and bound by the bf16 tensor
-   cores' 989 TFLOP/s (the bf16 backward pair, which issues its own bf16
-   products, P and dS in two pieces, also by those products:
-   ``bound_products_ms``); every tile
+   cores' 989 TFLOP/s, and by the bf16 products they issue themselves, P
+   and dS in two pieces (``bound_products_ms``: the forward pair's
+   ``csrc/flash_attention_bf16.cu``, the backward pair's
+   ``csrc/flash_attention_bwd_bf16.cu``); every tile
    choice of every tiled kernel bit for bit its untiled launch; and time
    kernel, plain version and one PyTorch call as a yardstick (CUDA events,
    L2 flushed before every launch, median of REPS launches).  Besides the
    f32 bound, the kernels that run on the tensor cores through the 3xTF32
    split (``csrc/tf32x3.cuh``: streamed_matmul, flash_attention and its
-   lse instance, both in f32 and bf16, the two f32 backward kernels, the
+   lse instance in f32, the two f32 backward kernels, the
    four conv2d variants) get
    the split's bound, the larger of the bytes' time
    and 3 x operations at 495 TFLOP/s dense TF32 (``bound_tf32x3_ms``):
@@ -220,21 +221,25 @@ PEAK_HBM_BYTES_S = 3.35e12
 # into two TF32 terms (csrc/tf32x3.cuh) issue three products per product
 PEAK_TF32_FLOPS = 495e12
 # dense bf16 on the tensor cores (f32 accumulation): the least time for a
-# bf16 instance's work, whose bf16 products are exact in f32; the forward
-# instances run the 3xTF32 body, so bound_tf32x3_ms is their own design's
+# bf16 instance's work, whose bf16 products are exact in f32
 PEAK_BF16_FLOPS = 989e12
 TF32X3_KERNELS = ("streamed_matmul", "flash_attention", "conv2d",
                   "conv2d_encode", "conv2d_decode", "conv2d_decode_encode",
                   "flash_attention_lse", "flash_attention_bwd_dq",
-                  "flash_attention_bwd_dkdv", "flash_attention_bf16",
-                  "flash_attention_lse_bf16")
-# the bf16 backward pair (csrc/flash_attention_bwd_bf16.cu) issues its own
-# bf16 products: s and dP once, dQ (dq) or dV and dK (dkdv) once a piece of
-# P or dS, two pieces; the counted operations are 3 (dq) and 4 (dkdv)
-# products, so its own bound (bound_products_ms) takes them times 4 / 3 and
-# 6 / 4 at PEAK_BF16_FLOPS
-BF16_PRODUCTS = {"flash_attention_bwd_dq_bf16": 4 / 3,
-                 "flash_attention_bwd_dkdv_bf16": 6 / 4}
+                  "flash_attention_bwd_dkdv")
+# the bf16 attention kernels issue their own bf16 products: s (and dP) once,
+# and each product of an f32 intermediate once a piece of it (PIECES = 2 of
+# P or dS, csrc/bf16_mma.cuh).  The forward pair
+# (csrc/flash_attention_bf16.cu) takes s and P v, 1 + PIECES products where
+# 2 are counted; the backward pair (csrc/flash_attention_bwd_bf16.cu) s, dP
+# and dQ (dq) or dV and dK (dkdv), against the counted 3 and 4.  Their own
+# bound (bound_products_ms) takes the counted operations times these at
+# PEAK_BF16_FLOPS.
+PIECES = 2
+BF16_PRODUCTS = {"flash_attention_bf16": (1 + PIECES) / 2,
+                 "flash_attention_lse_bf16": (1 + PIECES) / 2,
+                 "flash_attention_bwd_dq_bf16": (2 + PIECES) / 3,
+                 "flash_attention_bwd_dkdv_bf16": (2 + 2 * PIECES) / 4}
 
 FRAMES = 3
 REPS = 20
@@ -554,8 +559,9 @@ CUDA_SRC = {
     "flash_attention_lse": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dkdv": "src/repro_torch/csrc/flash_attention_bwd.cu",
-    "flash_attention_bf16": "src/repro_torch/csrc/flash_attention.cu",
-    "flash_attention_lse_bf16": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bf16": "src/repro_torch/csrc/flash_attention_bf16.cu",
+    "flash_attention_lse_bf16":
+        "src/repro_torch/csrc/flash_attention_bf16.cu",
     "flash_attention_bwd_dq_bf16":
         "src/repro_torch/csrc/flash_attention_bwd_bf16.cu",
     "flash_attention_bwd_dkdv_bf16":
@@ -1244,7 +1250,8 @@ def kernel_phase(torch, timer, path_shapes):
     # Sk against a decode step's one query row and a 64-token prompt, at
     # whisper's 20 heads of 64, held and timed against the bound and SDPA
     print("  flash_attention, keys of their own length (B, Sq, Sk, H, D): "
-          "ms, plain ms, SDPA ms, bound ms (3xTF32 bound)")
+          "ms, plain ms, SDPA ms, bound ms (f32: 3xTF32 bound; bf16: own "
+          "products bound)")
     for Sq in (1, 64):
         for Sk in (1, 37, 1499):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1252,13 +1259,16 @@ def kernel_phase(torch, timer, path_shapes):
                     4, Sq, Sk, 20, 64, False, dtype)
                 check()
                 t_kern, t_plain, t_lib = timer(kern), timer(plain), timer(lib)
-                b, bound_by = bound_ms(nbytes, ops, PEAK_F32_FLOPS
-                                       if dtype == torch.float32
-                                       else PEAK_BF16_FLOPS)
+                if dtype == torch.float32:
+                    b, bound_by = bound_ms(nbytes, ops, PEAK_F32_FLOPS)
+                    own = bound_tf32x3_ms(nbytes, ops)
+                else:
+                    b, bound_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+                    own = bound_ms(nbytes, ops * BF16_PRODUCTS[
+                        "flash_attention_bf16"], PEAK_BF16_FLOPS)[0]
                 print(f"    (4, {Sq}, {Sk}, 20, 64) {dtype}: ms "
                       f"{t_kern:.4f} plain {t_plain:.4f} SDPA {t_lib:.4f} "
-                      f"bound {b:.5f} ({bound_by}, "
-                      f"{bound_tf32x3_ms(nbytes, ops):.5f})")
+                      f"bound {b:.5f} ({bound_by}, {own:.5f})")
     tile_checks(torch, SC, randn, exact)
     specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -1.0],
                             device="cuda")
@@ -3629,20 +3639,24 @@ def main() -> int:
         # and dwconv families their sums and tap windows, the codec its
         # blocks: no spills
         if (source in ("streamed_matmul.cu", "flash_attention.cu",
-                       "flash_attention_bwd.cu", "flash_attention_bwd_bf16.cu",
-                       "conv2d.cu", "conv2d_decode.cu", "streaming_conv.cu",
-                       "dwconv.cu", "bfp8.cu")
+                       "flash_attention_bf16.cu", "flash_attention_bwd.cu",
+                       "flash_attention_bwd_bf16.cu", "conv2d.cu",
+                       "conv2d_decode.cu", "streaming_conv.cu", "dwconv.cu",
+                       "bfp8.cu")
                 and "spill" in line
                 and any(int(w) for w in line.split() if w.isdigit())):
             spills.append(f"{source} [{kernel}]: {line.strip()}")
     if spills:
         raise AssertionError("spills: " + "; ".join(spills))
-    # the backward kernels' tiles: shared memory, registers and blocks an SM
-    # of each instance, as the card reports them
+    # the attention kernels' tiles: shared memory, registers and blocks an
+    # SM of each backward instance and of the bf16 forward pair, as the card
+    # reports them
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
-                                                     backward_occupancy)
+                                                     backward_occupancy,
+                                                     forward_occupancy)
     for d in HEAD_DIMS:
-        for name, (nbytes, regs, blocks) in backward_occupancy(d).items():
+        for name, (nbytes, regs, blocks) in (forward_occupancy(d)
+                                             | backward_occupancy(d)).items():
             print(f"  {name} D={d}: {nbytes} bytes of shared memory, "
                   f"{regs} registers, {blocks} block(s) an SM")
 

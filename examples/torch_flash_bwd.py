@@ -3,6 +3,7 @@
     PYTHONPATH=src python examples/torch_flash_bwd.py
     PYTHONPATH=src python examples/torch_flash_bwd.py --no-check --train-steps 4
     PYTHONPATH=src python examples/torch_flash_bwd.py --dtype bfloat16
+    PYTHONPATH=src python examples/torch_flash_bwd.py --forward
 
 Builds the kernel library, prints ptxas's registers and spills for
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_bf16.cu``
@@ -28,6 +29,23 @@ repeated) for N steps and prints each step's host-clock time to the loss
 and the median of steps 2-N.  Run it once per tree (``PYTHONPATH``) in one
 call, in turns, to compare two versions of the kernels.  Exits 2 without
 a card.
+
+With ``--forward`` it takes the bf16 forward pair instead
+(``csrc/flash_attention_bf16.cu``): prints ptxas's registers and spills
+for it and ``csrc/flash_attention.cu`` and each instance's shared memory,
+registers and blocks an SM, holds ``flash_attention_bf16`` and
+``flash_attention_lse_bf16`` to their plain versions by the same ulp rule
+(lse within 2e-4 x max(1, max|plain|); a second launch bit for bit) at the
+same ragged shapes and at keys of their own length (Sk 1, 37, 1499 against
+Sq 1 and 64), causal and not, and times them at the bf16 paths' launch
+shapes (yi-6b's eight served prompts of 71-512 tokens, summed over their
+32 launches each as phase 4 sums them, its train shape, and the staged
+jamba's 2 x 512 tokens of 32 heads of 128, causal)
+beside their f32 instances on the same values widened and SDPA's bf16
+forward, against the bf16 bound and their own products' (3 bf16 products
+where 2 are counted: P in two pieces).  It needs none of the forward
+pair's Python entry points that its parent tree lacks, so it times a
+parent tree (``PYTHONPATH``) too.
 """
 from __future__ import annotations
 
@@ -53,6 +71,17 @@ SPIN_CYCLES = 2_000_000    # about 1 ms at the H100's boost clock
 CHECK_SHAPES = ([(2, S, 3, D) for D in (16, 128)
                  for S in (1, 31, 33, 63, 65, 127, 129, 300)]
                 + [(1, 77, 4, 32), (1, 200, 2, 64)])
+# the bf16 forward pair's own products against the counted 2: s once, P v
+# once a piece of P, two pieces
+FWD_PRODUCTS = 3 / 2
+# (B, S, H, D) and instance of the bf16 paths' forward launches, causal:
+# lm-serve-bf16's eight prompts (32 launches each), lm-staged (b)'s 2 x 512
+# tokens and lm-train-bf16's 1 x 1024
+SERVE_LENGTHS = (71, 82, 97, 185, 202, 293, 349, 512)
+FWD_SHAPES = tuple(((1, S, 32, 128), "flash_attention")
+                   for S in SERVE_LENGTHS) + (
+    ((2, 512, 32, 128), "flash_attention_lse"),
+    ((1, 1024, 32, 128), "flash_attention_lse"))
 
 
 def median_ms(fn, flush) -> float:
@@ -102,9 +131,92 @@ def check(FA, gen, B, S, H, D, causal, dtype) -> float:
     return worst
 
 
+def check_forward(FA, gen, B, S, Sk, H, D, causal) -> float:
+    """Worst error of the bf16 forward pair (the lse instance where Sk ==
+    S) as a fraction of its bound."""
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.testing.ulp import bf16_ulp, f32_slack
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(B, Sk, H, D, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    want = chunked_attention(q, k, v, causal=causal, chunk=min(1024, Sk),
+                             skip_masked=causal, return_lse=True)
+    o_lim = bf16_ulp(want[0]) + 2 * f32_slack(q, k, v, causal)["o"]
+    runs = [("flash_attention_bf16",
+             lambda: (FA.flash_attention(q, k, v, causal=causal),))]
+    if S == Sk:
+        runs.append(("flash_attention_lse_bf16",
+                     lambda: FA.flash_attention_lse(q, k, v, causal=causal)))
+    worst = 0.0
+    for name, run in runs:
+        got, again = run(), run()
+        for g, w, a in zip(got, want, again):
+            err = (g.double() - w.double()).abs()
+            lim = (o_lim if g.dtype == torch.bfloat16 else
+                   TOL * max(1.0, float(w.abs().max())))
+            ratio = float((err / lim).max())
+            worst = max(worst, ratio)
+            if ratio > 1.0:
+                raise AssertionError(f"{name} at {(B, S, Sk, H, D)} causal "
+                                     f"{causal}: {ratio} of the bound")
+            bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+            if not torch.equal(g.view(bits), a.view(bits)):
+                raise AssertionError(f"{name} at {(B, S, Sk, H, D)}: a "
+                                     f"second launch differs")
+    return worst
+
+
+def forward(FA, gen, check: bool) -> None:
+    """Check and time the bf16 forward pair (see the module docstring)."""
+    F = torch.nn.functional
+    for D in FA.HEAD_DIMS if hasattr(FA, "forward_occupancy") else ():
+        for name, (nbytes, regs, blocks) in FA.forward_occupancy(D).items():
+            print(f"  {name} D={D}: {nbytes} bytes of shared memory, {regs} "
+                  f"registers, {blocks} block(s) an SM")
+    if check:
+        cases = ([(B, S, S, H, D, c) for B, S, H, D in CHECK_SHAPES
+                  for c in (True, False)]
+                 + [(4, Sq, Sk, 20, 64, False) for Sq in (1, 64)
+                    for Sk in (1, 37, 1499)])
+        worst = max(check_forward(FA, gen, *c) for c in cases)
+        print(f"checked {len(cases)} cases: worst error {worst:.3f} of the "
+              f"bound, every second launch bit for bit")
+    flush = torch.empty(64 * 2**20, dtype=torch.int8, device="cuda")
+    print(f"causal, median of {REPS}: ms; SDPA bf16 forward ms; bf16 bound, "
+          f"own products bound (x{FWD_PRODUCTS}); factor against SDPA and "
+          f"the own bound; f32 instance ms")
+    serve = []
+    for (B, S, H, D), base in FWD_SHAPES:
+        q, k, v = (torch.randn(B, S, H, D, generator=gen,
+                               device="cuda").bfloat16() for _ in range(3))
+        fn = getattr(FA, base)
+        n = B * S * H * D
+        nbytes = 2 * 4 * n + (4.0 * B * H * S if base.endswith("lse") else 0)
+        ops = 2.0 * B * H * D * S * (S + 1)
+        t_bytes = nbytes / PEAK_HBM_BYTES_S * 1e3
+        bound = max(t_bytes, ops / PEAK_BF16_FLOPS * 1e3)
+        own = max(t_bytes, ops * FWD_PRODUCTS / PEAK_BF16_FLOPS * 1e3)
+        ms = median_ms(lambda: fn(q, k, v, causal=True), flush)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        ms32 = median_ms(lambda: fn(qf, kf, vf, causal=True), flush)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush)
+        print(f"  {base}_bf16 {(B, S, H, D)}: {ms:.4f} ms; SDPA {sdpa:.4f}; "
+              f"bound {bound:.4f}, own {own:.4f}; {ms / sdpa:.2f}x SDPA, "
+              f"{ms / own:.2f}x own bound; f32 {base} {ms32:.4f} ms")
+        if base == "flash_attention":
+            serve += [ms, sdpa, ms32]
+    print(f"  lm-serve-bf16's prompts, 32 launches each: flash_attention_bf16 "
+          f"{32 * sum(serve[0::3]):.3f} ms, SDPA {32 * sum(serve[1::3]):.3f}, "
+          f"f32 flash_attention {32 * sum(serve[2::3]):.3f}")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-check", action="store_true")
+    ap.add_argument("--forward", action="store_true",
+                    help="the bf16 forward pair in place of the backward")
     ap.add_argument("--train-steps", type=int, default=0)
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
@@ -129,16 +241,22 @@ def main(argv: list[str] | None = None) -> int:
             source = line[2:].strip()
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
-        if source in ("flash_attention_bwd.cu",
-                      "flash_attention_bwd_bf16.cu") and (
-                "registers" in line or "spill" in line):
+        sources = (("flash_attention.cu", "flash_attention_bf16.cu")
+                   if args.forward else ("flash_attention_bwd.cu",
+                                         "flash_attention_bwd_bf16.cu"))
+        if source in sources and ("registers" in line or "spill" in line):
             print(f"  ptxas {line.strip()} [{kernel}]")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.forward:
+        forward(FA, gen, not args.no_check)
+        if args.train_steps:
+            train(args.train_steps, dtype)
+        return 0
     for D in FA.HEAD_DIMS if hasattr(FA, "backward_occupancy") else ():
         for name, (nbytes, regs, blocks) in FA.backward_occupancy(D).items():
             print(f"  {name} D={D}: {nbytes} bytes of shared memory, {regs} "
                   f"registers, {blocks} block(s) an SM")
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     if not args.no_check:
         worst = max(check(FA, gen, *shape, causal, dtype)
                     for shape in CHECK_SHAPES for causal in (True, False))

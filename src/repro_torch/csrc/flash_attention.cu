@@ -48,13 +48,9 @@
 // 1500 keys) runs one block per (b, h) with one active row: it reads K and
 // V once, 2 Sk D 4 bytes per (b, h), and is bound by those bytes.
 //
-// The bf16 instances (flash_attention_bf16, flash_attention_lse_bf16) are the
-// same kernel on bf16 q, k, v and o (elem.cuh): each k and v value is widened
-// to f32 as it is staged in shared memory (a synchronous 8-byte load and a
-// 16-byte store in place of the cp.async copy), q^ = bf16(q bf16(D^-1/2))
-// as the plain route rounds it, the body unchanged in f32 (a bf16 value is
-// exact in TF32, so the split of k, v and q^ leaves a lo part of 0 and the
-// product stays exact), and each output rounded once to bf16; lse stays f32.
+// This body is f32 only.  The bf16 instances (flash_attention_bf16,
+// flash_attention_lse_bf16) have their own on the bf16 tensor cores
+// (flash_attention_bf16.cu).
 //
 // The training forward (flash_attention_lse) is the same kernel instantiated
 // with the compile-time flag LSE: it also writes each row's log-sum-exp of
@@ -89,10 +85,11 @@ struct Layout {
       (Q + 2 * K + 2 * V + WARPS * P) * sizeof(float);
 };
 
-template <typename T, int D, bool LSE>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(32 * WARPS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, int64_t S, int64_t Sk,
                        int64_t H, int causal, float scale) {
   using L = Layout<D>;
@@ -115,18 +112,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // column c4; the first tile is in flight while q is staged
   constexpr int RS = L::THREADS / (D / 4);
   const int r0 = tid / (D / 4), c4 = tid % (D / 4) * 4;
-  const T* kg = k + kbase + r0 * row + c4;
-  const T* vg = v + kbase + r0 * row + c4;
-  // 4 values of a k or v row into shared memory as f32: cp.async for f32,
-  // a load widened to f32 and a store for bf16 (zeros where !in)
-  auto stage = [](float* dst, const T* src, bool in) {
-    if constexpr (elem::is_f32<T>) {
-      tf32x3::cp_async16(dst, src, in);
-    } else {
-      *reinterpret_cast<float4*>(dst) =
-          in ? elem::load4(src) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-  };
+  const float* kg = k + kbase + r0 * row + c4;
+  const float* vg = v + kbase + r0 * row + c4;
   auto load_kv = [&](int s, int64_t k0) {
     float* kd = kbuf + s * L::K + r0 * L::LDK + c4;
     float* vd = vbuf + s * L::V + r0 * L::LDV + c4;
@@ -135,8 +122,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // a key past Sk is zero-filled from a valid address that is not read
       const bool in = k0 + r0 + RS * i < Sk;
       const int64_t at = (k0 + RS * i) * row;
-      stage(kd + RS * i * L::LDK, in ? kg + at : k + kbase, in);
-      stage(vd + RS * i * L::LDV, in ? vg + at : v + kbase, in);
+      tf32x3::cp_async16(kd + RS * i * L::LDK, in ? kg + at : k + kbase, in);
+      tf32x3::cp_async16(vd + RS * i * L::LDV, in ? vg + at : v + kbase, in);
     }
   };
   load_kv(0, 0);
@@ -146,11 +133,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < L::BQ / RS; ++i) {
     const int r = r0 + RS * i;
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (q0 + r < S) x = elem::load4(q + base + (q0 + r) * row + c4);
-    // q^ = q D^-1/2, rounded to T as the plain route rounds it
+    if (q0 + r < S)
+      x = *reinterpret_cast<const float4*>(q + base + (q0 + r) * row + c4);
+    // q^ = q D^-1/2, as the plain route scales it
     *reinterpret_cast<float4*>(qs + r * L::LDQ + c4) = make_float4(
-        elem::round_to<T>(x.x * scale), elem::round_to<T>(x.y * scale),
-        elem::round_to<T>(x.z * scale), elem::round_to<T>(x.w * scale));
+        x.x * scale, x.y * scale, x.z * scale, x.w * scale);
   }
 
   // the warp's rows q0 + 16 warp + [0, 16); in the accumulator layout a
@@ -339,49 +326,51 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // the 4 lanes of a row hold the same m and l after the shuffles
       if (t == 0) lse[bh * S + qp] = m[r] + logf(fmaxf(l[r], 1e-30f));
     }
-    T* out = o + base + qp * row + 2 * t;
+    float* out = o + base + qp * row + 2 * t;
 #pragma unroll
     for (int j = 0; j < NF; ++j)
-      elem::store2(out + j * 8, acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+      *reinterpret_cast<float2*>(out + j * 8) =
+          make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
   }
 }
 
-template <typename T, int D, bool LSE>
-int run_flash(const T* q, const T* k, const T* v, T* o, float* lse,
-              int64_t B, int64_t S, int64_t Sk, int64_t H, int causal,
-              cudaStream_t st) {
+template <int D, bool LSE>
+int run_flash(const float* q, const float* k, const float* v, float* o,
+              float* lse, int64_t B, int64_t S, int64_t Sk, int64_t H,
+              int causal, cudaStream_t st) {
   using L = Layout<D>;
   const cudaError_t err =
-      tf32x3::set_shared_memory<flash_attention_kernel<T, D, LSE>>(
+      tf32x3::set_shared_memory<flash_attention_kernel<D, LSE>>(
           (int)L::BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + L::BQ - 1) / L::BQ));
-  flash_attention_kernel<T, D, LSE><<<grid, L::THREADS, L::BYTES, st>>>(
-      q, k, v, o, lse, S, Sk, H, causal, elem::head_scale<T>(D));
+  flash_attention_kernel<D, LSE><<<grid, L::THREADS, L::BYTES, st>>>(
+      q, k, v, o, lse, S, Sk, H, causal, elem::head_scale<float>(D));
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool LSE>
+template <bool LSE>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              void* lse, int64_t B, int64_t S, int64_t Sk, int64_t H,
              int64_t D, int64_t causal, void* stream) {
   if (B * S * H <= 0) return (int)cudaGetLastError();
   // a causal call's keys are its queries' positions; no key, no softmax
   if ((causal && Sk != S) || Sk <= 0) return (int)cudaErrorInvalidValue;
-  const T *qf = (const T*)q, *kf = (const T*)k, *vf = (const T*)v;
-  T* of = (T*)o;
+  const float *qf = (const float*)q, *kf = (const float*)k,
+              *vf = (const float*)v;
+  float* of = (float*)o;
   float* lf = (float*)lse;
   cudaStream_t st = (cudaStream_t)stream;
   const int c = causal ? 1 : 0;
   switch (D) {
     case 16:
-      return run_flash<T, 16, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
+      return run_flash<16, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
     case 32:
-      return run_flash<T, 32, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
+      return run_flash<32, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
     case 64:
-      return run_flash<T, 64, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
+      return run_flash<64, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
     case 128:
-      return run_flash<T, 128, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
+      return run_flash<128, LSE>(qf, kf, vf, of, lf, B, S, Sk, H, c, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -395,8 +384,8 @@ extern "C" int smof_flash_attention(const void* q, const void* k,
                                     int64_t S, int64_t Sk, int64_t H,
                                     int64_t D, int64_t causal,
                                     void* stream) {
-  return dispatch<float, false>(q, k, v, o, nullptr, B, S, Sk, H, D, causal,
-                                stream);
+  return dispatch<false>(q, k, v, o, nullptr, B, S, Sk, H, D, causal,
+                         stream);
 }
 
 // The training forward: q, k, v, o of one (B, S, H, D) shape, and lse: (B,
@@ -406,25 +395,6 @@ extern "C" int smof_flash_attention_lse(const void* q, const void* k,
                                         int64_t B, int64_t S, int64_t H,
                                         int64_t D, int64_t causal,
                                         void* stream) {
-  return dispatch<float, true>(q, k, v, o, lse, B, S, S, H, D, causal,
-                               stream);
+  return dispatch<true>(q, k, v, o, lse, B, S, S, H, D, causal, stream);
 }
 
-// The bf16 instances: q, k, v, o bf16 of the f32 entries' shapes; lse f32.
-extern "C" int smof_flash_attention_bf16(const void* q, const void* k,
-                                         const void* v, void* o, int64_t B,
-                                         int64_t S, int64_t Sk, int64_t H,
-                                         int64_t D, int64_t causal,
-                                         void* stream) {
-  return dispatch<elem::bf16, false>(q, k, v, o, nullptr, B, S, Sk, H, D,
-                                     causal, stream);
-}
-
-extern "C" int smof_flash_attention_lse_bf16(const void* q, const void* k,
-                                             const void* v, void* o,
-                                             void* lse, int64_t B, int64_t S,
-                                             int64_t H, int64_t D,
-                                             int64_t causal, void* stream) {
-  return dispatch<elem::bf16, true>(q, k, v, o, lse, B, S, S, H, D, causal,
-                                    stream);
-}

@@ -32,11 +32,15 @@ Each kernel has an f32 and a bf16 instance, picked by the operands' type
 v, o, dO, dQ, dK and dV of that type, lse and delta f32 either way.  A bf16
 instance rounds where the plain route does: q^ = bf16(q * bf16(D^-1/2))
 (the reference's ``q * D ** -0.5``, its scale a weak type converted to
-bf16), then f32 arithmetic throughout, then one rounding of each output.
-The bf16 backward pair has a body of its own
-(``csrc/flash_attention_bwd_bf16.cu``): its products run on the bf16
-tensor cores, P and dS as the sum of two bf16 pieces
-(``ref.bf16_pieces``).
+bf16), then f32 sums, then one rounding of each output.  The f32 instances
+run both products on the 3xTF32 split (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``).  The bf16 ones have bodies of their own
+on the bf16 tensor cores (``csrc/flash_attention_bf16.cu``, the forward
+pair; ``csrc/flash_attention_bwd_bf16.cu``, the backward pair; both on
+``csrc/bf16_mma.cuh``): a product of two bf16 operands (s = q^ k^T, dP =
+dO v^T) is one native bf16 product, and an f32 intermediate (P, dS) enters
+its product as the sum of two bf16 pieces (``ref.bf16_pieces``), the
+forward's key tiles :data:`BF16_FORWARD_TILE` wide.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from .library import check_operand, launch, load_library
 #: head widths the kernels are built for
 HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_BQ = 64              # the kernels' query rows (and keys) a block
+BF16_FORWARD_TILE = 64      # keys of a kv tile of the bf16 forward pair
 NEG_INF = -2.0 ** 30        # the causal mask, the reference's
 
 
@@ -263,24 +268,18 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool):
     return dq, dk, dv
 
 
-def backward_occupancy(head_dim: int) -> dict[str, tuple[int, int, int]]:
-    """``{kernel: (dynamic shared memory bytes, registers a thread,
-    resident blocks an SM)}`` of the four backward kernels (the f32 pair
-    and the bf16 pair) at ``head_dim``, as the current card reports
-    them."""
+def _occupancy(head_dim: int, entries) -> dict[str, tuple[int, int, int]]:
+    """``{kernel: (bytes, registers, blocks)}`` from the C occupancy
+    entries ``(entry, (name of instance 0, name of instance 1))``."""
     import ctypes
     lib = load_library().lib
     out = {}
-    for suffix, entry in (("", "smof_flash_attention_bwd_occupancy"),
-                          ("_bf16",
-                           "smof_flash_attention_bwd_bf16_occupancy")):
+    for entry, names in entries:
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_int64, ctypes.c_int64,
                        ctypes.POINTER(ctypes.c_int64)]
         fn.restype = ctypes.c_int
-        for i, base in enumerate(("flash_attention_bwd_dq",
-                                  "flash_attention_bwd_dkdv")):
-            name = base + suffix
+        for i, name in enumerate(names):
             vals = (ctypes.c_int64 * 3)()
             code = fn(head_dim, i, vals)
             if code:
@@ -289,6 +288,26 @@ def backward_occupancy(head_dim: int) -> dict[str, tuple[int, int, int]]:
                                    f"{code}")
             out[name] = tuple(vals)
     return out
+
+
+def backward_occupancy(head_dim: int) -> dict[str, tuple[int, int, int]]:
+    """``{kernel: (dynamic shared memory bytes, registers a thread,
+    resident blocks an SM)}`` of the four backward kernels (the f32 pair
+    and the bf16 pair) at ``head_dim``, as the current card reports
+    them."""
+    pair = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+    return _occupancy(head_dim, (
+        ("smof_flash_attention_bwd_occupancy", pair),
+        ("smof_flash_attention_bwd_bf16_occupancy",
+         tuple(n + "_bf16" for n in pair))))
+
+
+def forward_occupancy(head_dim: int) -> dict[str, tuple[int, int, int]]:
+    """The same of the bf16 forward pair (``flash_attention_bf16`` and
+    ``flash_attention_lse_bf16``, ``csrc/flash_attention_bf16.cu``)."""
+    return _occupancy(head_dim, (
+        ("smof_flash_attention_bf16_occupancy",
+         ("flash_attention_bf16", "flash_attention_lse_bf16")),))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -315,4 +334,5 @@ __all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
            "flash_attention_backward", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkdv", "flash_attention_backward_plain",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkdv_plain",
-           "backward_occupancy", "HEAD_DIMS", "INSTANCES"]
+           "backward_occupancy", "forward_occupancy", "HEAD_DIMS",
+           "INSTANCES", "BF16_FORWARD_TILE"]

@@ -614,6 +614,112 @@ def test_one_bf16_piece_misses_the_ulp_rule():
     assert past["dv"] > 100 and past["dq"] > 0 and past["dk"] > 0
 
 
+#: the bf16 shapes (B, Sq, Sk, H, D) chip_smoke.py's phase 4 holds the bf16
+#: forward kernels at: ragged S at every head width, causal and not; keys of
+#: their own length against a decode row and a 64-token prompt; a 512-token
+#: prefill of yi-6b and its train shape (causal)
+FWD_BF16_CASES = ([((B, S, S, H, D), c)
+                   for B, S, H, D in ((2, 1, 3, 16), (1, 63, 4, 64),
+                                      (2, 300, 2, 16), (1, 77, 32, 128),
+                                      (1, 1000, 2, 64), (1, 130, 2, 32))
+                   for c in (True, False)]
+                  + [((4, Sq, Sk, 20, 64), False) for Sq in (1, 64)
+                     for Sk in (1, 37, 1499)]
+                  + [((1, 512, 512, 32, 128), True),
+                     ((1, 1024, 1024, 32, 128), True)])
+
+
+#: log2(e) as the bf16 forward kernels round it to f32
+LOG2E = float(np.float32(1.4426950408889634))
+
+
+def _fwd_bf16_emulated(q, k, v, causal, pieces):
+    """(o, lse) as ``csrc/flash_attention_bf16.cu`` computes them, in plain
+    PyTorch: s = q^ k^T from bf16 operands (each product exact in f32)
+    summed in f32, one key tile of ``FA.BF16_FORWARD_TILE`` at a time in
+    the kernel's order, the online softmax in f32 (m, the alpha = exp(m_old
+    - m_new) rescale of l and o, P = 2^(s log2(e) - m_new log2(e)) with the
+    exponent rounded once, as the kernel's fmaf and ex2 take it), l
+    summed from the f32 P, P v as the sum over the ``pieces`` bf16 pieces
+    of P (``ref.bf16_pieces``, the smallest first) of that piece's product
+    with v in f32; o times the reciprocal of max(l, 1e-30), rounded once."""
+    from repro_torch.kernels import ref
+    S, Sk, D = q.shape[1], k.shape[1], q.shape[3]
+
+    def f(t):
+        return t.float().transpose(1, 2)
+    qh, kk, vv = f(q * FA._scale(D, q.dtype)), f(k), f(v)
+    m = torch.full(qh.shape[:3], FA.NEG_INF)
+    l = torch.zeros(qh.shape[:3])
+    o = torch.zeros(qh.shape)
+    for k0 in range(0, Sk, FA.BF16_FORWARD_TILE):
+        k1 = min(k0 + FA.BF16_FORWARD_TILE, Sk)
+        s = qh @ kk[:, :, k0:k1].transpose(-1, -2)
+        if causal:
+            s = torch.where(torch.arange(S)[:, None]
+                            >= torch.arange(k0, k1)[None, :], s, FA.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        ml = -m_new * LOG2E
+        p = torch.exp2((s.double() * LOG2E + ml[..., None].double()).float())
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + sum(
+            x @ vv[:, :, k0:k1]
+            for x in reversed(ref.bf16_pieces(p, pieces)))
+        m = m_new
+    den = torch.clamp(l, min=1e-30)
+    return ((o * (1.0 / den)[..., None]).transpose(1, 2).to(BF16),
+            m + torch.log(den))
+
+
+def _fwd_bf16_past(shape, causal, pieces, seed=82):
+    """How many elements of the emulated o lie past one bf16 ulp of the
+    plain route's plus twice its f32 slack (the rule phase 4 holds the
+    kernels to), and the emulated lse's largest error as a fraction of
+    phase 4's 2e-4 x max(1, max|plain|), on seeded bf16 operands."""
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.testing.ulp import f32_slack, past_one_ulp
+    B, Sq, Sk, H, D = shape
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, Sq, H, D, generator=g).to(BF16)
+    k, v = (torch.randn(B, Sk, H, D, generator=g).to(BF16) for _ in "kv")
+    o, lse = _fwd_bf16_emulated(q, k, v, causal, pieces)
+    want = chunked_attention(q, k, v, causal=causal, chunk=min(1024, Sk),
+                             skip_masked=causal, return_lse=Sq == Sk)
+    if Sq == Sk:
+        want, want_lse = want
+        lse_frac = float((lse - want_lse).abs().max()
+                         / (2e-4 * max(1.0, float(want_lse.abs().max()))))
+    else:
+        lse_frac = 0.0
+    return past_one_ulp(o, want, f32_slack(q, k, v, causal)["o"]), lse_frac
+
+
+@pytest.mark.parametrize("pieces", [2, 3], ids=["two-pieces", "three"])
+@pytest.mark.parametrize("shape,causal", FWD_BF16_CASES, ids=[
+    f"{'x'.join(map(str, s))}{'-causal' if c else ''}"
+    for s, c in FWD_BF16_CASES])
+def test_bf16_forward_pieces_hold_the_ulp_rule(shape, causal, pieces):
+    """The bf16 forward kernels' arithmetic, emulated, within the rule
+    phase 4 holds them to (testing.ulp.past_one_ulp with f32_slack, both
+    unchanged; lse within 2e-4 x max(1, max|plain|)) at every bf16 forward
+    shape phase 4 takes.  Three pieces carry P exactly, so o differs from
+    the plain route only in the order of its sums; two leave up to 2^-16 of
+    each term and hold the rule too, at every shape, S = 1 and Sk = 1
+    included: the kernels take two (three products a tile where three
+    pieces would take four)."""
+    past, lse_frac = _fwd_bf16_past(shape, causal, pieces)
+    assert past == 0 and lse_frac <= 1.0, (past, lse_frac)
+
+
+def test_one_bf16_piece_misses_the_ulp_rule_in_the_forward():
+    """The control: P rounded once to bf16 (one piece) before P v misses
+    the same rule by many elements, so the rule tells the pieces apart in
+    the forward too."""
+    past, _ = _fwd_bf16_past((1, 300, 300, 4, 64), True, 1)
+    assert past > 100
+
+
 # =============================================================================
 # the train step, the engine, checkpoints, the CLI
 # =============================================================================

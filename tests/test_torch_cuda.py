@@ -1193,6 +1193,23 @@ def test_flash_backward_kernels_fit_the_card(gen, D):
             2 if name.endswith("_bf16") else 1), (name, regs, blocks)
 
 
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_forward_bf16_kernels_fit_the_card(gen, D):
+    """Each bf16 forward kernel (csrc/flash_attention_bf16.cu) launches at
+    least two blocks an SM, as designed, with its shared memory (q^ of 64
+    rows and a 3-stage ring of a k and a v tile of BF16_FORWARD_TILE keys,
+    D bf16 values a row) within the H100's 227 KB a block and at most 255
+    registers a thread."""
+    from repro_torch.kernels.flash_attention import (BF16_FORWARD_TILE,
+                                                     forward_occupancy)
+    want = 2 * (64 * D + 6 * BF16_FORWARD_TILE * D)
+    got = forward_occupancy(D)
+    assert set(got) == {"flash_attention_bf16", "flash_attention_lse_bf16"}
+    for name, (nbytes, regs, blocks) in got.items():
+        assert nbytes == want <= 232_448, name
+        assert 0 < regs <= 255 and blocks >= 2, (name, regs, blocks)
+
+
 def test_flash_attention_autograd_on_the_card(gen):
     """FlashAttention.apply: its gradient is the two kernels', and the
     gradient of the plain scan through autograd agrees."""
