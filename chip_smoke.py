@@ -119,7 +119,22 @@ and prints no result line):
    the plain route, two microbatches accumulated in bf16 bit for bit
    their definition, and four steps with a save after step 2 and a
    restore into a fresh loop, steps 3-4 bit for bit the uninterrupted
-   run's (raw checkpoints) or within the BFP8 bound (BFP8 ones).  Then
+   run's (raw checkpoints) or within the BFP8 bound (BFP8 ones).  After
+   ``lm-train-bf16`` (below), training on the recurrent mixers
+   (``train_recurrent_phase``), the same
+   step, batch and checks of progress, launches and int8 states:
+   xlstm-1.3b at its published widths and depth (``lm-train-xlstm``, no
+   kernel launched; the reduced xlstm's loss and every gradient leaf on
+   the card held to the CPU's within TRAIN_TOL x max(1, max|cpu|)) and
+   one period of jamba-v0.1-52b at its published widths with its experts
+   cut from 16 to 4 (``lm-train-jamba``: the loss, every leaf's gradient
+   norm and the full gradients of the attention layer's projections and
+   the first Mamba layer's ``in_proj`` and ``A_log`` held across the
+   routes as ``lm-train``'s; 8 ``flash_attention_lse`` and 4 of each
+   backward kernel over the 4 steps); for each, where one step's gradient
+   spends its host time (``recurrent_step_breakdown``: the scan chunks'
+   passes, the garbage collector, the same gradient without the scans'
+   checkpoints).  Then
    yi-6b in bf16 (``lm-train-bf16``: the same step with bf16 parameters,
    the bf16 attention instances, routes held to bf16_route_tol (2^-7
    sqrt(depth) of max|plain|), 4 steps of
@@ -451,8 +466,10 @@ WHISPER = dict(arch="whisper-large-v3", tag="lm-whisper", batch=4,
 # orders by construction, here through 48 layers
 LM_DECODE_TOL = 2e-3
 
-# the LM training path: yi-6b at its published widths, f32, int8 AdamW
-# states, remat "full", one microbatch of 1 x 1024 tokens (the batch of
+# the LM training path (lm-train; lm-train-xlstm and lm-train-jamba take the
+# same TRAIN_SEQ, TRAIN_STEPS and TRAIN_OPT, below): yi-6b at its published
+# widths, f32, int8 AdamW states, remat "full", one microbatch of 1 x 1024
+# tokens (the batch of
 # TokenPipeline(DataConfig(vocab=64000, seq_len=1024, global_batch=1)) at
 # step 0, repeated), 4 optimizer steps; then its reduced form, 2 x 128
 # tokens in two microbatches.  The schedule is the train launcher's
@@ -476,12 +493,37 @@ TRAIN_REDUCED = dict(seq_len=128, global_batch=2, microbatches=2)
 # there is amplified (m / (sqrt(v) + eps)), and a bf16 weight moves by
 # little else (lr is below half an ulp of every weight above 1.5e-3).  The
 # port's bf16 update equals the reference's to one ulp at every element,
-# amplified ones included (tests/test_torch_bf16.py); whether the
-# reference's own bf16 step overshoots alike at this width is open
-# (ROADMAP.md, Queue 3, fault 7)
+# amplified ones included (tests/test_torch_bf16.py); the port's rises only
+# past 16 of the 32 layers (torch_train_schedules.py --layers), and whether
+# the reference's own bf16 step overshoots alike there is open (ROADMAP.md,
+# Queue 3, fault 7)
 TRAIN_BF16_TAG = "lm-train-bf16"
 TRAIN_BF16_OPT = dict(lr=3e-6, warmup_steps=1, total_steps=4,
                       quantize_states=True)
+# lm-train-xlstm and lm-train-jamba: training on the recurrent mixers, f32,
+# the same step and batch as lm-train (int8 AdamW states, TRAIN_OPT, remat
+# "full", 1 x TRAIN_SEQ tokens of TokenPipeline batch 0, repeated,
+# TRAIN_STEPS steps): xlstm-1.3b at its published widths and depth (48
+# layers, 1,415,287,120 parameters; 16 mLSTM chunks of 64 in 4 outer groups
+# of 4 and 8 sLSTM chunks of 128 steps a layer); jamba-v0.1-52b at its
+# published widths, one period (8 of 32 layers) with its experts cut from 16
+# to 4, top 2 kept (4,868,567,040 parameters, 19.5 GB; 16 experts make 53
+# GB of weights before a gradient).  Each entry: (arch, tag, layers kept or
+# None, experts kept or None)
+TRAIN_RECURRENT = (("xlstm-1.3b", "lm-train-xlstm", None, None),
+                   ("jamba-v0.1-52b", "lm-train-jamba", 8, 4))
+# lm-train-jamba's full gradients held across the routes: the attention
+# layer's projections (position 4 of the period) and the first Mamba
+# layer's in_proj and A_log
+TRAIN_JAMBA_KEEP = ("pos_4/mixer/wq", "pos_4/mixer/wk", "pos_4/mixer/wv",
+                    "pos_4/mixer/wo", "pos_0/mixer/in_proj",
+                    "pos_0/mixer/A_log")
+# xlstm has no kernel, so lm-train-xlstm holds the card to the CPU in place
+# of a route: the reduced xlstm's loss and every gradient leaf from one
+# tree on both, B x S tokens of TokenPipeline batch 0 (S = 256: 4 mLSTM
+# chunks in 2 outer groups, 2 sLSTM chunks), within TRAIN_TOL x max(1,
+# max|cpu|); the CPU tests hold that CPU gradient to the reference
+TRAIN_XLSTM_CHECK = dict(seq_len=256, global_batch=2)
 # the staged executor (runtime/reconfigure.py): lm-staged runs yi-6b in f32
 # on the weights lm-serve made, through STAGED_YI_STAGES stages, and then
 # jamba-v0.1-52b in bf16 at its published widths, as many whole periods of
@@ -494,9 +536,10 @@ STAGED_ARCH = "jamba-v0.1-52b"
 STAGED_MIN_PERIODS = 2
 STAGED_AGREE = 0.9          # the reference's own argmax agreement, codec on
 STAGED_COMPRESSION = 0.6    # and its boundary compression bound
-# kernel route vs plain route, a gradient, a norm or the loss: of
-# max(1, max|plain|), the port's vertex tolerance (f32 sums in another
-# order through 32 layers and their recompute)
+# kernel route vs plain route (lm-train, lm-train-reduced, lm-train-jamba)
+# or the card vs the CPU (lm-train-xlstm's reduced check), a gradient, a
+# norm or the loss: of max(1, max|plain|), the port's vertex tolerance (f32
+# sums in another order through the layers and their recompute)
 TRAIN_TOL = 2e-4
 # a BFP8 checkpoint round trip, of max|w| (the reference's
 # test_bfp8_roundtrip_close)
@@ -1889,13 +1932,19 @@ def lm_schedule(lengths, slots: int, max_new: int, resident: int,
                 host=host, parked=retired[len(host):])
 
 
-def lm_config(arch: str, tag: str, n_layers):
+def lm_config(arch: str, tag: str, n_layers, n_experts=None):
     """The path's config: the published one, its depth cut to ``n_layers``
-    when given (printed as a cut); its parameters reckoned from the shapes
-    and printed before any weight is made."""
+    and its experts to ``n_experts`` when given (each printed as a cut);
+    its parameters reckoned from the shapes and printed before any weight
+    is made."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import param_shapes
     cfg = ARCHS[arch]
+    if n_experts is not None:
+        print(f"[{tag}] {cfg.name}: experts cut from {cfg.moe.n_experts} to "
+              f"{n_experts}, top {cfg.moe.top_k} kept")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=n_experts))
     if n_layers is not None:
         gs = cfg.group_size
         if gs == 1:
@@ -2532,6 +2581,85 @@ def patch_check(torch, library, cfg, tag, params) -> None:
     library.reset_launches()
 
 
+def train_held(tag, what, got, want,
+               against: str = "kernel route vs plain route") -> float:
+    """|got - want| (floats, or tensors on any devices) within TRAIN_TOL x
+    max(1, max|want|); the error's fraction of that bound."""
+    if isinstance(want, float):
+        err, scale = abs(got - want), abs(want)
+    else:
+        err = float((got.to(want.device) - want).abs().max())
+        scale = float(want.abs().max())
+    lim = TRAIN_TOL * max(1.0, scale)
+    if not err <= lim:
+        raise AssertionError(f"[{tag}] {what}: {against} {err:.3e} > "
+                             f"{lim:.3e}")
+    return err / lim
+
+
+def train_steps(torch, library, cfg, params, batch, tag, opt: dict,
+                expected: dict, dtype=None) -> dict:
+    """TRAIN_STEPS steps of make_train_step (remat "full", AdamW ``opt``,
+    parameters of ``dtype``) in FaultTolerantLoop on the repeated
+    ``batch``, a CheckpointStore in a temporary directory: the launches
+    counted from 0 around them and held to ``expected`` (every other
+    kernel 0), every loss finite and the last below the first, every
+    parameter of the type it was made in, every int8 state int8.  Returns
+    the losses, the loop's events, each step's host-clock seconds to the
+    loss (``walls``; ``step_s`` their median past the first), the launches
+    and their shapes, the peak device memory and ``one_step``, one more
+    step on the final state (for a profile)."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.models.model import _leaves
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime.fault import FaultConfig, FaultTolerantLoop
+    from repro_torch.runtime.steps import make_train_step
+    opt_cfg = AdamWConfig(**opt)
+    opt_state = init_opt_state(params, opt_cfg)
+    dtypes = {name: t.dtype for name, t in _leaves(params)}
+    step = make_train_step(cfg, opt_cfg, remat="full", device="cuda",
+                           dtype=dtype or torch.float32)
+    losses = []
+
+    def run_step(state, b):
+        p, o = state
+        p, o, metrics = step(p, o, b)
+        losses.append(float(metrics["loss"]))     # synchronises
+        return (p, o)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = FaultTolerantLoop(run_step, CheckpointStore(tmp),
+                                 FaultConfig(checkpoint_every=50))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        library.reset_launches()
+        state = loop.run((params, opt_state), lambda s: batch, start_step=0,
+                         num_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        counts, shapes = library.launches(), library.launch_shapes()
+        peak = torch.cuda.max_memory_allocated()
+    expected = dict.fromkeys(library.SIGNATURES, 0) | expected
+    if counts != expected:
+        raise AssertionError(f"[{tag}] launches {counts}, expected "
+                             f"{expected}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] losses {losses}: not finite, or the "
+                             f"last not below the first")
+    for name, t in _leaves(state[0]):
+        if t.dtype != dtypes[name]:
+            raise AssertionError(f"[{tag}] parameter {name} is {t.dtype}, "
+                                 f"made {dtypes[name]}")
+    for name, t in _leaves(state[1]):
+        if name.endswith("/q") and t.dtype != torch.int8:
+            raise AssertionError(f"[{tag}] state {name} is {t.dtype}")
+    walls = [r.wall_s for r in loop.records]
+    return dict(losses=list(losses), events=[e["kind"] for e in loop.events],
+                walls=walls, step_s=statistics.median(walls[1:]),
+                counts=counts, shapes=shapes, peak=peak,
+                one_step=lambda: run_step(state, batch))
+
+
 def train_phase(torch, library):
     """The LM training path: yi-6b at its published widths on the card
     (``lm-train``), then at its reduced size (``lm-train-reduced``).
@@ -2581,20 +2709,6 @@ def train_phase(torch, library):
         del grads
         return float(loss), norms, full
 
-    def held(what, got, want):
-        """|got - want| within TRAIN_TOL x max(1, max|want|); the error's
-        fraction of that bound."""
-        if isinstance(want, float):
-            err, scale = abs(got - want), abs(want)
-        else:
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
-        lim = TRAIN_TOL * max(1.0, scale)
-        if not err <= lim:
-            raise AssertionError(f"[{tag}] {what}: kernel route vs plain "
-                                 f"route {err:.3e} > {lim:.3e}")
-        return err / lim
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lk, nk, fk = kept(True)
@@ -2603,9 +2717,9 @@ def train_phase(torch, library):
     lp, np_, fp = kept(False)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    worst = [held("loss", lk, lp)]
-    worst += [held(f"norm of {n}", nk[n], np_[n]) for n in np_]
-    worst += [held(n, fk[n], fp[n]) for n in fp]
+    worst = [train_held(tag, "loss", lk, lp)]
+    worst += [train_held(tag, f"norm of {n}", nk[n], np_[n]) for n in np_]
+    worst += [train_held(tag, n, fk[n], fp[n]) for n in fp]
     print(f"[{tag}] kernel vs plain route on one backward from the same "
           f"weights: loss {lk:.6f} vs {lp:.6f}, {len(np_)} gradient norms "
           f"and {len(fp)} full gradients ({', '.join(fp)}) within "
@@ -2615,45 +2729,12 @@ def train_phase(torch, library):
     del fk, fp
 
     # -- four optimizer steps in the fault-tolerant loop ------------------------
-    opt_cfg = AdamWConfig(**TRAIN_OPT)
-    opt = init_opt_state(params, opt_cfg)
-    step = make_train_step(cfg, opt_cfg, remat="full", device="cuda")
-    losses = []
-
-    def run_step(state, b):
-        p, o = state
-        p, o, metrics = step(p, o, b)
-        losses.append(float(metrics["loss"]))     # synchronises
-        return (p, o)
-
-    with tempfile.TemporaryDirectory() as tmp:
-        loop = FaultTolerantLoop(run_step, CheckpointStore(tmp),
-                                 FaultConfig(checkpoint_every=50))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        library.reset_launches()
-        state = loop.run((params, opt), lambda s: batch, start_step=0,
-                         num_steps=TRAIN_STEPS)
-        torch.cuda.synchronize()
-        counts, shapes = library.launches(), library.launch_shapes()
-        peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
-    expected = dict.fromkeys(library.SIGNATURES, 0) | {
+    run = train_steps(torch, library, cfg, params, batch, tag, TRAIN_OPT, {
         "flash_attention_lse": 2 * L * TRAIN_STEPS,
         "flash_attention_bwd_dq": L * TRAIN_STEPS,
-        "flash_attention_bwd_dkdv": L * TRAIN_STEPS}
-    if counts != expected:
-        raise AssertionError(f"[{tag}] launches {counts}, expected "
-                             f"{expected}")
-    if not all(math.isfinite(x) for x in losses) or \
-            not losses[-1] < losses[0]:
-        raise AssertionError(f"[{tag}] losses {losses}: not finite, or the "
-                             f"last not below the first")
-    for name, t in _leaves(state[1]):
-        if name.endswith("/q") and t.dtype != torch.int8:
-            raise AssertionError(f"[{tag}] state {name} is {t.dtype}")
-    walls = [r.wall_s for r in loop.records]
-    step_s = statistics.median(walls[1:])
+        "flash_attention_bwd_dkdv": L * TRAIN_STEPS})
+    counts, shapes, step_s = run["counts"], run["shapes"], run["step_s"]
     # the step's f32 operations: every matrix product forward, again in
     # the recompute (remat "full": each layer group and each loss chunk),
     # and twice in the backward; attention's two products forward, twice
@@ -2663,17 +2744,18 @@ def train_phase(torch, library):
     ops = 8.0 * mm * TRAIN_SEQ + (2 + 2.5) * attn
     b_s = ops / PEAK_F32_FLOPS
     print(f"[{tag}] {TRAIN_STEPS} steps in FaultTolerantLoop, losses "
-          f"{[round(x, 6) for x in losses]} (the last below the first), "
-          f"events {[e['kind'] for e in loop.events]}; {step_s * 1e3:.3f} "
+          f"{[round(x, 6) for x in run['losses']]} (the last below the "
+          f"first), events {run['events']}; {step_s * 1e3:.3f} "
           f"ms a step (host clock to the loss, median of steps 2-"
-          f"{TRAIN_STEPS}: {[round(w * 1e3, 3) for w in walls]}), "
+          f"{TRAIN_STEPS}: {[round(w * 1e3, 3) for w in run['walls']]}), "
           f"{TRAIN_SEQ / step_s:.1f} tokens/s; bound {b_s * 1e3:.3f} ms "
           f"({ops:.4e} f32 operations at 67 TFLOP/s), "
-          f"{b_s / step_s:.3f} of it; peak device memory {peak} bytes; "
-          f"launches {({k: n for k, n in counts.items() if n})}; {on}")
-    profile_device(torch, f"[{tag}] profile of one step",
-                   lambda: run_step(state, batch), step_s * 1e3)
-    del state, opt, params, loop
+          f"{b_s / step_s:.3f} of it; peak device memory {run['peak']} "
+          f"bytes; launches {({k: n for k, n in counts.items() if n})}; "
+          f"{on}")
+    profile_device(torch, f"[{tag}] profile of one step", run["one_step"],
+                   step_s * 1e3)
+    del run, params
     gc.collect()
     torch.cuda.empty_cache()
     out = {tag: (counts, shapes)}
@@ -2683,6 +2765,7 @@ def train_phase(torch, library):
     tag = "lm-train-reduced"
     cfg = ARCHS[TRAIN_ARCH].reduced()
     R = TRAIN_REDUCED
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
     data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=R["seq_len"],
                                     global_batch=R["global_batch"]))
 
@@ -2695,9 +2778,9 @@ def train_phase(torch, library):
     lk, gk = loss_and_grads(params, cfg, b0["tokens"], b0["labels"])
     lp, gp = loss_and_grads(params, cfg, b0["tokens"], b0["labels"],
                             use_kernels=False)
-    worst = [held("loss", float(lk), float(lp))]
-    worst += [held(n, g, w) for (n, g), (_, w) in zip(_leaves(gk),
-                                                      _leaves(gp))]
+    worst = [train_held(tag, "loss", float(lk), float(lp))]
+    worst += [train_held(tag, n, g, w)
+              for (n, g), (_, w) in zip(_leaves(gk), _leaves(gp))]
     print(f"[{tag}] {cfg.name}: every gradient leaf ({len(worst) - 1}) and "
           f"the loss on the kernel route within {TRAIN_TOL} x max(1, "
           f"max|plain|) of the plain route, the worst at {max(worst):.3f} "
@@ -2796,6 +2879,261 @@ def train_phase(torch, library):
     return out
 
 
+def recurrent_train_ops(cfg, n_params: int, seq: int) -> float:
+    """f32 operations of one lm-train-xlstm / -jamba step, the matrix
+    products only (the scans' elementwise steps left out): each product's
+    forward, the group's recompute (remat "full") and the backward's two,
+    8 x its weights x its rows (a token each, an expert's its capacity
+    slots); attention as lm-train's; the mLSTM chunk products (q k^T, s v,
+    q C, k^T v) and the sLSTM recurrence 2 + 4 and 2 + 3 times their
+    forward, for the scans' own checkpoints recompute them once more in the
+    backward (mLSTM twice: its outer and inner levels)."""
+    from repro_torch.models import param_shapes
+    from repro_torch.models.moe import GROUP, capacity
+    from repro_torch.models.ssm import MLSTM_CHUNK
+    experts = sum(math.prod(sh) for n, sh in param_shapes(cfg).items()
+                  if "/moe/w_" in n)
+    dense = n_params - cfg.vocab * cfg.d_model - experts
+    ops = 8.0 * dense * seq
+    if experts:
+        g = min(GROUP, seq)
+        ops += 8.0 * experts / cfg.moe.n_experts * (seq // g) * capacity(
+            g, cfg)
+    kinds = [cfg.layer_kind(j) for j in range(cfg.group_size)]
+    H = cfg.n_heads
+    attn = 2.0 * H * cfg.hd * seq * (seq + 1)
+    dh = cfg.d_inner // H
+    mlstm = seq * H * (4.0 * min(MLSTM_CHUNK, seq) * dh + 4.0 * dh * dh)
+    slstm = seq * 2.0 * cfg.d_model * 4 * (cfg.d_model // H)
+    per_group = (kinds.count("attn") * (2 + 2.5) * attn
+                 + kinds.count("mlstm") * (4 + 2) * mlstm
+                 + kinds.count("slstm") * (3 + 2) * slstm)
+    return ops + cfg.n_groups * per_group
+
+
+def recurrent_step_breakdown(torch, tag: str, cfg, params, batch) -> None:
+    """Where a recurrent train step's host time goes: ``loss_and_grads``
+    (remat "full", the step's gradient) twice, with the scans' own
+    checkpoints and without them (``ssm._chunked`` giving each chunk as it
+    is; the group's checkpoint stays), each split into the forward to the
+    loss and the backward, a synchronisation between.  In both, every call
+    of a scan chunk (``ssm._slstm_chunk``, ``_mlstm_chunk``,
+    ``_mamba_chunk``) is timed between two synchronisations, by mixer and
+    by pass: the first forward, or a recompute in the backward (the
+    group's and the chunks' own).  The Python garbage collector's passes
+    are timed through ``gc.callbacks``."""
+    from repro_torch.models import ssm
+    from repro_torch.models.model import _leaves, _tree, lm_loss
+    toks, labs = (torch.from_numpy(batch[k]).cuda()
+                  for k in ("tokens", "labels"))
+    phase = ["forward"]
+    chunks = collections.defaultdict(lambda: [0.0, 0])
+    collected = collections.defaultdict(lambda: [0.0, 0])
+    gc_t0 = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0.append(time.perf_counter())
+        elif gc_t0:
+            row = collected[info["generation"]]
+            row[0] += time.perf_counter() - gc_t0.pop()
+            row[1] += 1
+
+    def timed(name, fn):
+        def chunk(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:        # a recompute stops early by raising
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                row = chunks[(name, phase[0])]
+                row[0] += time.perf_counter() - t0
+                row[1] += 1
+        return chunk
+
+    real = {n: getattr(ssm, n) for n in ("_slstm_chunk", "_mlstm_chunk",
+                                         "_mamba_chunk", "_chunked")}
+    walls = {}
+    gc.callbacks.append(on_gc)
+    try:
+        for n in ("_slstm_chunk", "_mlstm_chunk", "_mamba_chunk"):
+            setattr(ssm, n, timed(n[1:-6], real[n]))
+        for label in ("with", "without"):
+            if label == "without":
+                ssm._chunked = lambda fn, remat: fn
+            chunks.clear()
+            collected.clear()
+            phase[0] = "forward"
+            leaves = {n: t.detach().requires_grad_(True)
+                      for n, t in _leaves(params)}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = lm_loss(_tree(leaves), cfg, toks, labs, remat="full")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            phase[0] = "recompute"
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            del loss, grads, leaves
+            walls[label] = (t1 - t0, t2 - t1,
+                            torch.cuda.max_memory_allocated())
+            print(f"[{tag}] host breakdown of one loss_and_grads, {label} "
+                  f"the scans' checkpoints: forward {(t1 - t0) * 1e3:.3f} "
+                  f"ms, backward {(t2 - t1) * 1e3:.3f} ms, peak "
+                  f"{walls[label][2]} bytes; scan chunks (each between two "
+                  f"synchronisations): " + "; ".join(
+                      f"{m} {w} {sec * 1e3:.3f} ms x{n}"
+                      for (m, w), (sec, n) in sorted(chunks.items()))
+                  + "; the garbage collector " + ("; ".join(
+                      f"generation {g} {sec * 1e3:.3f} ms x{n}"
+                      for g, (sec, n) in sorted(collected.items()))
+                      or "no pass"))
+    finally:
+        gc.callbacks.remove(on_gc)
+        for n, fn in real.items():
+            setattr(ssm, n, fn)
+    (f1, b1, _), (f0, b0, _) = walls["with"], walls["without"]
+    print(f"[{tag}] with the scans' checkpoints less without them: forward "
+          f"{(f1 - f0) * 1e3:.3f} ms, backward {(b1 - b0) * 1e3:.3f} ms; the "
+          f"gradient with them {(f1 + b1) / (f0 + b0):.3f} x its time "
+          f"without them")
+
+
+def train_recurrent_phase(torch, library):
+    """lm-train-xlstm and lm-train-jamba (TRAIN_RECURRENT): the train step
+    on the recurrent mixers' checkpointed training scans, f32, int8 AdamW
+    states, remat "full", TRAIN_STEPS steps of 1 x TRAIN_SEQ tokens in
+    FaultTolerantLoop, every loss finite and the fourth below the first.
+    xlstm launches no kernel: the reduced xlstm's gradients on the card
+    are held to the CPU's instead (TRAIN_XLSTM_CHECK).  jamba's attention
+    layer trains through flash_attention_lse and the f32 backward pair: its
+    kernel route is held to the plain route on one backward from the same
+    weights (the loss, every leaf's gradient norm and the full gradients of
+    TRAIN_JAMBA_KEEP).  Returns {tag: (launches, launch shapes)} of each
+    path's four-step run (counted from 0 around it)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import (init_params, param_count,
+                                    params_from_numpy)
+    from repro_torch.models.model import _leaves, _tree
+    from repro_torch.runtime.steps import loss_and_grads
+    on = card()
+    out = {}
+
+    for arch, tag, n_layers, n_experts in TRAIN_RECURRENT:
+        t_phase = time.perf_counter()
+        cfg = lm_config(arch, tag, n_layers, n_experts)
+        n_attn = cfg.n_groups * sum(cfg.layer_kind(j) == "attn"
+                                    for j in range(cfg.group_size))
+        if not n_attn:
+            # -- no kernel route: the card against the CPU, reduced size ------
+            rc = ARCHS[arch].reduced()
+            tree = {n: t.numpy() for n, t in _leaves(init_params(
+                torch.Generator().manual_seed(LM_SEED), rc))}
+            b = TokenPipeline(DataConfig(vocab=rc.vocab,
+                                         **TRAIN_XLSTM_CHECK)).batch_at(0)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                p = params_from_numpy(_tree(tree), rc, dev)
+                t = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                loss, grads = loss_and_grads(p, rc, t["tokens"], t["labels"])
+                runs[dev] = (float(loss), dict(_leaves(grads)))
+            (l_card, g_card), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+            vs = "card vs CPU"
+            worst = [train_held(tag, "loss", l_card, l_cpu, vs)]
+            worst += [train_held(tag, n, g, g_cpu[n], vs)
+                      for n, g in g_card.items()]
+            print(f"[{tag}] {rc.name}, {TRAIN_XLSTM_CHECK}: the loss "
+                  f"{l_card:.6f} (CPU {l_cpu:.6f}) and every gradient leaf "
+                  f"({len(g_card)}) on the card within {TRAIN_TOL} x max(1, "
+                  f"max|cpu|) of the CPU's, the worst at {max(worst):.3f} "
+                  f"of it")
+            del runs, g_card, g_cpu
+        params = init_params(torch.Generator(device="cuda").manual_seed(
+            LM_SEED), cfg)
+        n_params = param_count(params)
+        batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                         global_batch=1)).batch_at(0)
+        print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers "
+              f"{list(cfg.pattern)}, d_model {cfg.d_model}, {n_params} f32 "
+              f"parameters; one microbatch of 1 x {TRAIN_SEQ} tokens, remat "
+              f"full, AdamW {TRAIN_OPT}")
+        if n_attn:
+            # -- the kernel route against the plain route, one gradient -------
+            toks, labs = (torch.from_numpy(batch[k]).cuda()
+                          for k in ("tokens", "labels"))
+
+            def kept(use_kernels):
+                loss, grads = loss_and_grads(params, cfg, toks, labs,
+                                             remat="full",
+                                             use_kernels=use_kernels)
+                norms, full = {}, {}
+                for name, g in _leaves(grads):
+                    norms[name] = float(torch.linalg.vector_norm(g))
+                    if name.endswith(TRAIN_JAMBA_KEEP):
+                        full[name] = g.clone()
+                del grads
+                return float(loss), norms, full
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lk, nk, fk = kept(True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lp, np_, fp = kept(False)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if len(fp) != len(TRAIN_JAMBA_KEEP):
+                raise AssertionError(f"[{tag}] kept {sorted(fp)}, not "
+                                     f"{TRAIN_JAMBA_KEEP}")
+            worst = [train_held(tag, "loss", lk, lp)]
+            worst += [train_held(tag, f"norm of {n}", nk[n], np_[n])
+                      for n in np_]
+            worst += [train_held(tag, n, fk[n], fp[n]) for n in fp]
+            print(f"[{tag}] kernel route vs plain route on one backward "
+                  f"from the same weights: "
+                  f"loss {lk:.6f} vs {lp:.6f}, {len(np_)} gradient norms "
+                  f"and {len(fp)} full gradients ({', '.join(fp)}) within "
+                  f"{TRAIN_TOL} x max(1, max|plain|), the worst at "
+                  f"{max(worst):.3f} of it; backward {t1 - t0:.3f} s kernel "
+                  f"route, {t2 - t1:.3f} s plain route (host clock, the "
+                  f"first of each)")
+            del fk, fp
+
+        # -- four optimizer steps in the fault-tolerant loop ------------------
+        run = train_steps(torch, library, cfg, params, batch, tag, TRAIN_OPT,
+                          {"flash_attention_lse": 2 * n_attn * TRAIN_STEPS,
+                           "flash_attention_bwd_dq": n_attn * TRAIN_STEPS,
+                           "flash_attention_bwd_dkdv": n_attn * TRAIN_STEPS}
+                          if n_attn else {})
+        counts, shapes, step_s = run["counts"], run["shapes"], run["step_s"]
+        ops = recurrent_train_ops(cfg, n_params, TRAIN_SEQ)
+        b_s = ops / PEAK_F32_FLOPS
+        print(f"[{tag}] {TRAIN_STEPS} steps in FaultTolerantLoop, losses "
+              f"{[round(x, 6) for x in run['losses']]} (the last below the "
+              f"first), int8 states; {step_s * 1e3:.3f} ms a step (host "
+              f"clock to the loss, median of steps 2-{TRAIN_STEPS}: "
+              f"{[round(w * 1e3, 3) for w in run['walls']]}), "
+              f"{TRAIN_SEQ / step_s:.1f} tokens/s; bound {b_s * 1e3:.3f} ms "
+              f"({ops:.4e} f32 operations of the matrix products at 67 "
+              f"TFLOP/s), {b_s / step_s:.3f} of it; peak device memory "
+              f"{run['peak']} bytes; launches "
+              f"{({k: n for k, n in counts.items() if n})}; {on}")
+        profile_device(torch, f"[{tag}] profile of one step",
+                       run["one_step"], step_s * 1e3)
+        del run
+        gc.collect()
+        recurrent_step_breakdown(torch, tag, cfg, params, batch)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag] = (counts, shapes)
+        print(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def train_bf16_phase(torch, library):
     """lm-train-bf16: yi-6b at its published widths in bf16 (parameters and
     gradients bf16, int8 AdamW states, remat full, the same one microbatch
@@ -2809,14 +3147,11 @@ def train_bf16_phase(torch, library):
     parameter still bf16, exactly 2 x 32 flash_attention_lse_bf16 and 32
     of each bf16 backward kernel a step; ms a step and the peak memory
     beside lm-train's f32 run.  Returns {tag: (launches, launch shapes)}."""
-    from repro_torch.checkpoint import CheckpointStore
     from repro_torch.configs import ARCHS
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.models import init_params, param_count
     from repro_torch.models.model import _leaves
-    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-    from repro_torch.runtime.fault import FaultConfig, FaultTolerantLoop
-    from repro_torch.runtime.steps import loss_and_grads, make_train_step
+    from repro_torch.runtime.steps import loss_and_grads
     tag, on = TRAIN_BF16_TAG, card()
     cfg = ARCHS[TRAIN_ARCH]
     L = cfg.n_layers
@@ -2873,57 +3208,26 @@ def train_bf16_phase(torch, library):
           f"{max(worst):.4f} of it")
     del fk, fp
 
-    opt_cfg = AdamWConfig(**TRAIN_BF16_OPT)
-    opt = init_opt_state(params, opt_cfg)
-    dtypes = {name: t.dtype for name, t in _leaves(params)}
-    step = make_train_step(cfg, opt_cfg, remat="full", dtype=torch.bfloat16,
-                           device="cuda")
-    losses = []
-
-    def run_step(state, b):
-        p, o = state
-        p, o, metrics = step(p, o, b)
-        losses.append(float(metrics["loss"]))
-        return (p, o)
-
-    with tempfile.TemporaryDirectory() as tmp:
-        loop = FaultTolerantLoop(run_step, CheckpointStore(tmp),
-                                 FaultConfig(checkpoint_every=50))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        library.reset_launches()
-        state = loop.run((params, opt), lambda s: batch, start_step=0,
-                         num_steps=TRAIN_STEPS)
-        torch.cuda.synchronize()
-        counts, shapes = library.launches(), library.launch_shapes()
-        peak = torch.cuda.max_memory_allocated()
-    expected = dict.fromkeys(library.SIGNATURES, 0) | {
-        "flash_attention_lse_bf16": 2 * L * TRAIN_STEPS,
-        "flash_attention_bwd_dq_bf16": L * TRAIN_STEPS,
-        "flash_attention_bwd_dkdv_bf16": L * TRAIN_STEPS}
-    if counts != expected:
-        raise AssertionError(f"[{tag}] launches {counts}, expected "
-                             f"{expected}")
-    if not all(math.isfinite(x) for x in losses) or \
-            not losses[-1] < losses[0]:
-        raise AssertionError(f"[{tag}] losses {losses}: not finite, or the "
-                             f"last not below the first")
-    for name, t in _leaves(state[0]):
-        if t.dtype != dtypes[name]:
-            raise AssertionError(f"[{tag}] parameter {name} is {t.dtype}, "
-                                 f"made {dtypes[name]}")
-    walls = [r.wall_s for r in loop.records]
-    step_s = statistics.median(walls[1:])
+    run = train_steps(torch, library, cfg, params, batch, tag,
+                      TRAIN_BF16_OPT, {
+                          "flash_attention_lse_bf16": 2 * L * TRAIN_STEPS,
+                          "flash_attention_bwd_dq_bf16": L * TRAIN_STEPS,
+                          "flash_attention_bwd_dkdv_bf16": L * TRAIN_STEPS},
+                      dtype=torch.bfloat16)
+    counts, shapes, step_s = run["counts"], run["shapes"], run["step_s"]
     print(f"[{tag}] {TRAIN_STEPS} steps in FaultTolerantLoop, losses "
-          f"{[round(x, 6) for x in losses]} (the last below the first); "
-          f"{step_s * 1e3:.3f} ms a step (host clock to the loss, median of "
-          f"steps 2-{TRAIN_STEPS}: {[round(w * 1e3, 3) for w in walls]}), "
-          f"{TRAIN_SEQ / step_s:.1f} tokens/s; peak device memory {peak} "
-          f"bytes (lm-train's f32 run: 66552842240 in PERF.md); launches "
-          f"{({k: n for k, n in counts.items() if n})}; {on}")
-    profile_device(torch, f"[{tag}] profile of one step",
-                   lambda: run_step(state, batch), step_s * 1e3)
-    del state, opt, params, loop
+          f"{[round(x, 6) for x in run['losses']]} (the last below the "
+          f"first); {step_s * 1e3:.3f} ms a step (host clock to the loss, "
+          f"median of steps 2-{TRAIN_STEPS}: "
+          f"{[round(w * 1e3, 3) for w in run['walls']]}), "
+          f"{TRAIN_SEQ / step_s:.1f} tokens/s; peak device memory "
+          f"{run['peak']} bytes (lm-train's f32 run: 66552842240 in "
+          f"PERF.md); launches {({k: n for k, n in counts.items() if n})}; "
+          f"{on}")
+    profile_device(torch, f"[{tag}] profile of one step", run["one_step"],
+                   step_s * 1e3,
+                   both_ways=True)
+    del run, params
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
@@ -3458,10 +3762,16 @@ def autotune_phase(torch, repro_torch, library) -> None:
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
-def profile_device(torch, label: str, fn, ms: float) -> None:
+def profile_device(torch, label: str, fn, ms: float,
+                   both_ways: bool = False) -> None:
     """``fn`` once under ``torch.profiler``: the device-side events'
     busy time against ``ms``, the median unprofiled time of the same work
-    (the profiler itself slows the host)."""
+    (the profiler itself slows the host).  The events are read from the
+    profiler's own results (``kineto_results``, a private attribute of
+    ``torch.profiler.profile`` read on PyTorch 2.11), not through
+    ``key_averages()``, whose Python event objects take minutes over the
+    million launches of a recurrent train step.  ``both_ways`` also sums
+    the same profile through ``key_averages()`` and prints both sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -3470,22 +3780,40 @@ def profile_device(torch, label: str, fn, ms: float) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
     # the device-side events (kernels, copies): a host op's own device
     # time repeats its kernels'
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
+    by_name = collections.defaultdict(lambda: [0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
+                and not e.is_user_annotation()):
+            row = by_name[e.name()]
+            row[0] += e.duration_ns()
+            row[1] += 1
+    read_s = time.perf_counter() - t1
+    busy = sum(ns for ns, _ in by_name.values()) / 1e6
     if busy == 0:
         print(f"{label}: the profiler saw no device time; device busy and "
               f"idle share not measured")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"{label}: device busy {busy:.3f} ms, idle share "
           f"{1 - busy / ms:.3f} of {ms:.3f} ms ({wall:.3f} ms under the "
-          f"profiler); by device time: " + "; ".join(
-              f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
-              f"x{e.count}" for e in top))
+          f"profiler, its events read in {read_s:.1f} s); by device time: "
+          + "; ".join(f"{name[:60]} {ns / 1e6:.3f} ms x{n}"
+                      for name, (ns, n) in top))
+    if both_ways:
+        t1 = time.perf_counter()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        kbusy = sum(e.self_device_time_total for e in events) / 1e3
+        print(f"{label}: the same profile through key_averages(): device "
+              f"busy {kbusy:.3f} ms in {sum(e.count for e in events)} "
+              f"events (read in {time.perf_counter() - t1:.1f} s), the "
+              f"events' own {busy:.3f} ms in "
+              f"{sum(n for _, n in by_name.values())}; torch "
+              f"{torch.__version__}")
 
 
 def profile_host(torch, label: str, fn, top: int = 8) -> None:
@@ -3697,6 +4025,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained |= train_bf16_phase(torch, library)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained |= train_recurrent_phase(torch, library)
     t4 = time.perf_counter()
     lm["lm-staged-jamba"] = staged_jamba_phase(torch, library)
     lm_s["lm-staged-jamba"] = time.perf_counter() - t4

@@ -29,14 +29,17 @@ the given frame embeddings first (``forward(enc_frames=)``), and each
 decoder layer attends to the encoder's keys and values after its
 self-attention, a prefill writing them to the cache once and a decode
 reading them; a VLM (qwen2-vl, M-RoPE) takes patch embeddings in place of
-its first token embeddings (``forward(patch_embeds=)``).  Training runs the
-decoder-only attention families (recurrent mixers: ROADMAP.md, Queue 1,
-item 15; the encoder-decoder: item 16).  :func:`lm_loss`
+its first token embeddings (``forward(patch_embeds=)``).  Training runs
+every decoder-only family, the recurrent mixers through their checkpointed
+training scans (``models/ssm.py``), not yet the encoder-decoder
+(ROADMAP.md, Queue 1, item 16).  :func:`lm_loss`
 is the reference's chunked next-token cross-entropy, and ``remat`` its
 rematerialisation of each layer group: ``"full"`` recomputes a group in the
 backward (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
 unbatched matrix products (selective checkpointing), as
-``dots_with_no_batch_dims_saveable``.
+``dots_with_no_batch_dims_saveable``.  Either nests the scans' own
+checkpoints inside the group's, as the reference nests its
+``jax.checkpoint``s.
 """
 from __future__ import annotations
 
@@ -557,11 +560,6 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             f"{cfg.name}: training the encoder-decoder (the gradient of the "
             f"cross attention, keys of their own length) is not ported yet "
             f"(ROADMAP.md, Queue 1, item 16)")
-    kinds = {cfg.layer_kind(j) for j in range(cfg.group_size)}
-    if kinds != {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: training on {sorted(kinds - {'attn'})} mixers is "
-            f"not ported yet (ROADMAP.md, Queue 1, item 15)")
     x, _, aux = forward(params, cfg, tokens, patch_embeds=patch_embeds,
                         remat=remat, use_kernels=use_kernels)
     B, Sq, _ = x.shape

@@ -7,7 +7,7 @@ mLSTM and sLSTM (xLSTM) — the counterparts of the reference package's
   The port runs the scan as a Python loop, :data:`SCAN_CHUNK` steps at a
   time: each chunk's discretisation (``exp(delta A)`` and ``delta B x``)
   is computed for all its steps at once, then every step is two
-  elementwise launches.
+  elementwise launches, and the chunk's states are stacked for y.
 * **mLSTM**: the matrix-memory LSTM in the chunkwise-parallel form of gated
   linear attention: within a chunk of :data:`MLSTM_CHUNK` steps an
   attention-like block, between chunks the (C, n) state carried forward.
@@ -15,11 +15,19 @@ mLSTM and sLSTM (xLSTM) — the counterparts of the reference package's
 * **sLSTM**: the scalar-memory LSTM with a block-diagonal (per-head)
   recurrence and the stabiliser ``m``; sequential, one step at a time.
 
-The reference scans with ``jax.lax.scan`` under ``jax.checkpoint`` at two
-levels, which only saves memory in a backward; this forward-only port
-needs neither (training on these mixers: ROADMAP.md, Queue 1, item 15).
-Its loops launch a few small kernels a step on the card; ROADMAP.md's
-"The recurrent scans" sizes a scan kernel from that.
+Each scan is functional (no ``out=``, no in-place op), so autograd takes
+it as it is.  Serving and decode (no tensor that autograd records) run it
+plain.  Training (grad enabled and the input or a parameter requiring a
+gradient, :func:`_records`) runs the same chunks under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` at two
+levels bounds a backward's memory: Mamba's and sLSTM's steps in chunks of
+:data:`SCAN_CHUNK`, only each chunk's carry saved; mLSTM's chunks each
+checkpointed, and grouped n2 at a time under an outer checkpoint, n1 the
+largest divisor of the chunk count n at most sqrt(n), so O(sqrt(n)) (C,
+n) carries are saved.  The forward values do not depend on the
+checkpoints, nor do the gradients.  The loops launch a few small
+kernels a step on the card; ROADMAP.md's "The recurrent scans" sizes a
+scan kernel from that.
 
 Every state is f32, as in the reference (Mamba's ``conv`` window takes the
 cache dtype).  ``jax.nn.softplus`` and ``jax.nn.log_sigmoid`` are
@@ -29,15 +37,34 @@ than half an f32 ulp of 20, so the two round alike.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from .common import dense_init, typed_scale
 
 # Mamba prefill steps whose discretisation is computed at once (bounds the
-# (B, L, d_inner, d_state) temporaries)
+# (B, L, d_inner, d_state) temporaries); also the steps of a Mamba or sLSTM
+# chunk the training route checkpoints
 SCAN_CHUNK = 128
+
+
+def _records(p: dict, x: torch.Tensor) -> bool:
+    """Whether autograd records a mixer call: grad enabled and ``x`` or a
+    parameter requiring a gradient (the serving engine runs with grad
+    enabled on leaves that require none)."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.values()))
+
+
+def _chunked(fn, remat: bool):
+    """``fn`` under a non-reentrant checkpoint, or as it is."""
+    if not remat:
+        return fn
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
 
 
 # =============================================================================
@@ -92,22 +119,32 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out, new_state
 
 
-def _mamba_scan(h: torch.Tensor, delta, Bm, Cm, xf, A) -> tuple:
-    """h_t = exp(delta_t A) h_{t-1} + delta_t B_t x_t; y_t = <h_t, C_t>
-    over the state axis.  h: (B, di, ds); delta, xf: (B, S, di); Bm, Cm:
-    (B, S, ds).  Returns (h_S, y (B, S, di))."""
-    S = delta.shape[1]
+def _mamba_chunk(h, delta, Bm, Cm, xf, A):
+    """L steps of the scan from the carry ``h`` (B, di, ds): the chunk's
+    discretisation at once, then h_t = exp(delta_t A) h_{t-1} + delta_t B_t
+    x_t a step; y_t = <h_t, C_t> over the state axis.  delta, xf: (B, L,
+    di); Bm, Cm: (B, L, ds).  Returns (h_L, y (B, L, di))."""
+    dt = delta[:, :, :, None]                              # (B, L, di, 1)
+    da = torch.exp(dt * A)                                 # (B, L, di, ds)
+    dbx = dt * Bm[:, :, None, :] * xf[:, :, :, None]
+    hs = []
+    for da_t, dbx_t in zip(da.unbind(1), dbx.unbind(1)):
+        h = da_t * h + dbx_t
+        hs.append(h)
+    return h, (torch.stack(hs, dim=1) * Cm[:, :, None, :]).sum(-1)
+
+
+def _mamba_scan(h, delta, Bm, Cm, xf, A, remat: bool) -> tuple:
+    """:func:`_mamba_chunk` over S steps, SCAN_CHUNK at a time, each chunk
+    checkpointed where ``remat`` (training: the backward saves one (B, di,
+    ds) carry a chunk and recomputes the chunk's steps).  Returns (h_S, y
+    (B, S, di))."""
+    chunk = _chunked(_mamba_chunk, remat)
     ys = []
-    for t0 in range(0, S, SCAN_CHUNK):
-        t1 = min(t0 + SCAN_CHUNK, S)
-        dt = delta[:, t0:t1, :, None]                      # (B, L, di, 1)
-        da = torch.exp(dt * A)                             # (B, L, di, ds)
-        dbx = dt * Bm[:, t0:t1, None, :] * xf[:, t0:t1, :, None]
-        hs = torch.empty_like(da)
-        for i in range(t1 - t0):
-            torch.mul(da[:, i], h, out=hs[:, i])
-            h = hs[:, i].add_(dbx[:, i])
-        ys.append((hs * Cm[:, t0:t1, None, :]).sum(-1))
+    for t0 in range(0, delta.shape[1], SCAN_CHUNK):
+        sl = slice(t0, t0 + SCAN_CHUNK)
+        h, y = chunk(h, delta[:, sl], Bm[:, sl], Cm[:, sl], xf[:, sl], A)
+        ys.append(y)
     return h, torch.cat(ys, dim=1)
 
 
@@ -123,7 +160,7 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg):
     xf = xin.float()
     h0 = torch.zeros((B, cfg.d_inner, cfg.d_state), dtype=torch.float32,
                      device=x.device)
-    h, ys = _mamba_scan(h0, delta, Bm, Cm, xf, A)
+    h, ys = _mamba_scan(h0, delta, Bm, Cm, xf, A, remat=_records(p, x))
     y = ys + xf * p["D"]
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     return y, {"conv": conv_state, "h": h}
@@ -225,6 +262,36 @@ def _mlstm_chunk(C, nrm, qf, kf, vf, ic, lfc):
     return C_new, nrm_new, y
 
 
+def _mlstm_chunks(C, nrm, xs: tuple, L: int, remat: bool) -> tuple:
+    """:func:`_mlstm_chunk` over ``xs`` = (q, k, v, input gates, log
+    forget gates), time on axis 1, L steps at a time, each chunk
+    checkpointed where ``remat``.  Returns (C, n, y (B, S, H, dh))."""
+    chunk = _chunked(_mlstm_chunk, remat)
+    ys = []
+    for t0 in range(0, xs[0].shape[1], L):
+        C, nrm, y = chunk(C, nrm, *(a[:, t0:t0 + L] for a in xs))
+        ys.append(y)
+    return C, nrm, torch.cat(ys, dim=1)
+
+
+def _mlstm_scan_train(C, nrm, xs: tuple, L: int) -> tuple:
+    """:func:`_mlstm_chunks` for autograd, as the reference's two-level
+    scan: the n chunks in n1 groups of n2, n1 the largest divisor of n at
+    most sqrt(n); each group under an outer checkpoint and each chunk under
+    its own, so the backward saves n1 outer carries and, while it walks a
+    group, that group's n2."""
+    n = xs[0].shape[1] // L
+    n1 = next(c for c in range(int(n ** 0.5), 0, -1) if n % c == 0)
+    group = _chunked(functools.partial(_mlstm_chunks, L=L, remat=True),
+                     True)
+    span = (n // n1) * L
+    ys = []
+    for t0 in range(0, n * L, span):
+        C, nrm, y = group(C, nrm, tuple(a[:, t0:t0 + span] for a in xs))
+        ys.append(y)
+    return C, nrm, torch.cat(ys, dim=1)
+
+
 def mlstm_forward(p: dict, x: torch.Tensor, cfg):
     """Chunkwise-parallel form.  x: (B, S, d) -> (y, state ``{"C",
     "n"}``).  S must be a multiple of its chunk, min(MLSTM_CHUNK, S), as in
@@ -236,16 +303,14 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg):
         raise ValueError(f"mlstm_forward: sequence length {S} is not a "
                          f"multiple of its chunk {L}")
     q, k, v, ig, lf, z = _mlstm_qkv_gates(p, x, cfg)
-    qf, kf, vf = q.float(), k.float(), v.float()
+    xs = (q.float(), k.float(), v.float(), ig, lf)
     C = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device)
     nrm = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
-    ys = []
-    for t0 in range(0, S, L):
-        sl = slice(t0, t0 + L)
-        C, nrm, y = _mlstm_chunk(C, nrm, qf[:, sl], kf[:, sl], vf[:, sl],
-                                 ig[:, sl], lf[:, sl])
-        ys.append(y)
-    y = torch.cat(ys, dim=1).reshape(B, S, cfg.d_inner).to(x.dtype)
+    if _records(p, x):
+        C, nrm, y = _mlstm_scan_train(C, nrm, xs, L)
+    else:
+        C, nrm, y = _mlstm_chunks(C, nrm, xs, L, remat=False)
+    y = y.reshape(B, S, cfg.d_inner).to(x.dtype)
     y = (y * F.silu(z)) @ p["out_proj"]
     return y, {"C": C, "n": nrm}
 
@@ -315,16 +380,36 @@ def _slstm_step(p: dict, cfg, carry: tuple, zx: torch.Tensor) -> tuple:
     return (h_new, c_new, n_new, m_new)
 
 
+def _slstm_chunk(p: dict, cfg, carry: tuple, zx: torch.Tensor) -> tuple:
+    """:func:`_slstm_step` over the steps of ``zx`` (B, L, 4d): (the last
+    carry, h of every step (B, L, d))."""
+    hs = []
+    for z_t in zx.unbind(1):
+        carry = _slstm_step(p, cfg, carry, z_t)
+        hs.append(carry[0])
+    return carry, torch.stack(hs, dim=1)
+
+
+def _slstm_scan_train(p: dict, cfg, carry: tuple, zx: torch.Tensor
+                      ) -> tuple:
+    """The sLSTM scan for autograd: SCAN_CHUNK steps a checkpoint, so the
+    backward saves one (h, c, n, m) carry a chunk."""
+    chunk = _chunked(_slstm_chunk, True)
+    hs = []
+    for t0 in range(0, zx.shape[1], SCAN_CHUNK):
+        carry, h = chunk(p, cfg, carry, zx[:, t0:t0 + SCAN_CHUNK])
+        hs.append(h)
+    return carry, torch.cat(hs, dim=1)
+
+
 def slstm_forward(p: dict, x: torch.Tensor, cfg):
-    B, S, d = x.shape
+    B, _, d = x.shape
     zx = x @ p["w_in"]                                       # (B, S, 4d)
     carry = tuple(torch.zeros((B, d), dtype=torch.float32, device=x.device)
                   for _ in range(4))
-    hs = []
-    for t in range(S):
-        carry = _slstm_step(p, cfg, carry, zx[:, t])
-        hs.append(carry[0])
-    y = torch.stack(hs, dim=1).to(x.dtype) @ p["out_proj"]
+    scan = _slstm_scan_train if _records(p, x) else _slstm_chunk
+    carry, hs = scan(p, cfg, carry, zx)
+    y = hs.to(x.dtype) @ p["out_proj"]
     return y, dict(zip(("h", "c", "n", "m"), carry))
 
 

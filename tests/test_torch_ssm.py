@@ -12,11 +12,16 @@ matmuls and cumulative sums add in different orders), for the mixers, the
 model's forward and decode and the engine's caches; the port's own
 decode-equivalence is held to the reference's 2e-3 (its
 ``test_decode_matches_full_forward``): the chunkwise mLSTM and the
-step-by-step decode sum in different orders by construction.
+step-by-step decode sum in different orders by construction.  The
+mixers' training routes (checkpointed scans) are held to ``jax.vjp`` of
+the reference's forwards within the same 2e-4, to the plain scans and to
+themselves without checkpoints bit for bit; the whole model's gradients
+are ``tests/test_torch_train.py``'s.
 """
 import functools
 import re
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -46,6 +51,18 @@ from repro_torch.serving import ServingEngine              # noqa: E402
 TOL = 2e-4
 DECODE_TOL = 2e-3
 ARCH_NAMES = ("jamba-v0.1-52b", "xlstm-1.3b")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while the module runs: the recurrent scans and
+    small backward loops issue many small ops, and beside the other test
+    workers' thread pools each op's pool of 8 stalls (about 400x slower
+    on 6 workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def close(got, want, tol=TOL):
@@ -283,11 +300,108 @@ def test_init_cache_matches_the_reference(arch):
         assert t[n].dtype == torch.float32 and a.dtype == jnp.float32
 
 
-def test_training_on_recurrent_mixers_is_refused(arch):
+# =============================================================================
+# the training routes
+# =============================================================================
+
+MIXER_ARCH = {"mamba": "jamba-v0.1-52b", "mlstm": "xlstm-1.3b",
+              "slstm": "xlstm-1.3b"}
+
+def _train_leaves(tl, x):
+    """Copies of the mixer's parameters and of x that require gradients."""
+    return ({n: t.detach().clone().requires_grad_(True)
+             for n, t in tl.items()},
+            _t(x).requires_grad_(True))
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])
+def test_mixer_gradients_match_jax_vjp(kind):
+    """Each mixer's training route at S = 256 (2 Mamba or sLSTM chunks of
+    128 steps, 4 mLSTM chunks in 2 outer groups of 2): y, and the gradients
+    of x and of every parameter under a seeded cotangent on y, against
+    ``jax.vjp`` of the reference's forward."""
+    arch = _arch(MIXER_ARCH[kind])
+    cfg, jcfg = arch[1], arch[2]
+    jl, tl = _mixer(arch, kind)
+    x = _rand((2, 256, cfg.d_model), 70)
+    dy = _rand((2, 256, cfg.d_model), 71)
+    jfn = getattr(JS, f"{kind}_forward")
+    jy, vjp = jax.vjp(lambda p, x: jfn(p, x, jcfg)[0], jl, jnp.asarray(x))
+    jgp, jgx = vjp(jnp.asarray(dy))
+    tp, tx = _train_leaves(tl, x)
+    ty, _ = getattr(TS, f"{kind}_forward")(tp, tx, cfg)
+    (ty * _t(dy)).sum().backward()
+    close(ty.detach(), jy)
+    close(tx.grad, jgx)
+    assert set(tp) == set(jgp)
+    for n, t in tp.items():
+        close(t.grad, jgp[n])
+
+
+@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])
+def test_checkpoints_change_no_bit(kind, monkeypatch):
+    """The training route's y and state are the plain scan's bit for bit
+    (S = 300 for Mamba and sLSTM: chunks of 128, 128 and 44; S = 384 for
+    mLSTM: 6 chunks in 2 outer groups of 3), and its gradients with the
+    checkpoints are those without them bit for bit."""
+    arch = _arch(MIXER_ARCH[kind])
+    cfg = arch[1]
+    _, tl = _mixer(arch, kind)
+    fwd = getattr(TS, f"{kind}_forward")
+    x = _rand((2, 384 if kind == "mlstm" else 300, cfg.d_model), 72)
+    dy = _t(_rand(x.shape, 73))
+    with torch.no_grad():
+        want_y, want_st = fwd(tl, _t(x), cfg)
+    grads = []
+    for remat in (True, False):
+        if not remat:
+            monkeypatch.setattr(TS, "_chunked", lambda fn, remat: fn)
+        tp, tx = _train_leaves(tl, x)
+        y, st = fwd(tp, tx, cfg)
+        assert torch.equal(y.detach(), want_y)
+        for n, t in st.items():
+            assert torch.equal(t.detach(), want_st[n]), n
+        grads.append(torch.autograd.grad(
+            (y * dy).sum() + sum(t.sum() for t in st.values()),
+            [tx, *tp.values()]))
+    for g, g0 in zip(*grads):
+        assert torch.equal(g, g0)
+
+
+def test_serving_takes_the_plain_scans(arch, monkeypatch):
+    """A forward with a cache, one without and the engine (grad enabled,
+    no leaf requiring a gradient) take the plain scans: every mixer call
+    decides against the training route and no checkpoint runs.  The same
+    forward on leaves that require gradients decides for it once per
+    recurrent layer and runs the scans' checkpoints."""
     _, cfg, _, _, tp = arch
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 15"):
-        TM.lm_loss(tp, cfg, toks, toks)
+    routes, ckpts = [], []
+    real_records, real_ckpt = TS._records, TS.ckpt.checkpoint
+
+    def records(p, x):
+        routes.append(real_records(p, x))
+        return routes[-1]
+
+    def checkpoint(fn, *a, **k):
+        ckpts.append(fn)
+        return real_ckpt(fn, *a, **k)
+    monkeypatch.setattr(TS, "_records", records)
+    monkeypatch.setattr(TS, "ckpt", types.SimpleNamespace(
+        checkpoint=checkpoint))
+    toks = _t(np.random.default_rng(74).integers(0, cfg.vocab, (2, 64)))
+    n_rec = cfg.n_groups * sum(cfg.layer_kind(j) != "attn"
+                               for j in range(cfg.group_size))
+    assert torch.is_grad_enabled()
+    TM.forward(tp, cfg, toks)
+    TM.forward(tp, cfg, toks, cache=TM.init_cache(cfg, 2, 64, device="cpu"))
+    eng = ServingEngine(cfg, tp, device="cpu", max_batch=2, s_max=48)
+    eng.submit(np.arange(1, 20) % cfg.vocab, max_new_tokens=3)
+    eng.run_until_drained()
+    assert len(routes) == 3 * n_rec and not any(routes) and ckpts == []
+    routes.clear()
+    leaves = {n: t.detach().requires_grad_(True) for n, t in TM._leaves(tp)}
+    TM.forward(TM._tree(leaves), cfg, toks)
+    assert routes == [True] * n_rec and ckpts
 
 
 # =============================================================================

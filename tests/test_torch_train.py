@@ -1,6 +1,7 @@
 """The port's training path on the CPU against the reference package.
 
-``lm_loss`` and its gradients, ``FlashAttention``'s plain route (the
+``lm_loss`` and its gradients (the attention families and the recurrent
+mixers of jamba and xlstm), ``FlashAttention``'s plain route (the
 forward with its log-sum-exp and the blockwise backward the kernels
 compute), ``adamw_update``, ``make_train_step``, the token pipeline, the
 checkpoint store (both packages restore each other's checkpoints), the
@@ -52,11 +53,25 @@ from repro_torch.obs.metrics import MetricsRegistry         # noqa: E402
 from repro_torch.obs.metrics import parse_metrics_text      # noqa: E402
 from repro_torch.optim import adamw as TO                   # noqa: E402
 from repro_torch.runtime import fault as TF                 # noqa: E402
-from repro_torch.runtime.steps import (auto_microbatches,   # noqa: E402
-                                       loss_and_grads, make_train_step)
+from repro_torch.runtime.steps import (accumulate_grads,    # noqa: E402
+                                       auto_microbatches, loss_and_grads,
+                                       make_train_step)
 
 TOL = 2e-4
-ARCH_NAMES = ("yi-6b", "phi4-mini-3.8b", "olmoe-1b-7b")
+RECURRENT = ("jamba-v0.1-52b", "xlstm-1.3b")
+ARCH_NAMES = ("yi-6b", "phi4-mini-3.8b", "olmoe-1b-7b") + RECURRENT
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while the module runs: the recurrent scans and
+    small backward loops issue many small ops, and beside the other test
+    workers' thread pools each op's pool of 8 stalls (about 400x slower
+    on 6 workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def close(got, want, tol=TOL):
@@ -109,7 +124,8 @@ def reference_grads(models):
     lm_loss (its remat changes no value, so one per arch)."""
     out = {}
     for arch, (jc, _, jp, _) in models.items():
-        B, S = (1, 1024) if arch == "yi-6b" else (2, 64)
+        B, S = {"yi-6b": (1, 1024)}.get(
+            arch, (2, 256) if arch in RECURRENT else (2, 64))
         toks, labs = _batch(jc.vocab, B, S, 1)
         jl, jg = jax.value_and_grad(lambda p: JM.lm_loss(
             p, jc, jnp.asarray(toks), jnp.asarray(labs)))(jp)
@@ -123,7 +139,11 @@ def test_lm_loss_and_gradients_match_the_reference(models, reference_grads,
                                                    arch, remat):
     """Tied embeddings (phi4-mini) get gradients from the lookup and the
     head; olmoe adds 0.01 x its load-balancing loss.  yi-6b's S = 1024
-    takes two loss chunks of 512."""
+    takes two loss chunks of 512.  jamba (Mamba, attention, experts) and
+    xlstm (mLSTM, sLSTM) at S = 256 run every scan over more than one
+    checkpointed chunk: 2 Mamba and 2 sLSTM chunks of 128 steps, 4 mLSTM
+    chunks of 64 in 2 outer groups of 2, nested in the group's checkpoint
+    for remat full and dots."""
     jc, tc, jp, tree = models[arch]
     toks, labs, jl, jg = reference_grads[arch]
     tp = params_from_numpy(tree, tc, "cpu")
@@ -708,6 +728,75 @@ def test_train_cli_refusals_name_their_queue_items(flags, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1, item {item}"):
         ttrain_cli.main(["--arch", "yi-6b", "--device", "cpu", "--smoke",
                          *flags])
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_train_cli_on_the_recurrent_mixers(tmp_path, capsys, arch):
+    """The CLI's closing line and checkpoint events on reduced jamba and
+    xlstm (the mLSTM chunk rule takes --seq 64)."""
+    ttrain_cli.main(["--arch", arch, "--device", "cpu", "--smoke",
+                     "--steps", "4", "--batch", "2", "--seq", "64",
+                     "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
+    out = capsys.readouterr().out
+    m = re.search(rf"{arch}-smoke: 4 steps, loss ([\d.]+) -> ([\d.]+); "
+                  r"events: \['checkpoint', 'checkpoint'\]", out)
+    assert m, out
+    assert all(np.isfinite(float(x)) for x in m.groups())
+    assert CheckpointStore(str(tmp_path)).steps() == [2, 4]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_train_step_accumulates_and_resumes(models, tmp_path,
+                                                       arch):
+    """make_train_step on reduced jamba and xlstm with int8 states: a
+    batch of 2 takes auto_microbatches' 2, accumulated in bf16 bit for bit
+    (0 + g1) + g2, / 2; four steps in FaultTolerantLoop against a run
+    saved after step 2 and restored into a fresh loop, whose steps 3-4
+    are the uninterrupted run's bit for bit, states included."""
+    _, tc, _, tree = models[arch]
+    opt_cfg = TO.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4,
+                             quantize_states=True)
+    data = TokenPipeline(DataConfig(vocab=tc.vocab, seq_len=64,
+                                    global_batch=2))
+    assert auto_microbatches(2) == 2
+    params = params_from_numpy(tree, tc, "cpu")
+    b0 = {k: torch.from_numpy(v) for k, v in data.batch_at(0).items()}
+    _, acc = accumulate_grads(params, tc, b0, 2, torch.bfloat16)
+    want = {n: torch.zeros(t.shape, dtype=torch.bfloat16)
+            for n, t in TM._leaves(params)}
+    for i in range(2):
+        _, g = loss_and_grads(params, tc, b0["tokens"][i:i + 1],
+                              b0["labels"][i:i + 1])
+        for n, t in TM._leaves(g):
+            want[n] += t.to(torch.bfloat16)
+    for n, t in TM._leaves(acc):
+        assert torch.equal(t, want[n] / 2), n
+    step = make_train_step(tc, opt_cfg, device="cpu")
+    losses = []
+
+    def run(state, batch):
+        p, o, m = step(*state, batch)
+        losses.append(float(m["loss"]))
+        return (p, o)
+
+    def fresh():
+        p = params_from_numpy(tree, tc, "cpu")
+        return (p, TO.init_opt_state(p, opt_cfg))
+
+    whole = TF.FaultTolerantLoop(run, CheckpointStore(str(tmp_path / "a"))
+                                 ).run(fresh(), data.batch_at, start_step=0,
+                                       num_steps=4)
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    store = CheckpointStore(str(tmp_path / "b"))
+    TF.FaultTolerantLoop(run, store, TF.FaultConfig(checkpoint_every=2)).run(
+        fresh(), data.batch_at, start_step=0, num_steps=2)
+    again = TF.FaultTolerantLoop(run, store)
+    state, start = again.try_restore(fresh())
+    assert start == 2
+    resumed = again.run(state, data.batch_at, start_step=2, num_steps=2)
+    for (n, a), (_, b) in zip(TM._leaves({"p": whole[0], "o": whole[1]}),
+                              TM._leaves({"p": resumed[0], "o": resumed[1]})):
+        assert a.dtype == b.dtype and torch.equal(a, b), n
 
 
 def test_train_cli_with_int8_states_and_tied_embeddings(tmp_path, capsys):
