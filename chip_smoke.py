@@ -123,8 +123,8 @@ and prints no result line):
    ``lm-train-bf16`` (below), training on the recurrent mixers
    (``train_recurrent_phase``), the same
    step, batch and checks of progress, launches and int8 states:
-   xlstm-1.3b at its published widths and depth (``lm-train-xlstm``, no
-   kernel launched; the reduced xlstm's loss and every gradient leaf on
+   xlstm-1.3b at its published widths, 16 of its 48 layers
+   (``lm-train-xlstm``, no kernel launched; the reduced xlstm's loss and every gradient leaf on
    the card held to the CPU's within TRAIN_TOL x max(1, max|cpu|)) and
    one period of jamba-v0.1-52b at its published widths with its experts
    cut from 16 to 4 (``lm-train-jamba``: the loss, every leaf's gradient
@@ -134,7 +134,21 @@ and prints no result line):
    backward kernel over the 4 steps); for each, where one step's gradient
    spends its host time (``recurrent_step_breakdown``: the scan chunks'
    passes, the garbage collector, the same gradient without the scans'
-   checkpoints).  Then
+   checkpoints).  Then the encoder-decoder trained
+   (``train_whisper_phase``, ``lm-train-whisper`` and
+   ``lm-train-whisper-bf16``): whisper-large-v3 at its published widths
+   and depth, one microbatch of 4 x 448 tokens over 4 x 1500 seeded frame
+   embeddings, int8 AdamW states, remat "full" (the decoder's groups),
+   f32 then bf16; the routes held on one gradient of the batch
+   accumulated over 4 microbatches of 1 (the loss, every leaf's gradient
+   norm, the full projections of encoder layer 0 and decoder layer 31's
+   self and cross attention; TRAIN_TOL, bf16_route_tol(64), the bf16
+   full gradients beside both routes' distances from an f32 run); 4 steps,
+   the fourth loss below the first, exactly 160 flash_attention_lse (or
+   _bf16) and 96 of each backward kernel a step (32 encoder, and 2 x 32
+   decoder self and cross, forward and recompute), the peak below the
+   card's memory; ms a step, tokens/s, the step's bound, one profiled
+   step.  Then
    yi-6b in bf16 (``lm-train-bf16``: the same step with bf16 parameters,
    the bf16 attention instances, routes held to bf16_route_tol (2^-7
    sqrt(depth) of max|plain|), 4 steps of
@@ -172,7 +186,10 @@ and prints no result line):
    and a second launch bit for bit the first; the four bf16 instances
    (flash_attention_bf16, flash_attention_lse_bf16,
    flash_attention_bwd_dq_bf16, flash_attention_bwd_dkdv_bf16) at the bf16
-   paths' shapes and the same ragged ones, every bf16 element within one
+   paths' shapes and the same ragged ones, and all six training
+   instances over ragged keys of their own length (Sk 1, 37, 1499 against
+   Sq 1 and 64, non-causal; whisper's train shapes come from its paths),
+   every bf16 element within one
    bf16 ulp of its plain version (lse and delta as the f32 instances'),
    two launches bit for bit, timed against SDPA in bf16 (forward; the
    whole autograd backward for the pair) and bound by the bf16 tensor
@@ -503,14 +520,16 @@ TRAIN_BF16_OPT = dict(lr=3e-6, warmup_steps=1, total_steps=4,
 # lm-train-xlstm and lm-train-jamba: training on the recurrent mixers, f32,
 # the same step and batch as lm-train (int8 AdamW states, TRAIN_OPT, remat
 # "full", 1 x TRAIN_SEQ tokens of TokenPipeline batch 0, repeated,
-# TRAIN_STEPS steps): xlstm-1.3b at its published widths and depth (48
-# layers, 1,415,287,120 parameters; 16 mLSTM chunks of 64 in 4 outer groups
-# of 4 and 8 sLSTM chunks of 128 steps a layer); jamba-v0.1-52b at its
+# TRAIN_STEPS steps): xlstm-1.3b at its published widths, its depth cut
+# from 48 to 16 layers (2 of its 6 periods of 7 mLSTM and 1 sLSTM; the 48
+# layers, 1,415,287,120 parameters, took 25.7-39.0 s a step, a third of the
+# script's time; 16 mLSTM chunks of 64 in 4 outer groups of 4 and 8 sLSTM
+# chunks of 128 steps a layer); jamba-v0.1-52b at its
 # published widths, one period (8 of 32 layers) with its experts cut from 16
 # to 4, top 2 kept (4,868,567,040 parameters, 19.5 GB; 16 experts make 53
 # GB of weights before a gradient).  Each entry: (arch, tag, layers kept or
 # None, experts kept or None)
-TRAIN_RECURRENT = (("xlstm-1.3b", "lm-train-xlstm", None, None),
+TRAIN_RECURRENT = (("xlstm-1.3b", "lm-train-xlstm", 16, None),
                    ("jamba-v0.1-52b", "lm-train-jamba", 8, 4))
 # lm-train-jamba's full gradients held across the routes: the attention
 # layer's projections (position 4 of the period) and the first Mamba
@@ -524,6 +543,29 @@ TRAIN_JAMBA_KEEP = ("pos_4/mixer/wq", "pos_4/mixer/wk", "pos_4/mixer/wv",
 # chunks in 2 outer groups, 2 sLSTM chunks), within TRAIN_TOL x max(1,
 # max|cpu|); the CPU tests hold that CPU gradient to the reference
 TRAIN_XLSTM_CHECK = dict(seq_len=256, global_batch=2)
+# lm-train-whisper: the encoder-decoder trained, whisper-large-v3 at its
+# published widths and depth (32 encoder and 32 decoder layers, d_model
+# 1280, 20 heads of 64, 1500 encoder frames; 1,601,198,080 parameters),
+# f32, int8 AdamW states, TRAIN_OPT, remat "full" (the decoder's groups;
+# the encoder keeps its activations, as the reference), one microbatch of 4
+# x 448 tokens of TokenPipeline batch 0 (448 the decoder's context,
+# WHISPER["s_max"]) over 4 x 1500 seeded frame embeddings, repeated,
+# TRAIN_STEPS steps; then the same in bf16 (lm-train-whisper-bf16,
+# TRAIN_BF16_OPT).  A step launches flash_attention_lse 32 times in the
+# encoder and 2 x 2 x 32 in the decoder (self and cross, forward and
+# recompute), and each backward kernel 32 + 2 x 32 times.  The routes are
+# held on one gradient of the batch accumulated in f32 over 4 microbatches
+# of 1 (the plain route keeps the encoder's attention probabilities, about
+# 46 GB at batch 4): the loss, every leaf's gradient norm and the full
+# gradients of TRAIN_WHISPER_KEEP (bf16: each full gradient also beside
+# both routes' distances from the plain route's f32 run, whisper_bf16_full)
+TRAIN_WHISPER = dict(tag="lm-train-whisper", batch=4, seq=448, route_mbs=4)
+TRAIN_WHISPER_KEEP = tuple(
+    (f"{stack}/pos_0/{part}/{w}", layer)
+    for stack, part, layer in (("encoder/groups", "mixer", 0),
+                               ("groups", "mixer", 31),
+                               ("groups", "cross", 31))
+    for w in ("wq", "wk", "wv", "wo"))
 # the staged executor (runtime/reconfigure.py): lm-staged runs yi-6b in f32
 # on the weights lm-serve made, through STAGED_YI_STAGES stages, and then
 # jamba-v0.1-52b in bf16 at its published widths, as many whole periods of
@@ -838,20 +880,27 @@ def kernel_phase(torch, timer, path_shapes):
         for a, b in zip(kern(), got):
             exact(name, a, b)
 
-    def train_attention(kind, B, S, H, D, causal=True):
-        """Inputs of one training-attention launch: (check, kernel, plain,
-        yardstick or None, bytes, operations).  o and lse come from the
-        plain forward; the yardstick is F.scaled_dot_product_attention in
-        the instance's type, forward for the lse instance, its autograd
-        backward (dq, dk and dv together) for each backward kernel.  A
-        ``_bf16`` kind takes bf16 q, k, v, o and dO (lse and delta f32)."""
+    def train_attention(kind, B, S, H, D, causal=True, Sk=None):
+        """Inputs of one training-attention launch, q and dO (B, S, H, D)
+        over k, v (B, Sk, H, D) (Sk == S unless given; keys of their own
+        length are non-causal): (check, kernel, plain, yardstick or None,
+        bytes, operations).  o and lse come from the plain forward; the
+        yardstick is F.scaled_dot_product_attention in the instance's type,
+        forward for the lse instance, its autograd backward (dq, dk and dv
+        together) for each backward kernel.  A ``_bf16`` kind takes bf16 q,
+        k, v, o and dO (lse and delta f32)."""
         base = kind.removesuffix("_bf16")
         dtype = torch.float32 if kind == base else torch.bfloat16
         es = 4.0 if kind == base else 2.0      # bytes an operand value
-        q, k, v, do = (randn(B, S, H, D).to(dtype) for _ in range(4))
-        o, lse = chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
-                                   skip_masked=causal, return_lse=True)
-        n = B * S * H * D
+        Sk = S if Sk is None else Sk
+        q, do = (randn(B, S, H, D).to(dtype) for _ in range(2))
+        k, v = (randn(B, Sk, H, D).to(dtype) for _ in range(2))
+        # o in f32 before its rounding, as FlashAttention keeps it for the
+        # backward
+        _, lse, o = chunked_attention(q, k, v, causal=causal,
+                                      chunk=min(1024, Sk), skip_masked=causal,
+                                      return_lse=True)
+        n, nk = B * S * H * D, B * Sk * H * D   # values of q, of k
 
         def check(kern, plain):
             if dtype == torch.float32:
@@ -866,26 +915,29 @@ def kernel_phase(torch, timer, path_shapes):
                 }[base])
             return held
         # the forward's two products over the causal triangle (diagonal
-        # included) or the square
-        fwd = 2.0 * B * H * D * (S * (S + 1) if causal else 2 * S * S)
+        # included) or the S x Sk rectangle
+        fwd = 2.0 * B * H * D * (S * (S + 1) if causal else 2 * S * Sk)
         if base == "flash_attention_lse":
             kern = lambda: FA.flash_attention_lse(     # noqa: E731
                 q, k, v, causal=causal)
             plain = lambda: chunked_attention(          # noqa: E731
-                q, k, v, causal=causal, chunk=min(1024, S),
+                q, k, v, causal=causal, chunk=min(1024, Sk),
                 skip_masked=causal, return_lse=True)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=causal)
+            # q, k, v in; o, lse (and a bf16 instance's f32 o) out
             return (check(kern, plain), kern, plain, lib,
-                    es * 4 * n + 4.0 * B * H * S, fwd)
+                    es * (2 * n + 2 * nk) + (4.0 * n if es < 4 else 0.0)
+                    + 4.0 * B * H * S, fwd)
         if base == "flash_attention_bwd_dq":
             kern = lambda: FA.flash_attention_bwd_dq(  # noqa: E731
                 q, k, v, o, do, lse, causal)
             plain = lambda: FA.flash_attention_bwd_dq_plain(  # noqa: E731
                 q, k, v, o, do, lse, causal)
-            # q, k, v, o, dO, lse in; dq, delta out; s, dP and dQ
-            nbytes, ops = es * 6 * n + 8.0 * B * H * S, 1.5 * fwd
+            # q, k, v, dO, lse and o (f32) in; dq, delta out; s, dP and dQ
+            nbytes = es * (3 * n + 2 * nk) + 4.0 * n + 8.0 * B * H * S
+            ops = 1.5 * fwd
         else:
             delta = FA.flash_attention_bwd_dq_plain(q, k, v, o, do, lse,
                                                     causal)[1]
@@ -894,7 +946,8 @@ def kernel_phase(torch, timer, path_shapes):
             plain = lambda: FA.flash_attention_bwd_dkdv_plain(  # noqa: E731
                 q, k, v, do, lse, delta, causal)
             # q, k, v, dO, lse, delta in; dk, dv out; s, dP, dV and dK
-            nbytes, ops = es * 6 * n + 8.0 * B * H * S, 2.0 * fwd
+            nbytes = es * (2 * n + 4 * nk) + 8.0 * B * H * S
+            ops = 2.0 * fwd
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -1081,7 +1134,9 @@ def kernel_phase(torch, timer, path_shapes):
         or None, bytes moved, operations)."""
         base = kind.removesuffix("_bf16")
         if base == "flash_attention_lse" or base in BWD_KERNELS:
-            return train_attention(kind, *arg_shapes[0])
+            # the shapes of q and k first, the causal flag last
+            (B, S, H, D), (_, Sk, _, _) = arg_shapes[:2]
+            return train_attention(kind, B, S, H, D, arg_shapes[-1], Sk)
         if base == "flash_attention":
             (B, S, H, D), (_, Sk, _, _), _, _, causal = arg_shapes
             return flash_case(B, S, Sk, H, D, causal, torch.float32
@@ -1312,6 +1367,35 @@ def kernel_phase(torch, timer, path_shapes):
                 print(f"    (4, {Sq}, {Sk}, 20, 64) {dtype}: ms "
                       f"{t_kern:.4f} plain {t_plain:.4f} SDPA {t_lib:.4f} "
                       f"bound {b:.5f} ({bound_by}, {own:.5f})")
+    # the six training instances over the same keys (non-causal): every
+    # output held to its plain version (f32: TRAIN_TOL; bf16: the ulp
+    # rule), two launches bit for bit, timed against SDPA in the same type,
+    # forward for the lse instances, its autograd backward for each
+    # backward kernel; whisper's train shapes, (4, 448, 1500, 20, 64) and
+    # (4, 1500, 1500, 20, 64), come from the lm-train-whisper paths above
+    print("  training instances, keys of their own length (B, Sq, Sk, H, "
+          "D), non-causal: ms, plain ms, SDPA ms, bound ms (f32: 3xTF32 "
+          "bound; bf16: own products bound)")
+    for Sq in (1, 64):
+        for Sk in (1, 37, 1499):
+            for kind in ("flash_attention_lse", *BWD_KERNELS):
+                for inst in (kind, kind + "_bf16"):
+                    check, kern, plain, lib, nbytes, ops = train_attention(
+                        inst, 4, Sq, 20, 64, False, Sk)
+                    check()
+                    t_kern, t_plain = timer(kern), timer(plain)
+                    t_lib = timer(lib)
+                    if inst in BF16_PRODUCTS:
+                        b, bound_by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+                        own = bound_ms(nbytes, ops * BF16_PRODUCTS[inst],
+                                       PEAK_BF16_FLOPS)[0]
+                    else:
+                        b, bound_by = bound_ms(nbytes, ops, PEAK_F32_FLOPS)
+                        own = bound_tf32x3_ms(nbytes, ops)
+                    print(f"    {inst} (4, {Sq}, {Sk}, 20, 64): ms "
+                          f"{t_kern:.4f} plain {t_plain:.4f} SDPA "
+                          f"{t_lib:.4f} bound {b:.5f} ({bound_by}, "
+                          f"{own:.5f})")
     tile_checks(torch, SC, randn, exact)
     specials = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -1.0],
                             device="cuda")
@@ -2582,23 +2666,31 @@ def patch_check(torch, library, cfg, tag, params) -> None:
 
 
 def train_held(tag, what, got, want,
-               against: str = "kernel route vs plain route") -> float:
-    """|got - want| (floats, or tensors on any devices) within TRAIN_TOL x
-    max(1, max|want|); the error's fraction of that bound."""
+               against: str = "kernel route vs plain route",
+               tol: float = TRAIN_TOL, floor: float = 1.0) -> float:
+    """|got - want| (floats, or tensors on any devices, compared in f32 or
+    wider) within ``tol`` x max(``floor``, max|want|); the error's
+    fraction of that bound."""
     if isinstance(want, float):
         err, scale = abs(got - want), abs(want)
     else:
-        err = float((got.to(want.device) - want).abs().max())
-        scale = float(want.abs().max())
-    lim = TRAIN_TOL * max(1.0, scale)
+        wide = torch_wide(want)
+        err = float((torch_wide(got.to(want.device)) - wide).abs().max())
+        scale = float(wide.abs().max())
+    lim = tol * max(floor, scale)
     if not err <= lim:
         raise AssertionError(f"[{tag}] {what}: {against} {err:.3e} > "
                              f"{lim:.3e}")
-    return err / lim
+    return err / lim if lim else 0.0
+
+
+def torch_wide(t):
+    """t in f32 if its type is narrower (bf16), else as it is."""
+    return t.float() if t.element_size() < 4 else t
 
 
 def train_steps(torch, library, cfg, params, batch, tag, opt: dict,
-                expected: dict, dtype=None) -> dict:
+                expected: dict, dtype=None, microbatches=None) -> dict:
     """TRAIN_STEPS steps of make_train_step (remat "full", AdamW ``opt``,
     parameters of ``dtype``) in FaultTolerantLoop on the repeated
     ``batch``, a CheckpointStore in a temporary directory: the launches
@@ -2618,7 +2710,8 @@ def train_steps(torch, library, cfg, params, batch, tag, opt: dict,
     opt_state = init_opt_state(params, opt_cfg)
     dtypes = {name: t.dtype for name, t in _leaves(params)}
     step = make_train_step(cfg, opt_cfg, remat="full", device="cuda",
-                           dtype=dtype or torch.float32)
+                           dtype=dtype or torch.float32,
+                           microbatches=microbatches)
     losses = []
 
     def run_step(state, b):
@@ -3127,6 +3220,191 @@ def train_recurrent_phase(torch, library):
         gc.collect()
         recurrent_step_breakdown(torch, tag, cfg, params, batch)
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag] = (counts, shapes)
+        print(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def whisper_train_ops(cfg, B: int, S: int) -> float:
+    """f32 operations of one lm-train-whisper step, counted as lm-train's:
+    a decoder matrix product 8 x its weights x its rows (forward, the
+    group's recompute and the backward's two; the cross attention's keys
+    and values on the T encoder frames, the rest on the S tokens, the head
+    too), an encoder product 6 x (no recompute: the encoder keeps its
+    activations); attention's two products forward (twice in the decoder:
+    step and recompute) and the five of its backward, over the T x T
+    square (the encoder), the S x T rectangle (the cross attention) and
+    the causal triangle, diagonal included (the decoder's self-attention)."""
+    d, T, H, D = cfg.d_model, cfg.enc_frames, cfg.n_heads, cfg.hd
+    E, L = cfg.encoder_layers, cfg.n_layers
+    q_o = 2 * d * H * D                              # wq, wo
+    k_v = 2 * d * cfg.n_kv_heads * D                 # wk, wv
+    ffn = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    mm = (6.0 * E * T * (q_o + k_v + ffn)
+          + 8.0 * L * (S * (q_o + k_v + q_o + ffn) + T * k_v)
+          + 8.0 * S * cfg.vocab * d)
+    attn = (E * (1 + 2.5) * 4.0 * H * D * T * T
+            + L * (2 + 2.5) * (2.0 * H * D * S * (S + 1)
+                               + 4.0 * H * D * S * T))
+    return B * (mm + attn)
+
+
+def whisper_bf16_full(torch, tag, tol, got, want, want32) -> list:
+    """The bf16 run's full gradients, kernel route ``got`` against plain
+    route ``want``, each within ``tol`` x max|want| (the route rule of the
+    loss and the norms); beside it each leaf's e = max|want - want32|, the
+    plain route's own distance from its f32 run on the same bf16 values
+    (tests/test_torch_bf16.py's noise), and the kernel route's.  A sum that
+    cancels far below its terms, such as the last decoder layer's wq
+    gradient where attention is near uniform, shows there whether the
+    kernel route is as close to the f32 gradient as the plain route
+    (rowsum(dO * O) from the bf16 o in place of the f32 o put it four
+    times further).  Returns the errors' fractions of their bounds."""
+    out = []
+    for n, w in want.items():
+        err = float((got[n].float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        e = float((w.float() - want32[n]).abs().max())
+        e_got = float((got[n].float() - want32[n]).abs().max())
+        lim = tol * top
+        print(f"[{tag}] {n}: kernel vs plain {err:.3e} within {lim:.3e} "
+              f"({tol} x max|plain| {top:.3e}); from the f32 run: plain "
+              f"route {e:.3e}, kernel route {e_got:.3e}")
+        if not err <= lim:
+            raise AssertionError(f"[{tag}] {n}: kernel route vs plain route "
+                                 f"{err:.3e} > {lim:.3e}")
+        out.append(err / lim if lim else 0.0)
+    return out
+
+
+def train_whisper_phase(torch, library):
+    """lm-train-whisper and lm-train-whisper-bf16 (TRAIN_WHISPER): the
+    encoder-decoder trained at its published widths and depth, f32 then
+    bf16.  On each: the kernel route held to the plain route on one
+    gradient of the batch from the same weights (the loss, every leaf's
+    gradient norm, the full gradients of TRAIN_WHISPER_KEEP; f32 within
+    TRAIN_TOL x max(1, max|plain|), bf16 within bf16_route_tol(64: 32
+    encoder and 32 decoder layers) x max|plain|, its full gradients also
+    read against an f32 run, whisper_bf16_full), then TRAIN_STEPS steps of
+    make_train_step (one microbatch of the whole batch) in
+    FaultTolerantLoop: finite losses, the fourth below the first, int8
+    states, parameters of their type, the launches exactly the step's
+    table times the steps, the peak below the card's memory; ms a step,
+    tokens/s, the step's bound, one profiled step.  Returns {tag:
+    (launches, launch shapes)} of each four-step run."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import init_params, param_count
+    from repro_torch.models.model import _leaves, _tree
+    from repro_torch.runtime.steps import accumulate_grads
+    on = card()
+    W = TRAIN_WHISPER
+    B, S = W["batch"], W["seq"]
+    cfg = lm_config(WHISPER["arch"], W["tag"], None)
+    E, L = cfg.encoder_layers, cfg.n_layers
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                    global_batch=B)).batch_at(0)
+    tokens = {k: torch.from_numpy(data[k]).cuda() for k in ("tokens",
+                                                           "labels")}
+    frames = torch.randn(
+        (B, cfg.enc_frames, cfg.d_model), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(LM_SEED + 3))
+    total = torch.cuda.get_device_properties(0).total_memory
+    ops = whisper_train_ops(cfg, B, S)
+    out = {}
+    for dtype, tag, opt, tol, floor in (
+            (torch.float32, W["tag"], TRAIN_OPT, TRAIN_TOL, 1.0),
+            (torch.bfloat16, W["tag"] + "-bf16", TRAIN_BF16_OPT,
+             bf16_route_tol(E + L), 0.0)):
+        t_phase = time.perf_counter()
+        sfx = "" if dtype == torch.float32 else "_bf16"
+        # the frames in the step's working type, as the reference's
+        # input_specs give them
+        batch = tokens | {"enc_frames": frames.to(dtype)}
+        params = init_params(torch.Generator(device="cuda").manual_seed(
+            LM_SEED), cfg, dtype=dtype)
+        w_bytes = sum(t.numel() * t.element_size()
+                      for _, t in _leaves(params))
+        print(f"[{tag}] {cfg.name}: {E} encoder and {L} decoder layers, "
+              f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, "
+              f"{cfg.enc_frames} frames: {param_count(params)} parameters, "
+              f"{w_bytes} bytes in {dtype}; one microbatch of {B} x {S} "
+              f"tokens over {B} x {cfg.enc_frames} frames, remat full, "
+              f"AdamW {opt}")
+
+        def kept(use_kernels, p=None, b=None):
+            """(loss, {leaf: gradient norm}, {name: full gradient}) of the
+            batch's gradient (or ``b``'s at ``p``), accumulated in f32 over
+            microbatches."""
+            loss, grads = accumulate_grads(
+                params if p is None else p, cfg, batch if b is None else b,
+                W["route_mbs"], torch.float32, remat="full",
+                use_kernels=use_kernels)
+            flat = dict(_leaves(grads))
+            norms = {n: float(torch.linalg.vector_norm(g.float()))
+                     for n, g in flat.items()}
+            full = {f"{n}[{layer}]": flat[n][layer].clone()
+                    for n, layer in TRAIN_WHISPER_KEEP}
+            del grads, flat
+            return float(loss), norms, full
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lk, nk, fk = kept(True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lp, np_, fp = kept(False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not any(n.startswith("encoder/") for n in np_):
+            raise AssertionError(f"[{tag}] no encoder leaf in the gradient")
+        held = functools.partial(train_held, tag, tol=tol, floor=floor)
+        worst = [held("loss", lk, lp)]
+        worst += [held(f"norm of {n}", nk[n], np_[n]) for n in np_]
+        if dtype == torch.float32:
+            worst += [held(n, fk[n], fp[n]) for n in fp]
+            rule = f"{tol} x max(1, max|plain|)"
+        else:
+            worst += whisper_bf16_full(torch, tag, tol, fk, fp, kept(
+                False, _tree({n: t.float() for n, t in _leaves(params)}),
+                batch | {"enc_frames": batch["enc_frames"].float()})[2])
+            rule = (f"{tol} x max|plain| (the full gradients beside their "
+                    f"distances from the plain route's f32 run)")
+        print(f"[{tag}] kernel vs plain route on one gradient of the batch "
+              f"from the same weights ({W['route_mbs']} microbatches "
+              f"accumulated in f32): loss {lk:.6f} vs {lp:.6f}, {len(np_)} "
+              f"gradient norms and {len(fp)} full gradients "
+              f"({', '.join(fp)}) within {rule}, the worst at "
+              f"{max(worst):.4f} of it; {t1 - t0:.3f} s kernel route, "
+              f"{t2 - t1:.3f} s plain route (host clock)")
+        del fk, fp
+        run = train_steps(torch, library, cfg, params, batch, tag, opt, {
+            f"flash_attention_lse{sfx}": (E + 2 * 2 * L) * TRAIN_STEPS,
+            f"flash_attention_bwd_dq{sfx}": (E + 2 * L) * TRAIN_STEPS,
+            f"flash_attention_bwd_dkdv{sfx}": (E + 2 * L) * TRAIN_STEPS},
+            dtype=dtype, microbatches=1)
+        counts, shapes, step_s = run["counts"], run["shapes"], run["step_s"]
+        if not run["peak"] < total:
+            raise AssertionError(f"[{tag}] peak {run['peak']} bytes, the "
+                                 f"card has {total}")
+        peak_flops = PEAK_F32_FLOPS if dtype == torch.float32 else \
+            PEAK_BF16_FLOPS
+        b_s = ops / peak_flops
+        print(f"[{tag}] {TRAIN_STEPS} steps in FaultTolerantLoop, losses "
+              f"{[round(x, 6) for x in run['losses']]} (the last below the "
+              f"first), events {run['events']}; {step_s * 1e3:.3f} ms a "
+              f"step (host clock to the loss, median of steps 2-"
+              f"{TRAIN_STEPS}: {[round(w * 1e3, 3) for w in run['walls']]}"
+              f"), {B * S / step_s:.1f} tokens/s "
+              f"({B * cfg.enc_frames / step_s:.1f} frames/s); bound {b_s * 1e3:.3f} ms ({ops:.4e} "
+              f"operations at {peak_flops / 1e12:g} TFLOP/s), "
+              f"{b_s / step_s:.3f} of it; peak device memory {run['peak']} "
+              f"bytes of {total}; launches "
+              f"{({k: n for k, n in counts.items() if n})}; {on}")
+        profile_device(torch, f"[{tag}] profile of one step",
+                       run["one_step"], step_s * 1e3)
+        del run, params
         gc.collect()
         torch.cuda.empty_cache()
         out[tag] = (counts, shapes)
@@ -4028,6 +4306,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained |= train_recurrent_phase(torch, library)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained |= train_whisper_phase(torch, library)
     t4 = time.perf_counter()
     lm["lm-staged-jamba"] = staged_jamba_phase(torch, library)
     lm_s["lm-staged-jamba"] = time.perf_counter() - t4

@@ -106,7 +106,8 @@ def check(FA, gen, B, S, H, D, causal, dtype) -> float:
     from repro_torch.testing.ulp import bf16_ulp, f32_slack
     q, k, v, do = (torch.randn(B, S, H, D, generator=gen,
                                device="cuda").to(dtype) for _ in range(4))
-    o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
+    # the backward takes the forward's output in f32 (FlashAttention's)
+    _, lse, o = FA.flash_attention_lse(q, k, v, causal=causal)
     got = FA.flash_attention_backward(q, k, v, o, lse, do, causal)
     want = FA.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
     again = FA.flash_attention_backward(q, k, v, o, lse, do, causal)
@@ -276,20 +277,22 @@ def main(argv: list[str] | None = None) -> int:
     for dt in (dtype,) + ((torch.float32,) if dtype != torch.float32
                           else ()):
         qd, kd, vd, dd = (t.to(dt) for t in (q, k, v, do))
-        o, lse = FA.flash_attention_lse(qd, kd, vd, causal=True)
+        _, lse, o = FA.flash_attention_lse(qd, kd, vd, causal=True)
         delta = FA.flash_attention_bwd_dq(qd, kd, vd, o, dd, lse, True)[1]
         es = qd.element_size()
         io = es * 6 * n + 8.0 * B * H * S
+        # the bf16 lse instance also writes o in f32; dq reads o in f32
+        wide = 0.0 if es == 4 else 4.0 * n
         tag = f" ({str(dt).removeprefix('torch.')})"
         rows += [
             ("flash_attention_lse" + tag, dt,
              lambda qd=qd, kd=kd, vd=vd: FA.flash_attention_lse(
                  qd, kd, vd, causal=True),
-             es * 4 * n + 4.0 * B * H * S, fwd, None),
+             es * 4 * n + wide + 4.0 * B * H * S, fwd, None),
             ("flash_attention_bwd_dq" + tag, dt,
              lambda qd=qd, kd=kd, vd=vd, o=o, dd=dd, lse=lse:
              FA.flash_attention_bwd_dq(qd, kd, vd, o, dd, lse, True),
-             io, 1.5 * fwd, "flash_attention_bwd_dq"),
+             io - es * n + 4.0 * n, 1.5 * fwd, "flash_attention_bwd_dq"),
             ("flash_attention_bwd_dkdv" + tag, dt,
              lambda qd=qd, kd=kd, vd=vd, dd=dd, lse=lse, delta=delta:
              FA.flash_attention_bwd_dkdv(qd, kd, vd, dd, lse, delta, True),

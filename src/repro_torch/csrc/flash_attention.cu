@@ -388,13 +388,14 @@ extern "C" int smof_flash_attention(const void* q, const void* k,
                          stream);
 }
 
-// The training forward: q, k, v, o of one (B, S, H, D) shape, and lse: (B,
-// H, S) f32, each row's log-sum-exp of the scaled scores.
+// The training forward: q, o of shape (B, S, H, D) and k, v of shape (B,
+// Sk, H, D) as above, and lse: (B, H, S) f32, each row's log-sum-exp of the
+// scaled scores.
 extern "C" int smof_flash_attention_lse(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
-                                        int64_t B, int64_t S, int64_t H,
-                                        int64_t D, int64_t causal,
+                                        int64_t B, int64_t S, int64_t Sk,
+                                        int64_t H, int64_t D, int64_t causal,
                                         void* stream) {
-  return dispatch<true>(q, k, v, o, lse, B, S, S, H, D, causal, stream);
+  return dispatch<true>(q, k, v, o, lse, B, S, Sk, H, D, causal, stream);
 }
 

@@ -4,9 +4,13 @@
 // already repeated to H; its training instance (flash_attention_lse_bf16)
 // also writes each row's log-sum-exp of the scaled scores, lse = m +
 // log(max(l, 1e-30)) as (B, H, S) f32, from which the bf16 backward pair
-// (flash_attention_bwd_bf16.cu) recomputes P.  They compute what the plain
-// route (models/attention.py, chunked_attention) computes from the bf16
-// operands:
+// (flash_attention_bwd_bf16.cu) recomputes P, and o in f32 before its
+// rounding (the backward's rowsum(dO o O)
+// takes it: from the rounded o it moves by 2^-8 sum |dO o O|, which a
+// near-uniform attention's dP - D cancels down to, and its gradients of the
+// q and k projections by several times the plain route's bf16 noise).
+// They compute what the plain route (models/attention.py,
+// chunked_attention) computes from the bf16 operands:
 //   q^ = bf16(q bf16(D^-1/2)), s = q^ k^T [causal mask -2^30, keys past Sk
 //   -inf], the online softmax in f32 (m, l, the exp(m_old - m_new)
 //   rescale), o = (sum P v) / max(l, 1e-30), rounded once to bf16.
@@ -119,8 +123,8 @@ template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, int64_t S, int64_t Sk, int64_t H,
-               int causal, float scale) {
+               float* __restrict__ lse, float* __restrict__ ow, int64_t S,
+               int64_t Sk, int64_t H, int causal, float scale) {
   using L = Layout<D>;
   constexpr int C = L::C;
   constexpr int NB = BK / 8;  // n8 tiles of a tile's scores
@@ -315,6 +319,11 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if constexpr (LSE) {
       // the 4 lanes of a row hold the same m and l after the shuffles
       if (t == 0) lse[bh * S + qp] = m[r] + logf(den);
+      float* out = ow + base + qp * row + 2 * t;
+#pragma unroll
+      for (int j = 0; j < L::NT; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
     }
     // o rounded once, into the warp's own q^ rows (its fragments are held
     // in registers), then out in 16-byte stores of whole chunks
@@ -339,7 +348,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D, bool LSE>
 int run_flash(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-              float* lse, int64_t B, int64_t S, int64_t Sk, int64_t H,
+              float* lse, float* ow, int64_t B, int64_t S, int64_t Sk,
+              int64_t H,
               int causal, cudaStream_t st) {
   constexpr size_t bytes = Layout<D>::BYTES;
   const cudaError_t err =
@@ -347,32 +357,36 @@ int run_flash(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + ROWS - 1) / ROWS));
   flash_fwd_bf16<D, LSE><<<grid, THREADS, bytes, st>>>(
-      q, k, v, o, lse, S, Sk, H, causal, elem::head_scale<bf16>(D));
+      q, k, v, o, lse, ow, S, Sk, H, causal, elem::head_scale<bf16>(D));
   return (int)cudaGetLastError();
 }
 
 template <bool LSE>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             void* lse, int64_t B, int64_t S, int64_t Sk, int64_t H,
-             int64_t D, int64_t causal, void* stream) {
+             void* lse, void* ow, int64_t B, int64_t S, int64_t Sk,
+             int64_t H, int64_t D, int64_t causal, void* stream) {
   if (B * S * H <= 0) return (int)cudaGetLastError();
   // a causal call's keys are its queries' positions; no key, no softmax
   if ((causal && Sk != S) || Sk <= 0) return (int)cudaErrorInvalidValue;
   const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k,
              *vb = (const bf16*)v;
   bf16* ob = (bf16*)o;
-  float* lf = (float*)lse;
+  float *lf = (float*)lse, *wf = (float*)ow;
   cudaStream_t st = (cudaStream_t)stream;
   const int c = causal ? 1 : 0;
   switch (D) {
     case 16:
-      return run_flash<16, LSE>(qb, kb, vb, ob, lf, B, S, Sk, H, c, st);
+      return run_flash<16, LSE>(qb, kb, vb, ob, lf, wf, B, S, Sk, H, c,
+                                st);
     case 32:
-      return run_flash<32, LSE>(qb, kb, vb, ob, lf, B, S, Sk, H, c, st);
+      return run_flash<32, LSE>(qb, kb, vb, ob, lf, wf, B, S, Sk, H, c,
+                                st);
     case 64:
-      return run_flash<64, LSE>(qb, kb, vb, ob, lf, B, S, Sk, H, c, st);
+      return run_flash<64, LSE>(qb, kb, vb, ob, lf, wf, B, S, Sk, H, c,
+                                st);
     case 128:
-      return run_flash<128, LSE>(qb, kb, vb, ob, lf, B, S, Sk, H, c, st);
+      return run_flash<128, LSE>(qb, kb, vb, ob, lf, wf, B, S, Sk, H, c,
+                                 st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -393,18 +407,21 @@ extern "C" int smof_flash_attention_bf16(const void* q, const void* k,
                                          int64_t S, int64_t Sk, int64_t H,
                                          int64_t D, int64_t causal,
                                          void* stream) {
-  return dispatch<false>(q, k, v, o, nullptr, B, S, Sk, H, D, causal,
-                         stream);
+  return dispatch<false>(q, k, v, o, nullptr, nullptr, B, S, Sk, H, D,
+                         causal, stream);
 }
 
-// The training forward: q, k, v, o bf16 of one (B, S, H, D) shape, and lse:
-// (B, H, S) f32, each row's log-sum-exp of the scaled scores.
+// The training forward: q, o of shape (B, S, H, D) and k, v of shape (B,
+// Sk, H, D) bf16 as above, lse: (B, H, S) f32, each row's log-sum-exp of
+// the scaled scores, and ow: (B, S, H, D) f32, o before its rounding.
 extern "C" int smof_flash_attention_lse_bf16(const void* q, const void* k,
                                              const void* v, void* o,
-                                             void* lse, int64_t B, int64_t S,
-                                             int64_t H, int64_t D,
-                                             int64_t causal, void* stream) {
-  return dispatch<true>(q, k, v, o, lse, B, S, S, H, D, causal, stream);
+                                             void* lse, void* ow, int64_t B,
+                                             int64_t S, int64_t Sk, int64_t H,
+                                             int64_t D, int64_t causal,
+                                             void* stream) {
+  return dispatch<true>(q, k, v, o, lse, ow, B, S, Sk, H, D, causal,
+                        stream);
 }
 
 // out[0..2]: dynamic shared memory bytes, registers a thread and resident

@@ -1,8 +1,11 @@
 // flash_attention_bwd: the gradient of flash_attention (flash_attention.cu)
 // from the forward's output o and its per-row log-sum-exp lse, as two
-// kernels on q, k, v, o, dO of shape (B, S, H, D) and lse, delta of shape
-// (B, H, S), all f32, the KV heads already repeated to H.  With the scaled
-// scores s = q^ k^T [causal mask -2^30], q^ = q D^-1/2 rounded once:
+// kernels on q, o, dO of shape (B, S, H, D), k, v of shape (B, Sk, H, D)
+// and lse, delta of shape (B, H, S), all f32, the KV heads already repeated
+// to H.  A causal call has Sk == S; a non-causal one may have keys of their
+// own length (the encoder-decoder's cross attention: S decoder rows against
+// Sk = 1500 encoder frames).  With the scaled scores s = q^ k^T [causal
+// mask -2^30], q^ = q D^-1/2 rounded once:
 //   P = exp(s - lse), dV = P^T dO, dP = dO V^T, D_i = rowsum(dO o O),
 //   dS = P o (dP - D), dQ = dS K D^-1/2, dK = dS^T q^.
 //
@@ -28,13 +31,13 @@
 // computes the scores and dP of the pair's 16 rows against tile rows
 // [16 m, 16 m + 16) over all of D (accumulators of 16 x 16, the even and odd
 // k8 steps apart: 8 chains of products in flight), masks them (only a tile
-// that reaches past S or past a diagonal), and writes dS (and P in dkdv) to
-// the pair's slice of shared memory, which takes them from the accumulator
-// layout to the A operand's; after a barrier of the pair's 64 threads, warp
-// m multiplies the whole (16, 32) slice into columns [m D/2, (m + 1) D/2) of
-// its accumulators: dQ in dq (16 x D/2: 32 registers at D = 128), dK and dV
-// in dkdv (64 registers).  A pair skips a tile wholly above its diagonal;
-// the heaviest blocks are issued first.
+// that reaches past S, past Sk or past a diagonal), and writes dS (and P in
+// dkdv) to the pair's slice of shared memory, which takes them from the
+// accumulator layout to the A operand's; after a barrier of the pair's 64
+// threads, warp m multiplies the whole (16, 32) slice into columns [m D/2,
+// (m + 1) D/2) of its accumulators: dQ in dq (16 x D/2: 32 registers at D
+// = 128), dK and dV in dkdv (64 registers).  A pair skips a tile wholly
+// above its diagonal; the heaviest blocks are issued first.
 //
 // Operands.  The stationary rows are the A operand of s and dP (q^ and dO in
 // dq, k and v in dkdv): they are split once, when the block starts, into hi
@@ -63,9 +66,11 @@
 // halve the chains of products in flight or double the planes' share.
 // __launch_bounds__(256, 1) leaves ptxas up to 255 registers a thread.
 //
-// Rows past S are read as zeros and never written; a key past S gets a
-// probability of exactly 0 (dq), a query row past S a P of 0 (dkdv); the
-// causal mask is -2^30, as the forward's; the exponentials are full expf.
+// Rows past S (query rows) or Sk (keys) are read as zeros and never
+// written; a key past Sk gets a probability of exactly 0 (dq), a query row
+// past S a P of 0 (dkdv); the dkdv grid runs ceil(Sk / 64) key blocks over
+// all S query rows; the causal mask is -2^30, as the forward's; the
+// exponentials are full expf.
 // flash_attention_bwd_dq also writes D_i of its rows, which
 // flash_attention_bwd_dkdv (launched after it on the same stream) reads.
 //
@@ -219,7 +224,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ o,
               const float* __restrict__ dout, const float* __restrict__ lse,
               float* __restrict__ dq, float* __restrict__ delta, int64_t S,
-              int64_t H, int causal, float scale) {
+              int64_t Sk, int64_t H, int causal, float scale) {
   using L = Layout<D>;
   constexpr int LD = L::LD;
   extern __shared__ __align__(16) float smem[];
@@ -236,15 +241,16 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t bh = blockIdx.x, b = bh / H, h = bh - b * H;
   // the heaviest causal q blocks are issued first
   const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * ROWS;
-  const int64_t row = H * D, base = b * S * row + h * D;
+  const int64_t row = H * D, base = b * S * row + h * D;  // q, o, dO, dq
+  const int64_t kbase = b * Sk * row + h * D;              // k, v
   const int64_t q_end = q0 + ROWS < S ? q0 + ROWS : S;
-  const int64_t k_end = causal ? q_end : S;  // keys the block's rows need
+  const int64_t k_end = causal ? q_end : Sk;  // keys the block's rows need
   const int ntiles = (int)((k_end + TILE - 1) / TILE);
 
   auto load_kv = [&](int s, int64_t k0) {
     float* st = ring + 2 * s * L::TILEF;
-    load_tile<D>(st, k + base, k0, S, row);
-    load_tile<D>(st + L::TILEF, v + base, k0, S, row);
+    load_tile<D>(st, k + kbase, k0, Sk, row);
+    load_tile<D>(st + L::TILEF, v + kbase, k0, Sk, row);
   };
   load_kv(0, 0);
   tf32x3::cp_async_commit();
@@ -325,10 +331,10 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                            __uint_as_float(vb[j][1])));
       }
     }
-    // dS = P o (dP - D), P = exp(s - lse); keys at or past S (column
+    // dS = P o (dP - D), P = exp(s - lse); keys at or past Sk (column
     // past) give P = 0, and key column c lies above row r's diagonal where
     // c - r > diag; only a tile that reaches past either is masked
-    const int past = (int)(S - k0 < TILE ? S - k0 : TILE);
+    const int past = (int)(Sk - k0 < TILE ? Sk - k0 : TILE);
     const int diag = (int)(qp0 - k0 < TILE ? qp0 - k0 : TILE);
     const bool edge = past < TILE || (causal && diag < TILE - 1);
 #pragma unroll
@@ -385,8 +391,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, int64_t S, int64_t H, int causal,
-                float scale) {
+                float* __restrict__ dv, int64_t S, int64_t Sk, int64_t H,
+                int causal, float scale) {
   using L = Layout<D>;
   constexpr int LD = L::LD;
   extern __shared__ __align__(16) float smem[];
@@ -403,7 +409,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t bh = blockIdx.x, b = bh / H, h = bh - b * H;
   // key block 0 meets every query tile: the heaviest blocks are issued first
   const int64_t k0 = (int64_t)blockIdx.y * ROWS;
-  const int64_t row = H * D, base = b * S * row + h * D;
+  const int64_t row = H * D, base = b * S * row + h * D;  // q, dO
+  const int64_t kbase = b * Sk * row + h * D;              // k, v, dk, dv
   // the query tiles with a row at or past the block's first key
   const int first = causal ? (int)(k0 / TILE) : 0;
   const int ntiles = (int)((S + TILE - 1) / TILE) - first;
@@ -422,12 +429,12 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
   load_q(0, (int64_t)first * TILE);
   tf32x3::cp_async_commit();
-  split_rows<D>(kh, kl, k + base, k0, S, row, 1.0f);
-  split_rows<D>(vh, vl, v + base, k0, S, row, 1.0f);
+  split_rows<D>(kh, kl, k + kbase, k0, Sk, row, 1.0f);
+  split_rows<D>(vh, vl, v + kbase, k0, Sk, row, 1.0f);
 
   // the pair's keys k0 + 16 pair + [0, 16): rows of the accumulators
   const int64_t kp0 = k0 + 16 * pair;
-  const bool active = kp0 < S;
+  const bool active = kp0 < Sk;
   const int fa = pair * L::NKS * 32 + lane;
   float* pt = pts + pair * L::SLICE;
   float* dt = dts + pair * L::SLICE;
@@ -529,8 +536,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int64_t kp = kp0 + g + 8 * r;
-    if (kp >= S) continue;
-    const int64_t at_row = base + kp * row + half * (D / 2) + 2 * t;
+    if (kp >= Sk) continue;
+    const int64_t at_row = kbase + kp * row + half * (D / 2) + 2 * t;
 #pragma unroll
     for (int j = 0; j < L::NH; ++j) {
       *reinterpret_cast<float2*>(dk + at_row + 8 * j) =
@@ -544,14 +551,15 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int run_dq(const float* q, const float* k, const float* v, const float* o,
            const float* dout, const float* lse, float* dq, float* delta,
-           int64_t B, int64_t S, int64_t H, int causal, cudaStream_t st) {
+           int64_t B, int64_t S, int64_t Sk, int64_t H, int causal,
+           cudaStream_t st) {
   const size_t bytes = Layout<D>::DQ;
   const cudaError_t err =
       tf32x3::set_shared_memory<bwd_dq_kernel<D>>((int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + ROWS - 1) / ROWS));
   bwd_dq_kernel<D><<<grid, THREADS, bytes, st>>>(
-      q, k, v, o, dout, lse, dq, delta, S, H, causal,
+      q, k, v, o, dout, lse, dq, delta, S, Sk, H, causal,
       elem::head_scale<float>(D));
   return (int)cudaGetLastError();
 }
@@ -559,15 +567,15 @@ int run_dq(const float* q, const float* k, const float* v, const float* o,
 template <int D>
 int run_dkdv(const float* q, const float* k, const float* v,
              const float* dout, const float* lse, const float* delta,
-             float* dk, float* dv, int64_t B, int64_t S, int64_t H,
-             int causal, cudaStream_t st) {
+             float* dk, float* dv, int64_t B, int64_t S, int64_t Sk,
+             int64_t H, int causal, cudaStream_t st) {
   const size_t bytes = Layout<D>::DKDV;
   const cudaError_t err =
       tf32x3::set_shared_memory<bwd_dkdv_kernel<D>>((int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + ROWS - 1) / ROWS));
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sk + ROWS - 1) / ROWS));
   bwd_dkdv_kernel<D><<<grid, THREADS, bytes, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, S, H, causal,
+      q, k, v, dout, lse, delta, dk, dv, S, Sk, H, causal,
       elem::head_scale<float>(D));
   return (int)cudaGetLastError();
 }
@@ -598,13 +606,16 @@ int occupancy_of(int64_t kernel, int64_t* out) {
 
 }  // namespace
 
-// q, k, v, o, dout, dq: (B, S, H, D) f32, contiguous; lse, delta: (B, H, S)
-// f32; D in {16, 32, 64, 128}; causal 0 or 1.  Writes dq and delta.
+// q, o, dout, dq: (B, S, H, D) and k, v: (B, Sk, H, D) f32, contiguous;
+// lse, delta: (B, H, S) f32; D in {16, 32, 64, 128}; causal 0 or 1, and a
+// causal call has Sk == S.  Writes dq and delta.
 extern "C" int smof_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* delta, int64_t B,
-    int64_t S, int64_t H, int64_t D, int64_t causal, void* stream) {
+    int64_t S, int64_t Sk, int64_t H, int64_t D, int64_t causal,
+    void* stream) {
   if (B * S * H <= 0) return (int)cudaGetLastError();
+  if ((causal && Sk != S) || Sk <= 0) return (int)cudaErrorInvalidValue;
   const float *qf = (const float*)q, *kf = (const float*)k,
               *vf = (const float*)v, *of = (const float*)o,
               *df = (const float*)dout, *lf = (const float*)lse;
@@ -613,24 +624,30 @@ extern "C" int smof_flash_attention_bwd_dq(
   const int c = causal ? 1 : 0;
   switch (D) {
     case 16:
-      return run_dq<16>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
+      return run_dq<16>(qf, kf, vf, of, df, lf, dqf, delf, B, S, Sk, H, c,
+                        st);
     case 32:
-      return run_dq<32>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
+      return run_dq<32>(qf, kf, vf, of, df, lf, dqf, delf, B, S, Sk, H, c,
+                        st);
     case 64:
-      return run_dq<64>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
+      return run_dq<64>(qf, kf, vf, of, df, lf, dqf, delf, B, S, Sk, H, c,
+                        st);
     case 128:
-      return run_dq<128>(qf, kf, vf, of, df, lf, dqf, delf, B, S, H, c, st);
+      return run_dq<128>(qf, kf, vf, of, df, lf, dqf, delf, B, S, Sk, H, c,
+                         st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// q, k, v, dout, dk, dv: (B, S, H, D) f32, contiguous; lse, delta (the dq
-// kernel's): (B, H, S) f32.  Writes dk and dv.
+// q, dout: (B, S, H, D) and k, v, dk, dv: (B, Sk, H, D) f32, contiguous;
+// lse, delta (the dq kernel's): (B, H, S) f32.  Writes dk and dv.
 extern "C" int smof_flash_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int64_t B,
-    int64_t S, int64_t H, int64_t D, int64_t causal, void* stream) {
+    int64_t S, int64_t Sk, int64_t H, int64_t D, int64_t causal,
+    void* stream) {
   if (B * S * H <= 0) return (int)cudaGetLastError();
+  if ((causal && Sk != S) || Sk <= 0) return (int)cudaErrorInvalidValue;
   const float *qf = (const float*)q, *kf = (const float*)k,
               *vf = (const float*)v, *df = (const float*)dout,
               *lf = (const float*)lse, *delf = (const float*)delta;
@@ -639,14 +656,17 @@ extern "C" int smof_flash_attention_bwd_dkdv(
   const int c = causal ? 1 : 0;
   switch (D) {
     case 16:
-      return run_dkdv<16>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c, st);
+      return run_dkdv<16>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, Sk, H, c,
+                          st);
     case 32:
-      return run_dkdv<32>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c, st);
+      return run_dkdv<32>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, Sk, H, c,
+                          st);
     case 64:
-      return run_dkdv<64>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c, st);
+      return run_dkdv<64>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, Sk, H, c,
+                          st);
     case 128:
-      return run_dkdv<128>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, H, c,
-                           st);
+      return run_dkdv<128>(qf, kf, vf, df, lf, delf, dkf, dvf, B, S, Sk, H,
+                           c, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

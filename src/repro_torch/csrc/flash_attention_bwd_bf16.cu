@@ -1,10 +1,14 @@
 // flash_attention_bwd_bf16: the gradient of flash_attention_lse_bf16
-// (flash_attention_bf16.cu) on bf16 operands, as two kernels on q, k, v, o,
-// dO of shape (B, S, H, D) bf16 and lse, delta of shape (B, H, S) f32, the
-// KV heads already repeated to H.  They compute what the f32 pair
+// (flash_attention_bf16.cu) on bf16 operands, as two kernels on q, o, dO of
+// shape (B, S, H, D) and k, v of shape (B, Sk, H, D) bf16 (o f32: the
+// forward's output before its rounding) and lse, delta of shape (B, H, S)
+// f32, the KV heads already repeated to H; a causal call has Sk == S, a
+// non-causal one keys of their own length (the encoder-decoder's cross
+// attention).  They compute what the f32 pair
 // (flash_attention_bwd.cu) computes, in f32 from the bf16 operands:
 //   q^ = bf16(q bf16(D^-1/2)), s = q^ k^T [causal mask -2^30],
-//   P = exp(s - lse), dV = P^T dO, dP = dO v^T, D_i = rowsum(dO o O),
+//   P = exp(s - lse), dV = P^T dO, dP = dO v^T, D_i = rowsum(dO o O) (O in
+//   f32, as autodiff of the plain route takes it),
 //   dS = P o (dP - D), dQ = bf16(dS k bf16(D^-1/2)), dK = bf16(dS^T q^),
 //   dV rounded once; lse and D stay f32.
 //
@@ -41,19 +45,20 @@
 // block's 64 stationary rows (query rows in dq, keys in dkdv) and walks
 // tiles of 32 rows of the moving operand (keys in dq, query rows in dkdv).
 // The bf16 tiles go through a 3-stage cp.async ring (16-byte copies of 8
-// values, rows past S zero-filled), two tiles in flight while the warps
+// values, rows past S or Sk zero-filled), two tiles in flight while the warps
 // multiply the third.  Per tile a warp computes its 16 x 32 scores and dP
 // over all of D (8 accumulator chains of m16n8k16 products), masks them
-// (only a tile that reaches past S or across a diagonal), forms P and dS in
-// the accumulators' layout and passes them on in registers: two adjacent
-// n8 accumulator tiles are the A fragment of a k16 step over the same 32
-// rows, as FA-2 does, so no slice goes through shared memory.  dkdv takes
-// s^T = k q^T and dP^T = v dO^T, so that P^T and dS^T come out with keys as
-// rows.  The warp then adds its 16 x D block of dQ (or of dK and dV) over the
-// tile's rows in order.  Fragments come from shared memory through ldmatrix:
-// the stationary rows and the moving tile as A and B operands of s and dP
-// (rows = D-major 16-byte chunks), the moving tile again with .trans as the
-// B operand of the second product (k in dq, dO and q^ in dkdv).  Rows are D
+// (only a tile that reaches past S, past Sk or across a diagonal), forms P
+// and dS in the accumulators' layout and passes them on in registers: two
+// adjacent n8 accumulator tiles are the A fragment of a k16 step over the
+// same 32 rows, as FA-2 does, so no slice goes through shared memory.  dkdv
+// takes s^T = k q^T and dP^T = v dO^T, so that P^T and dS^T come out with
+// keys as rows.  The warp then adds its 16 x D block of dQ (or of dK and
+// dV) over the tile's rows in order.  Fragments come from shared memory
+// through ldmatrix: the stationary rows and the moving tile as A and B
+// operands of s and dP (rows = D-major 16-byte chunks), the moving tile
+// again with .trans as the B operand of the second product (k in dq, dO and
+// q^ in dkdv).  Rows are D
 // bf16 values, unpadded, their 16-byte chunks XOR-swizzled by row (chunk c
 // of row r at c ^ (r & 7) from D = 64 up, c ^ ((r / (8 / C)) % C) below, C
 // = D / 8 chunks a row), which keeps the 8 rows of every ldmatrix, both
@@ -72,9 +77,11 @@
 // dq and D in dkdv.  Phase 2 of chip_smoke.py prints each instance's
 // shared memory, registers and blocks an SM, and fails on a spill.
 //
-// Rows past S are read as zeros and never written; a key past S gets a
-// probability of exactly 0 (dq), a query row past S a P of 0 (dkdv); the
-// causal mask is -2^30, as the forward's; the exponentials are full expf.
+// Rows past S (query rows) or Sk (keys) are read as zeros and never
+// written; a key past Sk gets a probability of exactly 0 (dq), a query row
+// past S a P of 0 (dkdv); the dkdv grid runs ceil(Sk / 64) key blocks over
+// all S query rows; the causal mask is -2^30, as the forward's; the
+// exponentials are full expf.
 // The dq kernel writes D_i of its rows, which the dkdv kernel (launched
 // after it on the same stream) reads.  The staging, fragment, product and
 // split helpers are bf16_mma.cuh's, shared with the bf16 forward pair; of
@@ -128,10 +135,10 @@ __device__ __forceinline__ void scale_tile(bf16* tile, float scale) {
 template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
 bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ o,
+            const bf16* __restrict__ v, const float* __restrict__ o,
             const bf16* __restrict__ dout, const float* __restrict__ lse,
             bf16* __restrict__ dq, float* __restrict__ delta, int64_t S,
-            int64_t H, int causal, float scale) {
+            int64_t Sk, int64_t H, int causal, float scale) {
   using L = Layout<D>;
   constexpr int C = L::C;
   extern __shared__ uint4 smem_bf16[];
@@ -144,15 +151,17 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t bh = blockIdx.x, b = bh / H, h = bh - b * H;
   // the heaviest causal q blocks are issued first
   const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * ROWS;
-  const int64_t row = H * D, base = b * S * row + h * D;
+  const int64_t row = H * D, base = b * S * row + h * D;  // q, o, dO, dq
+  const int64_t kbase = b * Sk * row + h * D;              // k, v
   const int64_t q_end = q0 + ROWS < S ? q0 + ROWS : S;
-  const int64_t k_end = causal ? q_end : S;  // keys the block's rows need
+  const int64_t k_end = causal ? q_end : Sk;  // keys the block's rows need
   const int ntiles = (int)((k_end + TILE - 1) / TILE);
 
   auto load_kv = [&](int it) {
     bf16* st = ring + 2 * (it % STAGES) * L::TILEV;
-    load_rows<D>(st, k + base, (int64_t)it * TILE, TILE, S, row);
-    load_rows<D>(st + L::TILEV, v + base, (int64_t)it * TILE, TILE, S, row);
+    load_rows<D>(st, k + kbase, (int64_t)it * TILE, TILE, Sk, row);
+    load_rows<D>(st + L::TILEV, v + kbase, (int64_t)it * TILE, TILE, Sk,
+                 row);
   };
   load_rows<D>(gs, dout + base, q0, ROWS, S, row);
   load_kv(0);
@@ -179,10 +188,10 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int64_t qp = q0 + r;
     float acc = 0.0f;
     if (qp < S) {
-      const bf16* orow = o + base + qp * row;
+      const float* orow = o + base + qp * row;
       const bf16* drow = dout + base + qp * row;
       for (int d = lane; d < D; d += 32)
-        acc = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]), acc);
+        acc = fmaf(__bfloat162float(drow[d]), orow[d], acc);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -247,10 +256,10 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma(dp[2 * nb + 1], ag, vb[2], vb[3]);
       }
     }
-    // dS = P o (dP - D), P = exp(s - lse); keys at or past S (column
+    // dS = P o (dP - D), P = exp(s - lse); keys at or past Sk (column
     // past) give P = 0, and key column c lies above row r's diagonal where
     // c - r > diag; only a tile that reaches past either is masked
-    const int past = (int)(S - k0 < TILE ? S - k0 : TILE);
+    const int past = (int)(Sk - k0 < TILE ? Sk - k0 : TILE);
     const int diag = (int)(qp0 - k0 < TILE ? qp0 - k0 : TILE);
     const bool edge = past < TILE || (causal && diag < TILE - 1);
 #pragma unroll
@@ -306,7 +315,7 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int64_t S,
-              int64_t H, int causal, float scale) {
+              int64_t Sk, int64_t H, int causal, float scale) {
   using L = Layout<D>;
   constexpr int C = L::C;
   extern __shared__ uint4 smem_bf16[];
@@ -319,7 +328,8 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t bh = blockIdx.x, b = bh / H, h = bh - b * H;
   // key block 0 meets every query tile: the heaviest blocks are issued first
   const int64_t k0 = (int64_t)blockIdx.y * ROWS;
-  const int64_t row = H * D, base = b * S * row + h * D;
+  const int64_t row = H * D, base = b * S * row + h * D;  // q, dO
+  const int64_t kbase = b * Sk * row + h * D;              // k, v, dk, dv
   // the query tiles with a row at or past the block's first key
   const int first = causal ? (int)(k0 / TILE) : 0;
   const int ntiles = (int)((S + TILE - 1) / TILE) - first;
@@ -338,8 +348,8 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         in);
     }
   };
-  load_rows<D>(kss, k + base, k0, ROWS, S, row);
-  load_rows<D>(vss, v + base, k0, ROWS, S, row);
+  load_rows<D>(kss, k + kbase, k0, ROWS, Sk, row);
+  load_rows<D>(vss, v + kbase, k0, ROWS, Sk, row);
   load_q(0);
   tf32x3::cp_async_commit();
 #pragma unroll
@@ -351,7 +361,7 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the warp's keys k0 + 16 warp + [0, 16): rows of the accumulators
   const int r0 = 16 * warp;
   const int64_t kp0 = k0 + r0;
-  const bool active = kp0 < S;
+  const bool active = kp0 < Sk;
   float ak[L::NT][4], av[L::NT][4];
 #pragma unroll
   for (int j = 0; j < L::NT; ++j)
@@ -444,8 +454,8 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int64_t kp = kp0 + g + 8 * i;
-    if (kp >= S) continue;
-    const int64_t at_row = base + kp * row + 2 * t;
+    if (kp >= Sk) continue;
+    const int64_t at_row = kbase + kp * row + 2 * t;
 #pragma unroll
     for (int j = 0; j < L::NT; ++j) {
       elem::store2(dk + at_row + 8 * j, ak[j][2 * i], ak[j][2 * i + 1]);
@@ -455,16 +465,17 @@ bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int run_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+int run_dq(const bf16* q, const bf16* k, const bf16* v, const float* o,
            const bf16* dout, const float* lse, bf16* dq, float* delta,
-           int64_t B, int64_t S, int64_t H, int causal, cudaStream_t st) {
+           int64_t B, int64_t S, int64_t Sk, int64_t H, int causal,
+           cudaStream_t st) {
   const size_t bytes = Layout<D>::DQ;
   const cudaError_t err =
       tf32x3::set_shared_memory<bwd_dq_bf16<D>>((int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + ROWS - 1) / ROWS));
   bwd_dq_bf16<D><<<grid, THREADS, bytes, st>>>(
-      q, k, v, o, dout, lse, dq, delta, S, H, causal,
+      q, k, v, o, dout, lse, dq, delta, S, Sk, H, causal,
       elem::head_scale<bf16>(D));
   return (int)cudaGetLastError();
 }
@@ -472,14 +483,15 @@ int run_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 template <int D>
 int run_dkdv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
              const float* lse, const float* delta, bf16* dk, bf16* dv,
-             int64_t B, int64_t S, int64_t H, int causal, cudaStream_t st) {
+             int64_t B, int64_t S, int64_t Sk, int64_t H, int causal,
+             cudaStream_t st) {
   const size_t bytes = Layout<D>::DKDV;
   const cudaError_t err =
       tf32x3::set_shared_memory<bwd_dkdv_bf16<D>>((int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + ROWS - 1) / ROWS));
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sk + ROWS - 1) / ROWS));
   bwd_dkdv_bf16<D><<<grid, THREADS, bytes, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, S, H, causal,
+      q, k, v, dout, lse, delta, dk, dv, S, Sk, H, causal,
       elem::head_scale<bf16>(D));
   return (int)cudaGetLastError();
 }
@@ -492,41 +504,49 @@ int occupancy_of(int64_t kernel, int64_t* out) {
 
 }  // namespace
 
-// q, k, v, o, dout, dq: (B, S, H, D) bf16, contiguous; lse, delta: (B, H, S)
-// f32; D in {16, 32, 64, 128}; causal 0 or 1.  Writes dq and delta.
+// q, dout, dq: (B, S, H, D) and k, v: (B, Sk, H, D) bf16, contiguous; o:
+// (B, S, H, D) f32; lse, delta: (B, H, S) f32; D in {16, 32, 64, 128};
+// causal 0 or 1, and a causal call has Sk == S.  Writes dq and delta.
 extern "C" int smof_flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* delta, int64_t B,
-    int64_t S, int64_t H, int64_t D, int64_t causal, void* stream) {
+    int64_t S, int64_t Sk, int64_t H, int64_t D, int64_t causal,
+    void* stream) {
   if (B * S * H <= 0) return (int)cudaGetLastError();
+  if ((causal && Sk != S) || Sk <= 0) return (int)cudaErrorInvalidValue;
   const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k,
-             *vb = (const bf16*)v, *ob = (const bf16*)o,
-             *db = (const bf16*)dout;
-  const float* lf = (const float*)lse;
+             *vb = (const bf16*)v, *db = (const bf16*)dout;
+  const float *ob = (const float*)o, *lf = (const float*)lse;
   bf16* dqb = (bf16*)dq;
   float* delf = (float*)delta;
   cudaStream_t st = (cudaStream_t)stream;
   const int c = causal ? 1 : 0;
   switch (D) {
     case 16:
-      return run_dq<16>(qb, kb, vb, ob, db, lf, dqb, delf, B, S, H, c, st);
+      return run_dq<16>(qb, kb, vb, ob, db, lf, dqb, delf, B, S, Sk, H, c,
+                        st);
     case 32:
-      return run_dq<32>(qb, kb, vb, ob, db, lf, dqb, delf, B, S, H, c, st);
+      return run_dq<32>(qb, kb, vb, ob, db, lf, dqb, delf, B, S, Sk, H, c,
+                        st);
     case 64:
-      return run_dq<64>(qb, kb, vb, ob, db, lf, dqb, delf, B, S, H, c, st);
+      return run_dq<64>(qb, kb, vb, ob, db, lf, dqb, delf, B, S, Sk, H, c,
+                        st);
     case 128:
-      return run_dq<128>(qb, kb, vb, ob, db, lf, dqb, delf, B, S, H, c, st);
+      return run_dq<128>(qb, kb, vb, ob, db, lf, dqb, delf, B, S, Sk, H, c,
+                         st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// q, k, v, dout, dk, dv: (B, S, H, D) bf16, contiguous; lse, delta (the dq
-// kernel's): (B, H, S) f32.  Writes dk and dv.
+// q, dout: (B, S, H, D) and k, v, dk, dv: (B, Sk, H, D) bf16, contiguous;
+// lse, delta (the dq kernel's): (B, H, S) f32.  Writes dk and dv.
 extern "C" int smof_flash_attention_bwd_dkdv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int64_t B,
-    int64_t S, int64_t H, int64_t D, int64_t causal, void* stream) {
+    int64_t S, int64_t Sk, int64_t H, int64_t D, int64_t causal,
+    void* stream) {
   if (B * S * H <= 0) return (int)cudaGetLastError();
+  if ((causal && Sk != S) || Sk <= 0) return (int)cudaErrorInvalidValue;
   const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k,
              *vb = (const bf16*)v, *db = (const bf16*)dout;
   const float *lf = (const float*)lse, *delf = (const float*)delta;
@@ -535,14 +555,17 @@ extern "C" int smof_flash_attention_bwd_dkdv_bf16(
   const int c = causal ? 1 : 0;
   switch (D) {
     case 16:
-      return run_dkdv<16>(qb, kb, vb, db, lf, delf, dkb, dvb, B, S, H, c, st);
+      return run_dkdv<16>(qb, kb, vb, db, lf, delf, dkb, dvb, B, S, Sk, H, c,
+                          st);
     case 32:
-      return run_dkdv<32>(qb, kb, vb, db, lf, delf, dkb, dvb, B, S, H, c, st);
+      return run_dkdv<32>(qb, kb, vb, db, lf, delf, dkb, dvb, B, S, Sk, H, c,
+                          st);
     case 64:
-      return run_dkdv<64>(qb, kb, vb, db, lf, delf, dkb, dvb, B, S, H, c, st);
+      return run_dkdv<64>(qb, kb, vb, db, lf, delf, dkb, dvb, B, S, Sk, H, c,
+                          st);
     case 128:
-      return run_dkdv<128>(qb, kb, vb, db, lf, delf, dkb, dvb, B, S, H, c,
-                           st);
+      return run_dkdv<128>(qb, kb, vb, db, lf, delf, dkb, dvb, B, S, Sk, H,
+                           c, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

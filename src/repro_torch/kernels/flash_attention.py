@@ -12,16 +12,20 @@ any S and Sk (the Pallas wrapper asks ``S % bq == 0`` and one S) and D in
 :data:`HEAD_DIMS`; a CPU tensor through the plain version,
 ``models.attention.chunked_attention`` with block skipping, the
 reference's own oracle for its kernel.  The training instances below take
-one S for q, k and v.
+the same shapes: causal with Sk == S, or keys of their own length.
 
 Training goes through :class:`FlashAttention`, an autograd function.  Its
 forward is the same kernel instantiated to write each row's log-sum-exp
 too (``flash_attention_lse``: ``lse`` of shape (B, H, S), f32), and it
-saves ``q, k, v, o, lse``; its backward launches
+saves ``q, k, v, lse`` and the output in f32 (a bf16 instance writes it
+beside its rounded o: rowsum(dO * O) from the rounded o would move by
+2^-8 sum |dO * O|, which dP - D cancels down to where attention is near
+uniform); its backward launches
 ``flash_attention_bwd_dq`` (dQ and ``delta`` = rowsum(dO * O)) and then
 ``flash_attention_bwd_dkdv`` (dK, dV) on the same stream
 (``csrc/flash_attention_bwd.cu``; the bf16 pair
-``csrc/flash_attention_bwd_bf16.cu``).  The reference has no backward kernel:
+``csrc/flash_attention_bwd_bf16.cu``), each over the Sk keys of k and v
+(dK and dV of k's shape).  The reference has no backward kernel:
 XLA differentiates ``chunked_attention``.  On a CPU tensor both directions
 take the plain versions, ``chunked_attention(return_lse=True)`` and
 :func:`flash_attention_backward_plain`.
@@ -29,7 +33,8 @@ take the plain versions, ``chunked_attention(return_lse=True)`` and
 Each kernel has an f32 and a bf16 instance, picked by the operands' type
 (``flash_attention_bf16``, ``flash_attention_lse_bf16``,
 ``flash_attention_bwd_dq_bf16``, ``flash_attention_bwd_dkdv_bf16``): q, k,
-v, o, dO, dQ, dK and dV of that type, lse and delta f32 either way.  A bf16
+v, o, dO, dQ, dK and dV of that type, lse, delta and the o the backward
+reads f32 either way.  A bf16
 instance rounds where the plain route does: q^ = bf16(q * bf16(D^-1/2))
 (the reference's ``q * D ** -0.5``, its scale a weak type converted to
 bf16), then f32 sums, then one rounding of each output.  The f32 instances
@@ -74,9 +79,11 @@ def _check(name: str, q, k, v, *, own_keys: bool = False
     if q.is_cuda:
         if D not in HEAD_DIMS:
             raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
-        if -(-S // KERNEL_BQ) > 65535 or B * H > 2**31 - 1:
-            raise ValueError(f"{name}: S = {S} or B * H = {B * H} exceeds "
-                             f"the grid")
+        # query blocks (the forward, dq) or key blocks (dkdv) a grid row
+        rows = max(S, k.shape[1])
+        if -(-rows // KERNEL_BQ) > 65535 or B * H > 2**31 - 1:
+            raise ValueError(f"{name}: S or Sk = {rows} or B * H = {B * H} "
+                             f"exceeds the grid")
     return B, S, H, D
 
 
@@ -85,13 +92,13 @@ INSTANCES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def _operands(name: str, dtype: torch.dtype, *named) -> str:
-    """Check every operand (lse and delta are f32 whatever ``dtype``) and
-    return the name of the instance for ``dtype``."""
+    """Check every operand (lse, delta and the backward's o are f32 whatever
+    ``dtype``) and return the name of the instance for ``dtype``."""
     if dtype not in INSTANCES:
         raise ValueError(f"{name}: no instance for {dtype}; have "
                          f"{sorted(map(str, INSTANCES))}")
     for what, t in named:
-        want = torch.float32 if what in ("lse", "delta") else dtype
+        want = torch.float32 if what in ("lse", "delta", "o") else dtype
         check_operand(f"{name} {what}", t, want)
     return name + INSTANCES[dtype]
 
@@ -125,20 +132,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)``: the attention and each row's log-sum-exp of the scaled
-    scores, ``m + log(max(l, 1e-30))``, as (B, H, S) f32."""
-    B, S, H, D = _check("flash_attention_lse", q, k, v)
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(o, lse, o_wide)``: the attention, each row's log-sum-exp of the
+    scaled scores, ``m + log(max(l, 1e-30))``, as (B, H, S) f32, and the
+    attention in f32 before its rounding to q's type (o itself in f32),
+    which :func:`flash_attention_bwd_dq` takes.  Shapes as
+    :func:`flash_attention`'s."""
+    B, S, H, D = _check("flash_attention_lse", q, k, v, own_keys=not causal)
+    Sk = k.shape[1]
     if not q.is_cuda:
         from ..models.attention import chunked_attention
-        return chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
+        return chunked_attention(q, k, v, causal=causal, chunk=min(1024, Sk),
                                  skip_masked=causal, return_lse=True)
     name = _operands("flash_attention_lse", q.dtype, ("q", q), ("k", k),
                      ("v", v))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    launch(name, q, k, v, o, lse, B, S, H, D, int(causal))
-    return o, lse
+    if q.dtype == torch.float32:
+        launch(name, q, k, v, o, lse, B, S, Sk, H, D, int(causal),
+               flags=(bool(causal),))
+        return o, lse, o
+    o_wide = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    launch(name, q, k, v, o, lse, o_wide, B, S, Sk, H, D, int(causal),
+           flags=(bool(causal),))
+    return o, lse, o_wide
 
 
 # =============================================================================
@@ -165,10 +182,11 @@ def flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, *,
                                  block: int = KERNEL_BQ):
     """The plain version of ``flash_attention_bwd_dq``: ``(dq, delta)``,
     delta = rowsum(dO * O) as (B, H, S) f32.  Walks query blocks of
-    ``block`` rows over the keys at or below their diagonal, as the kernel
-    does; in f32 from q^ (rounded to q's type) and the other operands, dq
-    rounded once to q's type."""
+    ``block`` rows over the keys at or below their diagonal (all Sk keys of
+    k and v, non-causal), as the kernel does; in f32 from q^ (rounded to
+    q's type) and the other operands, dq rounded once to q's type."""
     B, S, H, D = q.shape
+    Sk = k.shape[1]
     scale = _scale(D, q.dtype)
     qs, = _wide(q * scale)
     k, v, o, do = _wide(k, v, o, do)
@@ -176,7 +194,7 @@ def flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, *,
     dq = torch.empty(q.shape, dtype=qs.dtype, device=q.device)
     for q0 in range(0, S, block):
         q1 = min(q0 + block, S)
-        k1 = q1 if causal else S
+        k1 = q1 if causal else Sk
         p = torch.exp(_scores(qs, k, q0, q1, 0, k1, causal)
                       - lse[:, :, q0:q1, None])
         dp = torch.einsum("bqhd,bkhd->bhqk", do[:, q0:q1], v[:, :k1])
@@ -188,16 +206,17 @@ def flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, *,
 def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal: bool, *,
                                    block: int = KERNEL_BQ):
     """The plain version of ``flash_attention_bwd_dkdv``: ``(dk, dv)``.
-    Walks key blocks of ``block`` keys over the query rows at or above
-    their diagonal, as the kernel does; in f32 as the dq version, dk and dv
-    rounded once to k's type."""
+    Walks key blocks of ``block`` of the Sk keys over the query rows at or
+    above their diagonal (all S rows, non-causal), as the kernel does; in
+    f32 as the dq version, dk and dv rounded once to k's type."""
     B, S, H, D = q.shape
+    Sk = k.shape[1]
     qs, = _wide(q * _scale(D, q.dtype))
     dtype = k.dtype
     k, v, do = _wide(k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    for k0 in range(0, S, block):
-        k1 = min(k0 + block, S)
+    for k0 in range(0, Sk, block):
+        k1 = min(k0 + block, Sk)
         q0 = k0 if causal else 0
         p = torch.exp(_scores(qs, k, q0, S, k0, k1, causal)
                       - lse[:, :, q0:, None])
@@ -218,45 +237,49 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, causal: bool):
     return dq, dk, dv
 
 
-def _fits(name, q, o, lse, *more) -> None:
+def _fits(name, q, lse, *rows) -> None:
+    """``rows`` (o, dO) of q's shape and ``lse`` (or delta) (B, H, S)."""
     B, S, H, _ = q.shape
-    if o.shape != q.shape or lse.shape != (B, H, S) or any(
-            t.shape != q.shape for t in more):
-        raise ValueError(f"{name}: o {tuple(o.shape)}, lse "
-                         f"{tuple(lse.shape)} or dout do not fit q "
-                         f"{tuple(q.shape)}")
+    if lse.shape != (B, H, S) or any(t.shape != q.shape for t in rows):
+        raise ValueError(f"{name}: lse or delta {tuple(lse.shape)}, o or "
+                         f"dout {[tuple(t.shape) for t in rows]} do not fit "
+                         f"q {tuple(q.shape)}")
 
 
 def flash_attention_bwd_dq(q, k, v, o, do, lse, causal: bool):
     """``(dq, delta)``: the ``flash_attention_bwd_dq`` kernel on a CUDA
-    tensor, its plain version on a CPU one."""
-    B, S, H, D = _check("flash_attention_bwd_dq", q, k, v)
-    _fits("flash_attention_bwd_dq", q, o, lse, do)
+    tensor (``o`` f32, the forward's output before its rounding:
+    :func:`flash_attention_lse`'s third), its plain version on a CPU one.  Shapes as :func:`flash_attention`'s."""
+    B, S, H, D = _check("flash_attention_bwd_dq", q, k, v,
+                        own_keys=not causal)
+    _fits("flash_attention_bwd_dq", q, lse, o, do)
     if not q.is_cuda:
         return flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal)
     name = _operands("flash_attention_bwd_dq", q.dtype, ("q", q), ("k", k),
                      ("v", v), ("o", o), ("dout", do), ("lse", lse))
     dq, delta = torch.empty_like(q), torch.empty_like(lse)
-    launch(name, q, k, v, o, do, lse, dq, delta, B, S, H, D, int(causal))
+    launch(name, q, k, v, o, do, lse, dq, delta, B, S, k.shape[1], H, D,
+           int(causal), flags=(bool(causal),))
     return dq, delta
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool):
-    """``(dk, dv)`` from ``delta`` of :func:`flash_attention_bwd_dq`: the
-    ``flash_attention_bwd_dkdv`` kernel on a CUDA tensor (after the dq
-    kernel on the same stream), its plain version on a CPU one."""
-    B, S, H, D = _check("flash_attention_bwd_dkdv", q, k, v)
-    _fits("flash_attention_bwd_dkdv", q, do, lse)
-    if delta.shape != lse.shape:
-        raise ValueError(f"flash_attention_bwd_dkdv: delta "
-                         f"{tuple(delta.shape)}, lse {tuple(lse.shape)}")
+    """``(dk, dv)``, of k's shape, from ``delta`` of
+    :func:`flash_attention_bwd_dq`: the ``flash_attention_bwd_dkdv`` kernel
+    on a CUDA tensor (after the dq kernel on the same stream), its plain
+    version on a CPU one."""
+    B, S, H, D = _check("flash_attention_bwd_dkdv", q, k, v,
+                        own_keys=not causal)
+    _fits("flash_attention_bwd_dkdv", q, lse, do)
+    _fits("flash_attention_bwd_dkdv", q, delta)
     if not q.is_cuda:
         return flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
     name = _operands("flash_attention_bwd_dkdv", q.dtype, ("q", q),
                      ("k", k), ("v", v), ("dout", do), ("lse", lse),
                      ("delta", delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    launch(name, q, k, v, do, lse, delta, dk, dv, B, S, H, D, int(causal))
+    launch(name, q, k, v, do, lse, delta, dk, dv, B, S, k.shape[1], H, D,
+           int(causal), flags=(bool(causal),))
     return dk, dv
 
 
@@ -312,20 +335,21 @@ def forward_occupancy(head_dim: int) -> dict[str, tuple[int, int, int]]:
 
 class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: ``FlashAttention.apply(q, k, v,
-    causal)``.  The forward keeps ``q, k, v, o`` and ``lse`` for the
-    backward, which recomputes the probabilities from them."""
+    causal)``, shapes as :func:`flash_attention`'s (non-causal: any Sk >=
+    1).  The forward keeps ``q, k, v``, ``lse`` and the output in f32 for
+    the backward, which recomputes the probabilities from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True):
-        o, lse = flash_attention_lse(q, k, v, causal=causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse, o_wide = flash_attention_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o_wide, lse)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, o, lse,
+        q, k, v, o_wide, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o_wide, lse,
                                               do.contiguous(), ctx.causal)
         return dq, dk, dv, None
 

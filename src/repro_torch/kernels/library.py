@@ -61,15 +61,17 @@ SIGNATURES = {
     "pool_decode_encode": "pppppppiiii",
     "act_relu_decode_encode": "pppppiii",
     "act_relu_decode": "pppiii",
+    # the attention kernels take B, S, Sk, H, D and the causal flag
     "flash_attention": "ppppiiiiii",
-    "flash_attention_lse": "pppppiiiii",
-    "flash_attention_bwd_dq": "ppppppppiiiii",
-    "flash_attention_bwd_dkdv": "ppppppppiiiii",
-    # the bf16 instances of the attention kernels (lse and delta f32)
+    "flash_attention_lse": "pppppiiiiii",
+    "flash_attention_bwd_dq": "ppppppppiiiiii",
+    "flash_attention_bwd_dkdv": "ppppppppiiiiii",
+    # the bf16 instances of the attention kernels (lse and delta f32; the
+    # lse instance also writes o in f32, which the dq instance reads)
     "flash_attention_bf16": "ppppiiiiii",
-    "flash_attention_lse_bf16": "pppppiiiii",
-    "flash_attention_bwd_dq_bf16": "ppppppppiiiii",
-    "flash_attention_bwd_dkdv_bf16": "ppppppppiiiii",
+    "flash_attention_lse_bf16": "ppppppiiiiii",
+    "flash_attention_bwd_dq_bf16": "ppppppppiiiiii",
+    "flash_attention_bwd_dkdv_bf16": "ppppppppiiiiii",
 }
 
 #: Launches of each kernel since the last :func:`reset_launches`.

@@ -14,7 +14,10 @@ device): ``single`` and ``multi`` build the reference's production mesh,
 which waits for ROADMAP.md Queue 1, item 12.  ``--dtype bfloat16`` makes
 the parameters bf16 (the reference's default working type; the port's
 default stays ``float32``), and attention takes the kernels' bf16
-instances on the card.
+instances on the card.  An encoder-decoder (whisper) is refused before its
+model is built: the token pipeline yields tokens and labels only, as the
+reference's, and no encoder frames; ``runtime.steps.make_train_step``
+trains it on batches that carry ``enc_frames``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,10 @@ from ..runtime.steps import make_train_step
 
 MESH_LATER = ("a production mesh (--mesh single|multi) is not ported yet "
               "(ROADMAP.md, Queue 1, item 12)")
+NO_FRAMES = ("{}: the token pipeline has no encoder frames to give an "
+             "encoder-decoder; train it through "
+             "repro_torch.runtime.steps.make_train_step with batches that "
+             "carry enc_frames")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -56,6 +63,8 @@ def main(argv: list[str] | None = None) -> None:
     if args.mesh != "host":
         raise NotImplementedError(MESH_LATER)
     cfg = ARCHS[args.arch]
+    if cfg.is_encdec:
+        raise ValueError(NO_FRAMES.format(cfg.name))
     if args.smoke:
         cfg = cfg.reduced()
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,

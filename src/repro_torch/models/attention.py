@@ -13,10 +13,12 @@ versions on a CPU one) the serving prefill (:func:`prefill_attention` with
 (``inference=False``) runs ``FlashAttention``, whose gradient is the two
 backward kernels; ``use_kernels=False`` runs the scan, through autograd.
 The encoder's attention (:func:`encoder_attention`) and the cross attention
-(:func:`cross_attention`, keys of their own length) are non-causal and
-serve forward only: on the kernel route both run ``flash_attention(...,
-causal=False)``.  The reference's sharding hints (``runtime/hints``) have
-no counterpart on one GPU and are left out.
+(:func:`cross_attention`, keys of their own length) are non-causal: on the
+kernel route both run ``flash_attention(..., causal=False)`` where no
+gradient is wanted (serving) and ``FlashAttention`` (non-causal, over keys
+of their own length) where autograd records the call (training).  The
+reference's sharding hints (``runtime/hints``) have no counterpart on one
+GPU and are left out.
 """
 from __future__ import annotations
 
@@ -87,8 +89,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with H a multiple of KH (GQA; KV
     heads are repeated to H).  With ``skip_masked`` and ``causal`` only the
     KV blocks at or below a query block's diagonal run.  With
-    ``return_lse`` it returns ``(out, lse)``, lse each row's log-sum-exp of
-    the scaled scores, ``m + log(max(l, 1e-30))``, as (B, H, Sq) f32.
+    ``return_lse`` it returns ``(out, lse, out_wide)``, lse each row's
+    log-sum-exp of the scaled scores, ``m + log(max(l, 1e-30))``, as (B, H,
+    Sq) f32, and out_wide the output in f32 before its rounding to q's type
+    (the gradient's rowsum(dO * O) takes it, as autodiff of this function
+    takes the f32 output).
     """
     B, Sq, H, D = q.shape
     _, Sk, KH, _ = k.shape
@@ -105,7 +110,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vb = v.reshape(B, nk, chunk, H, D)
     qb = (q * scale).reshape(B, nq, q_chunk, H, D)
     dev = q.device
-    blocks, lses = [], []
+    blocks, lses, wides = [], [], []
     for iq in range(nq):
         qf = qb[:, iq].float()
         q_pos = q_offset + iq * q_chunk + torch.arange(q_chunk, device=dev)
@@ -134,9 +139,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         blocks.append(out.to(q.dtype))
         if return_lse:
             lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+            wides.append(out)
     out = torch.stack(blocks, dim=1).reshape(B, Sq, H, D)
     if return_lse:
-        return out, torch.cat(lses, dim=1).transpose(1, 2).contiguous()
+        return (out, torch.cat(lses, dim=1).transpose(1, 2).contiguous(),
+                torch.stack(wides, dim=1).reshape(B, Sq, H, D))
     return out
 
 
@@ -202,24 +209,22 @@ def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
 def _noncausal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                chunk: int, use_kernels: bool) -> torch.Tensor:
     """Non-causal attention of q (B, Sq, H, D) over k, v (B, Sk, KH, D):
-    the ``flash_attention`` kernel route (the KV heads repeated to H first
-    where KH < H) or the reference's scan in chunks of ``min(chunk, Sk)``
-    keys."""
+    the kernel route (the KV heads repeated to H first where KH < H;
+    ``FlashAttention`` where a gradient is wanted, ``flash_attention``
+    otherwise, as :func:`prefill_attention` picks by ``inference``) or the
+    reference's scan in chunks of ``min(chunk, Sk)`` keys."""
     if not use_kernels:
         return chunked_attention(q, k, v, causal=False,
                                  chunk=min(chunk, k.shape[1]))
-    if q.is_cuda and torch.is_grad_enabled() and (
-            q.requires_grad or k.requires_grad or v.requires_grad):
-        # the kernel has no backward: a gradient would stop here unseen
-        raise NotImplementedError(
-            "the gradient of the encoder's and the cross attention is not "
-            "ported yet (ROADMAP.md, Queue 1, item 16); use_kernels=False "
-            "differentiates the plain version")
     G = q.shape[2] // k.shape[2]
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    return flash_attention(q, k.contiguous(), v.contiguous(), causal=False)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, False)
+    return flash_attention(q, k, v, causal=False)
 
 
 def cross_kv(p: dict, enc: torch.Tensor, cfg) -> tuple:

@@ -30,11 +30,13 @@ decoder layer attends to the encoder's keys and values after its
 self-attention, a prefill writing them to the cache once and a decode
 reading them; a VLM (qwen2-vl, M-RoPE) takes patch embeddings in place of
 its first token embeddings (``forward(patch_embeds=)``).  Training runs
-every decoder-only family, the recurrent mixers through their checkpointed
-training scans (``models/ssm.py``), not yet the encoder-decoder
-(ROADMAP.md, Queue 1, item 16).  :func:`lm_loss`
-is the reference's chunked next-token cross-entropy, and ``remat`` its
-rematerialisation of each layer group: ``"full"`` recomputes a group in the
+every family, the recurrent mixers through their checkpointed training
+scans (``models/ssm.py``), the encoder-decoder through the gradient of its
+encoder's and its cross attention (``lm_loss(enc_frames=)``).
+:func:`lm_loss` is the reference's chunked next-token cross-entropy, and
+``remat`` its rematerialisation of each decoder layer group (the encoder
+runs outside it and keeps its activations, as the reference's plain scan
+over the encoder layers): ``"full"`` recomputes a group in the
 backward (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
 unbatched matrix products (selective checkpointing), as
 ``dots_with_no_batch_dims_saveable``.  Either nests the scans' own
@@ -467,8 +469,10 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``pos_offset``: (B,) start positions.  ``use_kernels`` lets the
     attention take the kernel route (``flash_attention`` in a prefill and
     in the encoder's and the cross attention, ``FlashAttention`` in the
-    decoder's self-attention otherwise).  ``remat`` (one of :data:`REMAT`)
-    rematerialises each layer group in the backward; a prefill (``cache``
+    decoder's self-attention otherwise; ``FlashAttention`` in the encoder's
+    and the cross attention too where a gradient is wanted).  ``remat``
+    (one of :data:`REMAT`) rematerialises each decoder layer group in the
+    backward (not the encoder, as the reference's); a prefill (``cache``
     given) ignores it.
     """
     _check_supported(cfg)
@@ -553,15 +557,11 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     """Next-token cross-entropy, computed in sequence chunks of
     ``min(LOSS_CHUNK, S)`` rows, each recomputed in the backward, so the
     full (B, S, V) logits tensor never materialises; plus 0.01 times the
-    experts' load-balancing loss, as the reference's.  ``patch_embeds`` as
-    :func:`forward`'s; an encoder-decoder (``enc_frames``) is refused."""
-    if cfg.is_encdec or enc_frames is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training the encoder-decoder (the gradient of the "
-            f"cross attention, keys of their own length) is not ported yet "
-            f"(ROADMAP.md, Queue 1, item 16)")
-    x, _, aux = forward(params, cfg, tokens, patch_embeds=patch_embeds,
-                        remat=remat, use_kernels=use_kernels)
+    experts' load-balancing loss, as the reference's.  ``enc_frames`` and
+    ``patch_embeds`` as :func:`forward`'s."""
+    x, _, aux = forward(params, cfg, tokens, enc_frames=enc_frames,
+                        patch_embeds=patch_embeds, remat=remat,
+                        use_kernels=use_kernels)
     B, Sq, _ = x.shape
     C = min(LOSS_CHUNK, Sq)
     if Sq % C:

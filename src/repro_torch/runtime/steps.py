@@ -65,15 +65,18 @@ def _on(batch: dict, device) -> dict:
 def loss_and_grads(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                    labels: torch.Tensor, *, remat: str = "full",
                    use_kernels: bool = True,
+                   enc_frames: torch.Tensor | None = None,
                    patch_embeds: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, dict]:
     """``(loss, grads)`` of ``lm_loss`` at ``params``, the gradients as a
-    tree of ``params``' layout.  ``params`` is left as it was (the leaves
-    are differentiated through detached aliases, no copy)."""
+    tree of ``params``' layout (an encoder-decoder's ``encoder/...``
+    leaves included).  ``params`` is left as it was (the leaves are
+    differentiated through detached aliases, no copy)."""
     flat = dict(_leaves(params))
     leaves = {n: t.detach().requires_grad_(True) for n, t in flat.items()}
     loss = lm_loss(_tree(leaves), cfg, tokens, labels, remat=remat,
-                   use_kernels=use_kernels, patch_embeds=patch_embeds)
+                   use_kernels=use_kernels, enc_frames=enc_frames,
+                   patch_embeds=patch_embeds)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), _tree(dict(zip(leaves, grads)))
 
@@ -83,15 +86,16 @@ def accumulate_grads(params: dict, cfg: ArchConfig, batch: dict,
                      remat: str = "full", use_kernels: bool = True
                      ) -> tuple[torch.Tensor, dict]:
     """``(loss, grads)`` over ``microbatches`` equal slices of ``batch``
-    (rows in order; its ``patch_embeds`` too, where it has them), as the
-    reference's scan: with more than one, each slice's gradients are added
-    into ``acc_dtype`` zeros, the sum divided by the count, and the loss is
-    the slices' mean."""
+    (rows in order; its ``enc_frames`` and ``patch_embeds`` too, where it
+    has them), as the reference's scan: with more than one, each slice's
+    gradients are added into ``acc_dtype`` zeros, the sum divided by the
+    count, and the loss is the slices' mean."""
     tokens, labels = batch["tokens"], batch["labels"]
-    patches = batch.get("patch_embeds")
+    extra = {n: batch[n] for n in ("enc_frames", "patch_embeds")
+             if batch.get(n) is not None}
     if microbatches <= 1:
         return loss_and_grads(params, cfg, tokens, labels, remat=remat,
-                              use_kernels=use_kernels, patch_embeds=patches)
+                              use_kernels=use_kernels, **extra)
     B = tokens.shape[0]
     if B % microbatches:
         raise ValueError(f"batch {B} is not a multiple of {microbatches} "
@@ -105,7 +109,7 @@ def accumulate_grads(params: dict, cfg: ArchConfig, batch: dict,
         loss, grads = loss_and_grads(
             params, cfg, tokens[sl], labels[sl], remat=remat,
             use_kernels=use_kernels,
-            patch_embeds=None if patches is None else patches[sl])
+            **{n: t[sl] for n, t in extra.items()})
         for n, g in _leaves(grads):
             acc[n].add_(g.to(acc_dtype))
         del grads
@@ -121,7 +125,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                     use_kernels: bool = True) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``,
     ``batch`` a dict of (B, S) ``tokens`` and ``labels`` (numpy or torch)
-    and, for a VLM, (B, P, d) ``patch_embeds``, moved to ``device``;
+    and, for an encoder-decoder, (B, enc_frames, d) ``enc_frames`` or, for
+    a VLM, (B, P, d) ``patch_embeds``, moved to ``device``;
     metrics ``loss``, ``lr`` and ``grad_norm``, 0-d tensors.
     ``microbatches`` defaults to :func:`auto_microbatches` of the
     batch on one device.  ``use_kernels=False`` runs attention's plain

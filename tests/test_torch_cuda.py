@@ -884,11 +884,30 @@ def test_whisper_steps_run_the_kernel(gen):
                                           for n in ("k", "v", "xk", "xv")]:
         tol = 2e-4 * float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=0, atol=tol)
-    # the kernel has no backward: a gradient through it is refused
-    from repro_torch.models import forward
-    params["groups"]["pos_0"]["cross"]["wq"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 16"):
-        forward(params, cfg, batch["tokens"], enc_frames=batch["enc_frames"])
+    # a gradient through the encoder's and the cross attention: the lse
+    # instance and both backward kernels (remat "full": each decoder group
+    # forward and recomputed), every leaf within 2e-4 x max(1, max|plain|)
+    # of the plain route's
+    from repro_torch.runtime.steps import loss_and_grads
+    labels = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    grads = {}
+    for kernels in (True, False):
+        reset_launches()
+        grads[kernels] = loss_and_grads(params, cfg, batch["tokens"], labels,
+                                        enc_frames=batch["enc_frames"],
+                                        use_kernels=kernels)
+        torch.cuda.synchronize()
+        E, L = cfg.encoder_layers, cfg.n_layers
+        assert launches() == dict.fromkeys(launches(), 0) | ({
+            "flash_attention_lse": E + 2 * 2 * L,
+            "flash_attention_bwd_dq": E + 2 * L,
+            "flash_attention_bwd_dkdv": E + 2 * L} if kernels else {})
+    (lk, gk), (lp, gp) = grads[True], grads[False]
+    _within(lk, lp, "loss")
+    from repro_torch.models.model import _leaves
+    for (n, g), (_, w) in zip(_leaves(gk), _leaves(gp)):
+        _within(g, w, n)
 
 
 def test_flash_attention_raises_without_its_library(gen, monkeypatch,
@@ -1131,14 +1150,15 @@ def test_flash_lse_variant_against_its_plain_version(gen, B, S, H, D,
     q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                for _ in range(3))
     reset_launches()
-    o, lse = flash_attention_lse(q, k, v, causal=causal)
+    o, lse, _ = flash_attention_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert launches()["flash_attention_lse"] == 1
     assert launches()["flash_attention"] == 0
     assert torch.equal(_bits(o), _bits(flash_attention(q, k, v,
                                                        causal=causal)))
-    po, plse = chunked_attention(q, k, v, causal=causal, chunk=min(1024, S),
-                                 skip_masked=causal, return_lse=True)
+    po, plse, _ = chunked_attention(q, k, v, causal=causal,
+                                    chunk=min(1024, S), skip_masked=causal,
+                                    return_lse=True)
     _within(o, po, "o")
     _within(lse, plse, "lse")
 
@@ -1153,7 +1173,7 @@ def test_flash_backward_kernels_against_their_plain_versions(gen, B, S, H,
     from repro_torch.kernels import flash_attention as FA
     q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                    for _ in range(4))
-    o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
+    o, lse, _ = FA.flash_attention_lse(q, k, v, causal=causal)
     reset_launches()
     got = FA.flash_attention_backward(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
@@ -1165,6 +1185,73 @@ def test_flash_backward_kernels_against_their_plain_versions(gen, B, S, H,
     again = FA.flash_attention_backward(q, k, v, o, lse, do, causal)
     for g, a in zip(got, again):
         assert torch.equal(_bits(g), _bits(a))
+
+
+# (B, Sq, Sk, H, D): keys of their own length for the training instances
+# (non-causal): ragged Sk against one row and a prompt, whisper's cross and
+# encoder attention at batch 1, a wide head
+TRAIN_CROSS_SHAPES = ([(2, Sq, Sk, 4, 64) for Sq in (1, 64)
+                       for Sk in (1, 37, 1499)]
+                      + [(1, 448, 1500, 20, 64), (1, 1500, 1500, 20, 64),
+                         (2, 33, 130, 3, 128), (2, 130, 33, 3, 16)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,D", TRAIN_CROSS_SHAPES)
+def test_flash_training_kernels_over_keys_of_their_own_length(gen, B, Sq, Sk,
+                                                              H, D, dtype):
+    """The lse instance and both backward kernels, non-causal, q (B, Sq,
+    H, D) over k, v (B, Sk, H, D): o, lse, o in f32, dq, delta, dk and dv
+    against their plain versions (f32: within 2e-4 x max(1, max|plain|);
+    bf16: within one bf16 ulp plus twice the f32 sums' slack, lse, o in f32
+    and delta as f32), one launch each, a second pair of backward launches bit for bit
+    the first; a causal call at Sk != Sq refused."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.testing.ulp import f32_slack
+    q, do = (torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, H, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    plain = chunked_attention(q, k, v, causal=False, chunk=min(1024, Sk),
+                              return_lse=True)
+    reset_launches()
+    got = FA.flash_attention_lse(q, k, v, causal=False)
+    _, plse, po = plain
+    dq = FA.flash_attention_bwd_dq(q, k, v, po, do, plse, False)
+    pdq = FA.flash_attention_bwd_dq_plain(q, k, v, po, do, plse, False)
+    dkdv = FA.flash_attention_bwd_dkdv(q, k, v, do, plse, pdq[1], False)
+    pdkdv = FA.flash_attention_bwd_dkdv_plain(q, k, v, do, plse, pdq[1],
+                                              False)
+    torch.cuda.synchronize()
+    suffix = "" if dtype == torch.float32 else "_bf16"
+    assert {n: c for n, c in launches().items() if c} == {
+        f"flash_attention_lse{suffix}": 1,
+        f"flash_attention_bwd_dq{suffix}": 1,
+        f"flash_attention_bwd_dkdv{suffix}": 1}
+    assert dkdv[0].shape == dkdv[1].shape == k.shape
+    if dtype == torch.float32:
+        for name, g, w in zip(("o", "lse", "o wide", "dq", "delta", "dk",
+                               "dv"), (*got, *dq, *dkdv),
+                              (*plain, *pdq, *pdkdv)):
+            _within(g, w, name)
+    else:
+        sl = f32_slack(q, k, v, False, do)
+        _within_one_bf16_ulp(got, plain, (sl["o"],))
+        _within_one_bf16_ulp(dq, pdq, (sl["dq"],))
+        _within_one_bf16_ulp(dkdv, pdkdv, (sl["dk"], sl["dv"]))
+    again = (*FA.flash_attention_bwd_dq(q, k, v, po, do, plse, False),
+             *FA.flash_attention_bwd_dkdv(q, k, v, do, plse, pdq[1], False))
+    for g, a in zip((*dq, *dkdv), again):
+        assert torch.equal(g.view(torch.int16) if g.dtype == torch.bfloat16
+                           else _bits(g), a.view(torch.int16)
+                           if a.dtype == torch.bfloat16 else _bits(a))
+    if Sk != Sq:
+        with pytest.raises(ValueError):
+            FA.flash_attention_lse(q, k, v, causal=True)
+        with pytest.raises(ValueError):
+            FA.flash_attention_bwd_dq(q, k, v, po, do, plse, True)
 
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
@@ -1356,9 +1443,10 @@ def test_flash_bf16_instances_within_one_ulp(gen, B, S, H, D, causal):
     reset_launches()
     _within_one_bf16_ulp((FA.flash_attention(q, k, v, causal=causal),),
                          plain[:1], (sl["o"],))
-    o, lse = FA.flash_attention_lse(q, k, v, causal=causal)
-    _within_one_bf16_ulp((o, lse), plain, (sl["o"],))
-    o, lse = plain
+    # o, lse and o in f32 (within 2e-4 x max(1, max|plain|), as lse)
+    got = FA.flash_attention_lse(q, k, v, causal=causal)
+    _within_one_bf16_ulp(got, plain, (sl["o"],))
+    _, lse, o = plain
     dq = FA.flash_attention_bwd_dq(q, k, v, o, do, lse, causal)
     pdq = FA.flash_attention_bwd_dq_plain(q, k, v, o, do, lse, causal)
     _within_one_bf16_ulp(dq, pdq, (sl["dq"],))

@@ -28,6 +28,7 @@ from repro.obs.metrics import parse_metrics_text as jparse  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine   # noqa: E402
 
 import repro_torch.launch.serve as tserve_cli               # noqa: E402
+import repro_torch.launch.train as ttrain_cli               # noqa: E402
 from repro_torch.configs import ARCHS                       # noqa: E402
 from repro_torch.core.compression import bfp8_decode        # noqa: E402
 from repro_torch.models import attention as TA             # noqa: E402
@@ -97,17 +98,18 @@ def test_rmsnorm_and_rope_match_the_reference():
 
 
 def test_unported_families_raise():
-    """Every family is served now; what still refuses is whisper's
-    training (Queue 1, item 16) and whisper in the engine, which has no
-    encoder frames to give it (the step builders serve it)."""
+    """Every family is served and trained now; what still refuses is
+    whisper in the engine and in the train CLI, which have no encoder
+    frames to give it (the step builders serve it, make_train_step trains
+    it on batches that carry enc_frames)."""
     whisper = ARCHS["whisper-large-v3"].reduced()
     for name in ("whisper-large-v3", "qwen2-vl-72b"):
         cache = TM.init_cache(ARCHS[name].reduced(), 1, 8, device="cpu")
         assert set(cache["pos_0"]) >= {"k", "v"}
     params = TM.init_params(torch.Generator().manual_seed(0), whisper)
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 16"):
-        TM.lm_loss(params, whisper, toks, toks)
+    with pytest.raises(ValueError, match="make_train_step.*enc_frames"):
+        ttrain_cli.main(["--arch", "whisper-large-v3", "--smoke",
+                         "--device", "cpu", "--steps", "1"])
     with pytest.raises(ValueError, match="make_prefill_step"):
         ServingEngine(whisper, params, device="cpu")
 

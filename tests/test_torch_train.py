@@ -202,24 +202,41 @@ def test_forward_unbinds_each_stacked_leaf_once(models):
 # flash attention's gradient, plain route
 # =============================================================================
 
-def _qkv(shape, seed):
+# (B, Sq, Sk, H, D, causal): one S, causal and not, then keys of their own
+# length (non-causal: the encoder-decoder's cross attention), Sq 1, 16, 37
+# against Sk 1, 33, 130
+FLASH_GRAD_CASES = (
+    [((B, S, S, H, D), causal) for B, S, H, D in (
+        (2, 64, 2, 16), (1, 77, 3, 32), (1, 130, 2, 64), (1, 33, 2, 128))
+     for causal in (True, False)]
+    + [((2, Sq, Sk, 2, D), False) for Sq in (1, 16, 37) for Sk in (1, 33, 130)
+       for D in (16, 64)])
+FLASH_GRAD_IDS = [f"S{s[1]}D{s[4]}-{c}" if i < 8 else
+                  f"Sq{s[1]}Sk{s[2]}D{s[4]}-{c}"
+                  for i, (s, c) in enumerate(FLASH_GRAD_CASES)]
+
+
+def _qkv_own(shape, seed):
+    """q, k, v, dO of (B, Sq, Sk, H, D): q and dO (B, Sq, H, D), k and v
+    (B, Sk, H, D); at Sq == Sk the four draws of :func:`_qkv`."""
+    B, Sq, Sk, H, D = shape
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal(shape, dtype=np.float32) for _ in range(4)]
+    return [rng.standard_normal((B, n, H, D), dtype=np.float32)
+            for n in (Sq, Sk, Sk, Sq)]
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", [(2, 64, 2, 16), (1, 77, 3, 32),
-                                   (1, 130, 2, 64), (1, 33, 2, 128)],
-                         ids=["S64D16", "S77D32", "S130D64", "S33D128"])
+@pytest.mark.parametrize("shape,causal", FLASH_GRAD_CASES,
+                         ids=FLASH_GRAD_IDS)
 def test_flash_gradient_matches_jax_vjp(shape, causal):
     """FlashAttention on the CPU (chunked_attention with lse, then
     flash_attention_backward_plain) against ``jax.vjp`` of the reference's
-    chunked_attention; and the lse against logsumexp of the scores."""
-    q, k, v, do = _qkv(shape, shape[1])
-    S, D = shape[1], shape[3]
+    chunked_attention, also over keys of their own length (dK and dV of
+    k's shape); and the lse against logsumexp of the scores."""
+    q, k, v, do = _qkv_own(shape, shape[1])
+    S, Sk, D = shape[1], shape[2], shape[4]
 
     def jfn(q, k, v):
-        return JA.chunked_attention(q, k, v, causal=causal, chunk=S)
+        return JA.chunked_attention(q, k, v, causal=causal, chunk=Sk)
     jo, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = vjp(jnp.asarray(do))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
@@ -227,10 +244,11 @@ def test_flash_gradient_matches_jax_vjp(shape, causal):
     close(o.detach().numpy(), np.asarray(jo))
     o.backward(torch.from_numpy(do))
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        assert got.shape == w.shape
         close(got.numpy(), np.asarray(w))
     # the plain backward called directly, from the plain forward's lse
     t = [torch.from_numpy(a) for a in (q, k, v, do)]
-    o2, lse = FA.flash_attention_lse(t[0], t[1], t[2], causal=causal)
+    o2, lse, _ = FA.flash_attention_lse(t[0], t[1], t[2], causal=causal)
     s = np.einsum("bqhd,bkhd->bhqk", q * np.float32(D ** -0.5), k)
     if causal:
         s = np.where(np.tril(np.ones((S, S), bool)), s, -2.0 ** 30)
@@ -293,11 +311,18 @@ class _ExactAttention(torch.autograd.Function):
                                                    ctx.causal), None)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_backward_gradcheck_f64(causal):
+# (causal, Sq, Sk): one S, then keys of their own length (non-causal), more
+# and fewer than the queries and one key
+GRADCHECK_CASES = [(True, 70, 70), (False, 70, 70), (False, 70, 23),
+                   (False, 5, 130), (False, 37, 1)]
+
+
+@pytest.mark.parametrize("causal,Sq,Sk", GRADCHECK_CASES, ids=[
+    str(c) if q == k else f"Sq{q}Sk{k}" for c, q, k in GRADCHECK_CASES])
+def test_plain_backward_gradcheck_f64(causal, Sq, Sk):
     g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(1, 70, 1, 8, generator=g, dtype=torch.float64,
-                           requires_grad=True) for _ in range(3))
+    q, k, v = (torch.randn(1, n, 1, 8, generator=g, dtype=torch.float64,
+                           requires_grad=True) for n in (Sq, Sk, Sk))
     assert torch.autograd.gradcheck(
         lambda q, k, v: _ExactAttention.apply(q, k, v, causal), (q, k, v),
         eps=1e-6, atol=1e-7, rtol=1e-5)
@@ -307,6 +332,37 @@ def test_flash_backward_refuses_mismatched_shapes():
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError):
         FA.flash_attention_backward(q, q[:, :4], q, q, q, q, True)
+
+
+def test_flash_training_refuses_causal_keys_of_their_own_length():
+    """Keys of their own length are non-causal only: a causal call with Sk
+    != S is refused by the lse forward, both backward halves and
+    FlashAttention; non-causal, dK and dV take k's shape, and o, dO, lse
+    and delta must fit q."""
+    rng = np.random.default_rng(4)
+    q, o, do = (torch.from_numpy(rng.standard_normal(
+        (1, 8, 2, 16), dtype=np.float32)) for _ in range(3))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 5, 2, 16), dtype=np.float32)) for _ in range(2))
+    lse = torch.zeros(1, 2, 8)
+    for call in (lambda: FA.flash_attention_lse(q, k, v, causal=True),
+                 lambda: FA.flash_attention_bwd_dq(q, k, v, o, do, lse, True),
+                 lambda: FA.flash_attention_bwd_dkdv(q, k, v, do, lse, lse,
+                                                     True),
+                 lambda: FA.FlashAttention.apply(q, k, v, True)):
+        with pytest.raises(ValueError, match="shape"):
+            call()
+    o, lse, _ = FA.flash_attention_lse(q, k, v, causal=False)
+    dk, dv = FA.flash_attention_backward(q, k, v, o, lse, do, False)[1:]
+    assert dk.shape == dv.shape == k.shape
+    for bad in (lambda: FA.flash_attention_bwd_dq(q, k, v, o[:, :5], do,
+                                                  lse, False),
+                lambda: FA.flash_attention_bwd_dkdv(q, k, v, do[:, :5], lse,
+                                                    lse, False),
+                lambda: FA.flash_attention_bwd_dkdv(q, k, v, do, lse,
+                                                    lse[:, :, :5], False)):
+        with pytest.raises(ValueError, match="fit"):
+            bad()
 
 
 # =============================================================================

@@ -28,6 +28,7 @@ from repro.models import attention as JA                    # noqa: E402
 from repro.models import model as JM                        # noqa: E402
 from repro.runtime import steps as JS                       # noqa: E402
 
+import repro_torch.launch.train as ttrain_cli               # noqa: E402
 from repro_torch.configs import ARCHS                       # noqa: E402
 from repro_torch.models import attention as TA             # noqa: E402
 from repro_torch.models import model as TM                 # noqa: E402
@@ -308,13 +309,16 @@ def test_decode_matches_full_forward(weights, use_kernels):
         close(logits, full[:, t], DECODE_TOL)
 
 
-def test_the_encoder_decoder_refuses_what_is_not_ported(weights):
-    """The engine (no encoder frames to give) and training (Queue 1, item
-    16) refuse whisper, naming what serves it and where the work waits."""
+def test_the_encoder_decoder_refuses_what_is_not_ported(weights,
+                                                        tmp_path):
+    """The engine and the train CLI, which have no encoder frames to give,
+    refuse whisper before building anything, naming what serves it
+    (make_prefill_step) and what trains it (make_train_step on batches
+    that carry enc_frames)."""
     _, tp = weights
     with pytest.raises(ValueError, match="make_prefill_step"):
         ServingEngine(CFG, tp, device="cpu")
-    toks = _t(_toks((1, 8), 90))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 16"):
-        TM.lm_loss(tp, CFG, toks, toks,
-                   enc_frames=_t(_rand((1, T, CFG.d_model), 91)))
+    with pytest.raises(ValueError, match="make_train_step.*enc_frames"):
+        ttrain_cli.main(["--arch", NAME, "--smoke", "--device", "cpu",
+                         "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
