@@ -40,6 +40,17 @@ and prints no result line):
    same plan, every vertex of that staged executor to its plain version on
    its own inputs, and the microbatch to pipelined reference mode within
    the same bound as a staged frame.
+   The ring (``ring_phase``, ``yolo-3stage-ring``): the 3-stage plan with
+   the same weights through ``lower_plan_pipelined(placement="shard_map",
+   devices=[cuda:0] * 3)``, each stage on a CUDA stream of its own on the
+   one card, crossings ordered by events; the same seeded streams, every
+   microbatch bit for bit the interleave's, the launches held to ticks x
+   the same table, every stage's weights read on its own stream (a ring
+   that ran on one stream fails); then each stream again with one stage's
+   stream held back RING_SPIN_CYCLES at every tick, first the last stage
+   (a consumer only), then the first (a producer only), bit for bit
+   again.  Phase 5 times the interleave and the ring in turns (CUDA
+   events), with both executors' measured stage latencies and profiles.
    Served (``Compiled.serve`` -> ``GraphStreamServer``): the same YOLO
    head on its DSE plan with an SLO attached; 20 seeded frames, one flush
    (two full streams and one with 4 bubbles), ``resident_limit=4``; every
@@ -213,7 +224,10 @@ and prints no result line):
    its frame time in reference mode, and the device's busy time and idle
    share in one profiled frame (for the YOLO head: ms per microbatch
    pipelined and staged, peak memory of one stream, the 3-stage plan's
-   measured stage latencies, one profiled stream);
+   measured stage latencies, one profiled stream; then the 3-stage plan's
+   interleave and ring in turns, ms per microbatch by CUDA events and the
+   host clock, both executors' stage latencies, a profiled stream of each
+   with the time its device events cover);
 6. the autotuned path: ``GraphStreamServer.autotuned`` on the same YOLO
    head (the closed-loop search, ``repro_torch.optim.autotune``: 12
    candidates from the u200 DSE plan, each lowered and measured over a
@@ -240,6 +254,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -371,6 +386,13 @@ STREAM_PATHS = (
                 "act_relu_encode": 3, "pool": 4, "bfp8_dequant": 6}, 6, 6),
 )
 STREAMS = 2
+# the ring placement of the 3-stage plan on the one card: its stages on
+# streams of their own (``devices=[cuda:0] * 3``).  The delayed runs hold
+# one stage's stream back at every tick by about 10 ms, several ticks of
+# the host's enqueueing, so that stream falls behind the others
+RING_PATH = "yolo-3stage"
+RING_DELAYS = (("consumer", -1), ("producer", 0))
+RING_SPIN_CYCLES = 10 * SPIN_CYCLES
 
 # the fuzz path: the port's conformance fuzzer on the card, seed 0, every
 # case on the kernel route (the generator's last draw, so no other draw
@@ -1800,6 +1822,123 @@ def run_stream_path(torch, repro_torch, library, path: StreamPath):
     for (name, arg_shapes), n in sorted(shapes.items()):
         print(f"  {name} {arg_shapes} x{n}")
     return main, staged, refc, counts, shapes
+
+
+class StageWeights(dict):
+    """A ring's weights as its stages read them: the streams each stage read
+    its weights on (``seen``), and for stage ``delay`` a spin of ``spin``
+    cycles on the current stream before the stage reads its first weight,
+    once a tick.  The executor reads a vertex's weight as ``params[name]``
+    where its stage runs, so this holds back the stage's own stream and
+    nothing else."""
+
+    def __init__(self, torch, params, stage_of, first, delay=None, spin=0):
+        super().__init__(params)
+        self.torch = torch
+        self.stage_of = stage_of
+        self.first = first
+        self.delay = delay
+        self.spin = spin
+        self.seen = collections.defaultdict(set)
+
+    def __getitem__(self, name):
+        j = self.stage_of[name]
+        self.seen[j].add(self.torch.cuda.current_stream().cuda_stream)
+        if j == self.delay and name == self.first[j]:
+            self.torch.cuda._sleep(self.spin)
+        return super().__getitem__(name)
+
+
+def ring_phase(torch, library, path: StreamPath, main):
+    """Phase 3 for the ring placement of ``path``'s plan: the compiled
+    interleave ``main``'s plan and weights lowered with
+    ``placement="shard_map"`` on ``[cuda:0] * S``, each stage on a stream
+    of its own.  STREAMS seeded streams (the interleave's seeds), each run
+    as is and then with one stage's stream held back RING_SPIN_CYCLES a
+    tick (RING_DELAYS); every run's launches counted from 0 and held to
+    ticks x the table, every stage's weights read on its own stream, every
+    microbatch bit for bit the interleave's.  A ring that fell back (to
+    the interleave, or to one stream) fails.  Returns (the ring, launches
+    per stream, launch shapes per stream) of the undelayed runs."""
+    from repro_torch.runtime.streamer import lower_plan_pipelined
+    tag = f"{path.name}-ring"
+    sx = main.executor
+    B, S = path.microbatches, sx.n_stages
+    t0 = time.perf_counter()
+    ring = lower_plan_pipelined(
+        main.graph, main.plan, microbatches=B, placement="shard_map",
+        devices=[torch.device("cuda", 0)] * S)
+    streams = [st.cuda_stream for st in ring.streams or ()]
+    print(f"[{tag}] lowering {time.perf_counter() - t0:.2f} s; placement "
+          f"{ring.placement} (report {ring.report.placement}); stage "
+          f"devices {[str(d) for d in ring.devices]}, stage streams "
+          f"{streams}; {torch.cuda.device_count()} device(s) on the host")
+    if (ring.placement != "shard_map" or ring.report.placement != "shard_map"
+            or len(set(streams)) != S
+            or torch.cuda.current_stream().cuda_stream in streams):
+        raise AssertionError(f"[{tag}] the ring fell back: placement "
+                             f"{ring.placement}, stage streams {streams}")
+    stage_of = ring._stage_of
+    if not (any(stage_of[u] == 0 for u, _ in ring._crossing)
+            and any(stage_of[w] == S - 1 for _, w in ring._crossing)):
+        raise AssertionError(f"[{tag}] stage 0 produces no crossing or "
+                             f"stage {S - 1} consumes none")
+    first: dict = {}
+    for v in main.graph.topo():
+        if v in sx.params:
+            first.setdefault(stage_of[v], v)
+    if len(first) != S:
+        raise AssertionError(f"[{tag}] a stage holds no weights: {first}")
+    expected = dict.fromkeys(library.SIGNATURES, 0) | {
+        k: path.ticks * n for k, n in path.launches.items()}
+    m, c = main.input_shape()
+    counts = shapes = None
+    for st in range(STREAMS):
+        xd = torch.randn((B, m, c), generator=torch.Generator().manual_seed(
+            100 + st)).cuda()
+        want = main.run(xd)
+        torch.cuda.synchronize()
+        for label, delay in (("as is", None),) + RING_DELAYS:
+            j = None if delay is None else delay % S
+            ring.params = StageWeights(torch, sx.params, stage_of, first,
+                                       delay=j, spin=RING_SPIN_CYCLES)
+            library.reset_launches()
+            t0 = time.perf_counter()
+            ys = ring(xd)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            got = library.launches()
+            if got != expected:
+                raise AssertionError(f"[{tag}] stream {st}, {label}: "
+                                     f"launches {got}, expected {expected}")
+            if delay is None:
+                counts = got
+                if shapes is None:
+                    shapes = library.launch_shapes()
+                elif library.launch_shapes() != shapes:
+                    raise AssertionError(f"[{tag}] stream {st}: launch "
+                                         f"shapes changed")
+            seen = ring.params.seen
+            off = {i: sorted(seen[i]) for i in range(S)
+                   if seen[i] != {streams[i]}}
+            if off:
+                raise AssertionError(f"[{tag}] stream {st}, {label}: stages "
+                                     f"read their weights on streams {off}, "
+                                     f"not their own {streams}")
+            parted = [b for b in range(B)
+                      if not bit_equal(torch, ys[b], want[b])]
+            if parted or ys.device != ring.out_device:
+                raise AssertionError(f"[{tag}] stream {st}, {label}: "
+                                     f"microbatches {parted} part from the "
+                                     f"interleave (output on {ys.device})")
+            held = ("" if j is None else f", stage {j} ({label}) held "
+                    f"{RING_SPIN_CYCLES} cycles a tick")
+            print(f"[{tag}] stream {st}{held}: every microbatch bit-equal "
+                  f"to the interleave, launches ticks x the table, each "
+                  f"stage's weights read on its own stream; {wall:.3f} ms "
+                  f"host clock")
+    ring.params = sx.params
+    return ring, counts, shapes
 
 
 def serve_phase(torch, repro_torch, library, path: StreamPath):
@@ -4049,7 +4188,10 @@ def profile_device(torch, label: str, fn, ms: float,
     ``torch.profiler.profile`` read on PyTorch 2.11), not through
     ``key_averages()``, whose Python event objects take minutes over the
     million launches of a recurrent train step.  ``both_ways`` also sums
-    the same profile through ``key_averages()`` and prints both sums."""
+    the same profile through ``key_averages()`` and prints both sums.
+    Where device events overlap (streams running at once), it also prints
+    the time some event covers (the union of their intervals, which the
+    sum counts twice where they overlap) and the idle share that leaves."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -4062,12 +4204,14 @@ def profile_device(torch, label: str, fn, ms: float,
     # the device-side events (kernels, copies): a host op's own device
     # time repeats its kernels'
     by_name = collections.defaultdict(lambda: [0, 0])
+    spans = []
     for e in prof.profiler.kineto_results.events():
         if (e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
                 and not e.is_user_annotation()):
             row = by_name[e.name()]
             row[0] += e.duration_ns()
             row[1] += 1
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
     read_s = time.perf_counter() - t1
     busy = sum(ns for ns, _ in by_name.values()) / 1e6
     if busy == 0:
@@ -4080,6 +4224,19 @@ def profile_device(torch, label: str, fn, ms: float,
           f"profiler, its events read in {read_s:.1f} s); by device time: "
           + "; ".join(f"{name[:60]} {ns / 1e6:.3f} ms x{n}"
                       for name, (ns, n) in top))
+    cover, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            cover += b - a
+            end = b
+        elif b > end:
+            cover += b - end
+            end = b
+    if cover < sum(ns for ns, _ in by_name.values()):
+        print(f"{label}: device events cover {cover / 1e6:.3f} ms of "
+              f"{ms:.3f} (idle share {1 - cover / 1e6 / ms:.3f}); summed "
+              f"they take {busy:.3f} ms, {busy - cover / 1e6:.3f} ms of it "
+              f"beside another event")
     if both_ways:
         t1 = time.perf_counter()
         events = [e for e in prof.key_averages()
@@ -4173,6 +4330,67 @@ def stream_phase(torch, repro_torch, path: StreamPath, main, staged, refc):
         for label, comp in (("evicted", main), ("resident", resc)):
             profile_host(torch, f"[{path.name}] host profile of one "
                          f"{label} stream", lambda c=comp: c.run(xs))
+
+
+def event_ms(torch, fn, reps: int = 5) -> float:
+    """Median ms of ``fn`` between CUDA events on the current stream (one
+    warm-up call first)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def ring_time_phase(torch, path: StreamPath, main, ring):
+    """Phase 5 for the ring: ms per microbatch of ``path``'s stream, the
+    interleave and the ring in turns (interleave, ring, ring, interleave),
+    each by CUDA events on the current stream around a stream (median of
+    5) and by the host clock; both executors' measured stage latencies
+    (the ring's each on its stage stream between the events) and
+    ``measure_pipelined_fps`` (the autotuner's clock); one profiled
+    stream of each, its device time summed and covered (the union of the
+    events' intervals: the ring's streams may overlap)."""
+    from repro_torch.optim.autotune import measure_pipelined_fps
+    from repro_torch.runtime.streamer import measured_stage_latencies
+    tag = f"{path.name}-ring"
+    B = path.microbatches
+    m, c = main.input_shape()
+    xs = torch.randn((B, m, c),
+                     generator=torch.Generator().manual_seed(99)).cuda()
+    fns = {"interleave": lambda: main.executor(xs), "ring": lambda: ring(xs)}
+    ev = collections.defaultdict(list)
+    host = collections.defaultdict(list)
+    for label in ("interleave", "ring", "ring", "interleave"):
+        ev[label].append(event_ms(torch, fns[label]) / B)
+        run = main if label == "interleave" else types.SimpleNamespace(
+            run=ring)
+        host[label].append(frame_stats(torch, run, xs)[0] / B)
+    print(f"[{tag}] ms per microbatch over a stream of {B} ({card()}; "
+          f"{torch.cuda.device_count()} device(s) on the host), in turns, "
+          f"CUDA events median of 5 / host clock median of 5: interleave "
+          f"{[round(t, 4) for t in ev['interleave']]} / "
+          f"{[round(t, 4) for t in host['interleave']]}, ring on "
+          f"{[str(d) for d in ring.devices]} "
+          f"{[round(t, 4) for t in ev['ring']]} / "
+          f"{[round(t, 4) for t in host['ring']]}")
+    for label, sx in (("interleave", main.executor), ("ring", ring)):
+        lat = measured_stage_latencies(sx, xs[0], repeats=5, warmup=2)
+        fps = measure_pipelined_fps(sx, xs)
+        print(f"[{tag}] {label}: measured stage latencies (CUDA events, "
+              f"median of 5): {[round(t * 1e3, 4) for t in lat]} ms; "
+              f"measure_pipelined_fps {fps:.1f} (ticks over the best of 3 "
+              f"streams)")
+    for label in ("interleave", "ring"):
+        profile_device(torch, f"[{tag}] profile of one {label} stream",
+                       fns[label], statistics.median(host[label]) * B)
 
 
 def memory_phase(torch, repro_torch, path: Path, main, refc):
@@ -4270,6 +4488,9 @@ def main() -> int:
     runs = {p.name: run_path(torch, repro_torch, library, p) for p in PATHS}
     streams = {p.name: run_stream_path(torch, repro_torch, library, p)
                for p in STREAM_PATHS}
+    ring_path = next(p for p in STREAM_PATHS if p.name == RING_PATH)
+    ring, ring_counts, ring_shapes = ring_phase(
+        torch, library, ring_path, streams[RING_PATH][0])
     t0 = time.perf_counter()
     served = serve_phase(torch, repro_torch, library, STREAM_PATHS[0])
     t1 = time.perf_counter()
@@ -4321,7 +4542,8 @@ def main() -> int:
     # (pipelined), per flush (served) or over the phase (fuzz)
     counts = {n: r[-2] for n, r in (runs | streams).items()}
     shapes = {n: r[-1] for n, r in (runs | streams).items()}
-    for name, (c, sh) in (("yolo-served", served), ("fuzz", fuzzed),
+    for name, (c, sh) in ((f"{RING_PATH}-ring", (ring_counts, ring_shapes)),
+                          ("yolo-served", served), ("fuzz", fuzzed),
                           *lm.items(), *trained.items()):
         counts[name], shapes[name] = c, sh
 
@@ -4380,6 +4602,7 @@ def main() -> int:
     for p in STREAM_PATHS:
         main_c, staged, refc, _, _ = streams[p.name]
         stream_phase(torch, repro_torch, p, main_c, staged, refc)
+    ring_time_phase(torch, ring_path, streams[RING_PATH][0], ring)
     print(f"phases 2-5: {time.perf_counter() - t_start:.1f} s")
 
     # -- the autotuned path (after phase 5: phase 4 replays none of it) -------

@@ -56,11 +56,18 @@ Spec knobs
                  (:class:`~repro_torch.optim.autotune.AutotuneConfig`);
                  by default the spec's microbatches, kernel mode, seed and
                  torch device.
-``placement``    chooses nothing yet: it exists so that artifacts and the
-                 reference façade stay in step until ROADMAP.md Queue 1,
-                 item 10 ports the multi-GPU placement.  ``auto`` and
-                 ``interleave`` both run every stage on one GPU;
-                 ``shard_map`` (one stage per GPU) raises.
+``placement``    pipelined: ``interleave`` runs every stage on
+                 ``torch_device``; ``shard_map`` is the reference's ring,
+                 one stage per GPU (stage ``j`` on ``cuda:j``, its weights
+                 there, on a CUDA stream of its own), refused with
+                 ``ValueError`` when lowering finds fewer GPUs than stages
+                 (on the CPU it runs a one-stage plan); ``auto`` takes the
+                 ring when the plan has S > 1 stages and the host S GPUs,
+                 else the interleave.  Inputs go to the first stage's
+                 device (``executor.device``), outputs come from the last
+                 stage's (``executor.out_device``).  A ring over other
+                 devices (``[cuda:0] * S``, the CPU) is
+                 ``lower_plan_pipelined(devices=...)``.
 ``channel``      opt-in off-chip channel model (``repro_torch.memory``):
                  the pipelined report then carries the contended Eq. 5/6
                  bounds and the prefetch deadline accounting.
@@ -139,7 +146,7 @@ class CompileSpec:
     dse: DSEConfig | None = None       # strategy="dse" knobs
     autotune_cfg: Any = None           # optim.autotune.AutotuneConfig
     torch_device: str = "cuda"
-    placement: str = "auto"            # chooses nothing yet (see above)
+    placement: str = "auto"            # pipelined: interleave | shard_map
     #: opt-in off-chip channel model (``repro_torch.memory``): arbitration
     #: policy + optional gbps override; pipelined lowerings then carry the
     #: contended Eq. 5/6 bounds and prefetch deadline accounting.
@@ -162,10 +169,6 @@ class CompileSpec:
         if self.placement not in PLACEMENTS:
             raise ValueError(f"unknown placement {self.placement!r}; pick "
                              f"one of {PLACEMENTS}")
-        if self.mode == "pipelined" and self.placement == "shard_map":
-            raise NotImplementedError(
-                'placement="shard_map" (one stage per GPU) is not ported '
-                "yet; see ROADMAP.md, Queue 1, item 10")
         if self.kernel_mode not in KERNEL_MODES:
             raise ValueError(f"unknown kernel_mode {self.kernel_mode!r}; "
                              f"pick one of {KERNEL_MODES}")
@@ -336,7 +339,8 @@ class Compiled:
         return self.spec.strategy
 
     def _on_device(self, x) -> torch.Tensor:
-        """A frame or stream (tensor or array) on the executor's device."""
+        """A frame or stream (tensor or array) on the executor's device (a
+        ring's first stage's)."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
         return x.to(self.executor.device)
@@ -345,7 +349,9 @@ class Compiled:
         """Staged / reference: one ``(m, c)`` frame (tensor or array) ->
         the flat ``(L,)`` output.  Pipelined: a ``(B, m, c)`` stream ->
         ``(B, L)``, or one ``(m, c)`` frame, broadcast through the stream
-        (every slot computes the same frame) -> ``(L,)``."""
+        (every slot computes the same frame) -> ``(L,)``.  Outputs are
+        tensors on the executor's device; under the ring on the last
+        stage's, ``executor.out_device``."""
         x = self._on_device(x)
         if self.mode == "pipelined" and x.dim() == 2:
             B = self.executor.microbatches

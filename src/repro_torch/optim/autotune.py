@@ -226,18 +226,20 @@ def measure_pipelined_fps(sx: StreamingExecutor, xs: torch.Tensor, *,
     cross-plan comparison against deeper pipelines.
 
     On a CUDA device the stream is timed by CUDA events recorded on the
-    current stream around ``sx(xs)``, then synchronised; on the CPU by the
-    host clock.
+    current stream of the executor's device around ``sx(xs)``, then
+    synchronised (a ring's stage streams start after the first event, and
+    the second waits on them); on the CPU by the host clock.
     """
     on_cuda = sx.device.type == "cuda"
 
     def once() -> float:
         if on_cuda:
+            cur = torch.cuda.current_stream(sx.device)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            a.record()
+            a.record(cur)
             sx(xs)
-            b.record()
+            b.record(cur)
             b.synchronize()
             return a.elapsed_time(b) / 1e3
         t0 = time.perf_counter()

@@ -39,6 +39,7 @@ import dataclasses
 import functools
 import math
 import zlib
+from collections.abc import Mapping
 from typing import Callable
 
 import numpy as np
@@ -123,15 +124,24 @@ def _weight_shape(g: Graph, name: str) -> tuple[int, int]:
     return (spec["cin"], spec["cout"])
 
 
+def _device_of(device, name: str):
+    """A vertex's device: ``device`` itself, or its entry for ``name`` where
+    ``device`` maps vertices to devices (a ring's stage placement)."""
+    return device[name] if isinstance(device, Mapping) else device
+
+
 def init_params(g: Graph, seed: int = 0,
-                device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+                device: str | torch.device | Mapping = "cpu"
+                ) -> dict[str, torch.Tensor]:
     """Deterministic per-vertex weights for every weighty executable op.
 
     Each vertex draws from its own CPU ``torch.Generator`` seeded with the
     CRC32 of ``seed`` and its name, and the weights are then moved to
-    ``device``, so the CPU and the card hold the same weights.  They differ
-    from the reference package's ``jax.random`` weights; carry those over
-    with :func:`params_from_numpy`.
+    ``device``, so the CPU and the card hold the same weights.  ``device``
+    may map each vertex to its own device (a pipelined ring's
+    ``StreamingExecutor.vertex_devices``: stage ``j``'s weights on stage
+    ``j``'s device).  They differ from the reference package's
+    ``jax.random`` weights; carry those over with :func:`params_from_numpy`.
     """
     params: dict[str, torch.Tensor] = {}
     for v in g.vertices():
@@ -141,15 +151,20 @@ def init_params(g: Graph, seed: int = 0,
             zlib.crc32(f"{seed}/{v.name}".encode()))
         shape = _weight_shape(g, v.name)
         w = torch.randn(shape, generator=gen, dtype=torch.float32)
-        params[v.name] = (w * (1.0 / math.sqrt(shape[0]))).to(device)
+        params[v.name] = (w * (1.0 / math.sqrt(shape[0]))).to(
+            _device_of(device, v.name))
     return params
 
 
-def params_from_numpy(arrays: dict, device: str | torch.device = "cpu"
+def params_from_numpy(arrays: dict,
+                      device: str | torch.device | Mapping = "cpu"
                       ) -> dict[str, torch.Tensor]:
     """Weights made elsewhere (e.g. the reference package's ``init_params``,
-    as numpy arrays) as f32 tensors on ``device``."""
-    return {k: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    as numpy arrays) as f32 tensors on ``device``, or on each vertex's
+    device where ``device`` maps vertices to devices (as in
+    :func:`init_params`)."""
+    return {k: torch.from_numpy(np.array(a, dtype=np.float32)).to(
+                _device_of(device, k))
             for k, a in arrays.items()}
 
 
@@ -627,8 +642,13 @@ class OffchipHop:
     the caching allocator hands that memory only to work ordered after the
     copy.  A frame writes each buffer once and its consumers read it; the
     next frame's write is ordered after those reads on the same stream, and
-    the host never touches the buffers.  On the CPU a handle is the tensors
-    themselves and both directions are identity."""
+    the host never touches the buffers.  Neither argument holds where
+    producer and consumer run on two streams (the pipelined ring: a hop a
+    stage, each stage on its own device and stream, a consumer restoring
+    with its own hop a handle its producer's hop wrote): there the caller
+    orders each eviction before its restore, and each restore before the
+    next eviction into the same buffers, with events.  On the CPU a handle
+    is the tensors themselves and both directions are identity."""
 
     def __init__(self, device: torch.device, slots: dict):
         self.device = device

@@ -17,11 +17,13 @@ direct use.
 
 Lowering and execution (``pipeline.py``)
     ``lower_plan_pipelined(g, plan, *, microbatches, kernel_mode, seed,
-    placement, channel, channel_device, device)`` -> ``StreamingExecutor``:
-    ``sx(xs)`` maps a ``(B, m, c)`` stream to ``(B, L)`` outputs, bit for
-    bit what the staged executor produces per microbatch; a tick loop
-    whose carry holds, per stage-crossing edge, the *encoded* spill in
-    pinned host memory.  ``sx.run_traced(xs, recorder)`` runs the same
+    placement, channel, channel_device, device, devices)`` ->
+    ``StreamingExecutor``: ``sx(xs)`` maps a ``(B, m, c)`` stream to
+    ``(B, L)`` outputs, bit for bit what the staged executor produces per
+    microbatch; a tick loop whose carry holds, per stage-crossing edge, the
+    *encoded* spill in pinned host memory.  Every stage runs on one device
+    (``"interleave"``) or, in the reference's ring (``"shard_map"``), one
+    stage per device, each on a CUDA stream of its own.  ``sx.run_traced(xs, recorder)`` runs the same
     tick body tick by tick into an ``repro_torch.obs`` recorder and
     returns a ``ModelCheck``.  ``StreamReport`` is the ``SpillReport``
     plus the schedule view; ``measured_stage_latencies`` times each stage

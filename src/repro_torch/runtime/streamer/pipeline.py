@@ -4,8 +4,10 @@ The counterpart of the reference package's ``runtime/streamer/pipeline.py``.
 ``lower_plan_pipelined`` consumes the same ``core.plan.ExecutionPlan`` (and
 the same per-vertex lowering, via ``runtime.executor.analyze_plan`` /
 ``run_vertices``) as the staged executor, but runs the plan's stages as a
-software 1F1B pipeline over ``B`` microbatches, on one device: a loop over
-``T = B + S - 1`` ticks.  The carry holds, per stage-crossing edge, a shift
+software 1F1B pipeline over ``B`` microbatches: a loop over ``T = B + S -
+1`` ticks, every stage on one device (``placement="interleave"``) or one
+stage per device, each on a CUDA stream of its own (``"shard_map"``, the
+reference's ring).  The carry holds, per stage-crossing edge, a shift
 register of the *encoded* spill (BFP8 mantissas + shared exponents for
 ``bfp8`` streams, raw words otherwise): stage ``i`` pushes microbatch
 ``b``'s encoded spill while stage ``i+1`` decodes microbatch ``b-1`` from
@@ -17,7 +19,10 @@ the reference.
 A crossing payload goes through the same :class:`OffchipHop` as a staged
 spill: on a CUDA device each shift-register slot is a set of pinned host
 buffers, so an encoded crossing lives off the device between its two
-stages.
+stages.  In the ring the producer evicts on its stream and the consumer
+restores onto its own device on its stream, and events order the two (the
+reference passes the slot one device a tick around a ``ppermute`` ring;
+the values are the same).
 
 Numerics are identical to the staged executor per microbatch: the same
 codec functions run in the same composition (pad -> quantise -> dequantise
@@ -25,6 +30,7 @@ codec functions run in the same composition (pad -> quantise -> dequantise
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -216,8 +222,10 @@ def _crossing_edges(g: Graph, an: PlanAnalysis) -> list[tuple[str, str]]:
 
 
 def _make_stage_fns(g: Graph, an: PlanAnalysis, names: list[list[str]],
-                    crossing: list[tuple[str, str]], hop: OffchipHop, enc):
-    """Per-stage callables with a uniform signature.
+                    crossing: list[tuple[str, str]], hops: list[OffchipHop],
+                    enc):
+    """Per-stage callables with a uniform signature; stage ``j`` spills
+    through ``hops[j]``.
 
     ``fn_j(params, x, reads) -> (produced, y)`` where ``reads`` maps every
     crossing edge to its decoded value (stage ``j`` only touches the ones it
@@ -236,7 +244,7 @@ def _make_stage_fns(g: Graph, an: PlanAnalysis, names: list[list[str]],
             # (fused BFP8 codec on the kernel route, spill_fn round-trips
             # on the reference route); crossing reads arrive pre-decoded
             values, payloads = run_vertices(
-                g, an, params, x, hop, names=names[j],
+                g, an, params, x, hops[j], names=names[j],
                 external=reads.__getitem__, keep_all=False)
             produced = {}
             for e in crossing:
@@ -271,6 +279,12 @@ class StreamingExecutor:
     handles, ``_decoders`` bring one back decoded) — the sequential
     decomposition the pipeline overlaps, used by
     :func:`measured_stage_latencies`.
+
+    ``devices[j]`` is stage ``j``'s device: ``device`` for every stage of
+    an interleave; in a ring (``placement == "shard_map"``) the stage's own,
+    with its weights there (``vertex_devices``) and, on a CUDA device, its
+    own stream ``streams[j]``.  Inputs go to ``device`` (``devices[0]``) and
+    outputs lie on ``out_device`` (``devices[-1]``).
     """
     fn: Callable[[dict, torch.Tensor], torch.Tensor]
     params: dict[str, torch.Tensor]
@@ -291,9 +305,23 @@ class StreamingExecutor:
     _queue_specs: dict = dataclasses.field(default_factory=dict)
     _stage_of: dict = dataclasses.field(default_factory=dict)
     _stream_shape: tuple = ()
+    devices: list[torch.device] = dataclasses.field(default_factory=list)
+    #: the ring's stage streams on a CUDA device, else None
+    streams: list | None = None
 
     def __call__(self, xs: torch.Tensor) -> torch.Tensor:
         return self.fn(self.params, xs)
+
+    @property
+    def out_device(self) -> torch.device:
+        """Where the outputs lie: the last stage's device."""
+        return self.devices[-1]
+
+    @property
+    def vertex_devices(self) -> dict[str, torch.device]:
+        """Each vertex's device, its stage's (``init_params`` and
+        ``params_from_numpy`` take it as ``device``)."""
+        return {v: self.devices[j] for v, j in self._stage_of.items()}
 
     def zero_reads(self) -> dict:
         """A zeros-filled decoded-reads template (for driving stage_fns)."""
@@ -322,6 +350,10 @@ class StreamingExecutor:
         ``smof_stream_frames_total``, per-edge queue occupancy and stall
         metrics (through the rings) and ``smof_spill_bytes_total``.
         """
+        if self._tick_fn is None:
+            raise NotImplementedError(
+                f"traced execution requires 'interleave' placement, "
+                f"this executor is {self.placement!r}")
         if tuple(xs.shape) != self._stream_shape:
             raise ValueError(
                 f"microbatch stream shape {tuple(xs.shape)} does not match "
@@ -475,22 +507,73 @@ def _spill_inside_stage(g: Graph, an: PlanAnalysis, key) -> bool:
     return an.stage_of[key[0]] == an.stage_of[key[1]]
 
 
+def _host_devices(device: torch.device) -> int:
+    """How many devices of ``device``'s type the host has: its CUDA device
+    count, or the one CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _ring_devices(S: int, device: torch.device, devices
+                  ) -> list[torch.device]:
+    """The ring's stage devices: the first ``S`` of ``devices`` (repeats
+    allowed), else the host's first ``S`` devices of ``device``'s type.
+    Fewer than ``S`` raise the reference's ``ValueError``."""
+    if devices is None:
+        n = _host_devices(device)
+        if n < S:
+            raise ValueError(f"shard_map placement needs >= {S} devices, "
+                             f"have {n}")
+        if device.type == "cuda":
+            return [torch.device("cuda", i) for i in range(S)]
+        return [device] * S
+    devs = [torch.device(d) for d in devices]
+    if len(devs) < S:
+        raise ValueError(f"shard_map placement needs >= {S} devices, "
+                         f"have {len(devs)}")
+    devs = devs[:S]
+    kinds = {d.type for d in devs}
+    if kinds not in ({"cpu"}, {"cuda"}):
+        raise ValueError(f"a ring's stages lie all on CUDA devices or all "
+                         f"on the CPU, got {[str(d) for d in devs]}")
+    if kinds == {"cuda"}:
+        n = torch.cuda.device_count()
+        cur = torch.cuda.current_device() if n else 0
+        devs = [torch.device("cuda", cur if d.index is None else d.index)
+                for d in devs]
+        missing = sorted({str(d) for d in devs if d.index >= n})
+        if missing:
+            raise ValueError(f"shard_map stage devices {missing} are not "
+                             f"among the host's {n} CUDA devices")
+    return devs
+
+
 def lower_plan_pipelined(g: Graph, plan: ExecutionPlan, *,
                          microbatches: int | None = None,
                          kernel_mode: str = "auto", seed: int = 0,
                          placement: str = "auto",
                          channel: ChannelConfig | None = None,
                          channel_device=None,
-                         device: str | torch.device = "cuda"
-                         ) -> StreamingExecutor:
+                         device: str | torch.device = "cuda",
+                         devices=None) -> StreamingExecutor:
     """Lower ``plan`` over ``g`` to a pipelined multi-microbatch executor on
     the torch ``device``.
 
     microbatches: length ``B`` of the input stream (defaults to
     ``plan.microbatch``, floored at 1).
-    placement: "interleave" (every stage on one device, the tick loop) or
-    "auto" (the same); "shard_map", one stage per device, is not ported
-    (ROADMAP.md, Queue 1, item 10).
+    placement: "interleave" (every stage on ``device``, one after another
+    at every tick), "shard_map" (the reference's ring: one stage per
+    device, stage ``j`` on ``devices[j]`` with its weights, on a CUDA
+    device on a stream of its own; fewer than ``S`` devices raise
+    ``ValueError``), or "auto" (the ring when ``S > 1`` and the host has at
+    least ``S`` devices of ``device``'s type, ``torch.cuda.device_count()``
+    GPUs or the one CPU; else the interleave).  Both compute the same
+    values bit for bit; only when a stage runs changes.
+    devices: the ring's stage devices (``placement="shard_map"`` only):
+    ``S`` torch devices, repeats allowed (``[cuda:0] * S`` runs the ring's
+    streams on one card), beyond ``S`` unused as the reference's
+    ``jax.devices()[:S]``; by default ``cuda:0`` ... ``cuda:S-1`` (the one
+    CPU for ``device="cpu"``, so there only ``S = 1``).  They then
+    take the place of ``device``.
     channel: opt-in off-chip channel model (``repro_torch.memory``): the
     plan's streams are arbitrated over the shared port, queue capacities
     absorb the arbiter-derived crossing delays, and the report carries the
@@ -501,16 +584,11 @@ def lower_plan_pipelined(g: Graph, plan: ExecutionPlan, *,
     """
     if placement not in PLACEMENTS:
         raise ValueError(f"unknown placement {placement!r}")
-    if placement == "shard_map":
-        raise NotImplementedError(
-            'placement="shard_map" (one stage per GPU) is not ported yet; '
-            "see ROADMAP.md, Queue 1, item 10")
-    placement = "interleave"
-    device = torch.device(device)
+    if devices is not None and placement != "shard_map":
+        raise ValueError(f'devices= places the stages of placement='
+                         f'"shard_map", not of {placement!r}')
+    device = torch.device(devices[0] if devices else device)
     use_kernels = resolve_kernel_mode(kernel_mode, device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     B = int(microbatches if microbatches is not None
             else max(plan.microbatch, 1))
     if B < 1:
@@ -518,43 +596,119 @@ def lower_plan_pipelined(g: Graph, plan: ExecutionPlan, *,
 
     an = analyze_plan(g, plan, use_kernels=use_kernels)
     S = an.n_stages
+    if placement == "auto":
+        placement = ("shard_map" if S > 1 and _host_devices(device) >= S
+                     else "interleave")
+    ring = placement == "shard_map"
+    stage_devices = (_ring_devices(S, device, devices) if ring
+                     else [device] * S)
+    device = stage_devices[0]
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    # the ring's stage streams; the interleave (and a ring on the CPU) runs
+    # on the caller's stream
+    streams = ([torch.cuda.Stream(device=d) for d in stage_devices]
+               if ring and device.type == "cuda" else None)
+    ring_devices = list(dict.fromkeys(stage_devices))
     names = _stage_names(an)
     crossing = _crossing_edges(g, an)
     sched = SCH.build_schedule(S, B)
+    stage_of = an.stage_of
 
     stream_map = {(s.src, s.dst): s for s in plan.streams}
     codec_of = {e: (stream_map[e].codec
                     if e in stream_map and stream_map[e].evicted else "none")
                 for e in crossing}
-    delay = {e: an.stage_of[e[1]] - an.stage_of[e[0]] for e in crossing}
+    delay = {e: stage_of[e[1]] - stage_of[e[0]] for e in crossing}
     enc: dict = {}
     dec: dict = {}
     zeros: dict = {}
-    slots = {k: v for k, v in _spill_slots(an).items()
-             if _spill_inside_stage(g, an, k)}
+    # one hop a stage, on its device: the stage's own spills, and the slots
+    # of the shift registers it pushes into
+    slots: list[dict] = [{} for _ in range(S)]
+    for k, v in _spill_slots(an).items():
+        if _spill_inside_stage(g, an, k):
+            slots[stage_of[k if isinstance(k, str) else k[0]]][k] = v
     for e in crossing:
+        # the zero template lies where the consumer decodes it
         enc[e], dec[e], zeros[e], specs = _codec_pair(
             codec_of[e], an.out_shape[e[0]], use_kernels=use_kernels,
-            device=device)
+            device=stage_devices[stage_of[e[1]]])
         # one slot of the shift register per tick of delay
         for i in range(delay[e]):
-            slots[("crossing", e, i)] = specs
-    hop = OffchipHop(device, slots)
-    stage_fns = _make_stage_fns(g, an, names, crossing, hop, enc)
+            slots[stage_of[e[0]]][("crossing", e, i)] = specs
+    hops = [OffchipHop(stage_devices[j], slots[j]) for j in range(S)]
+    stage_fns = _make_stage_fns(g, an, names, crossing, hops, enc)
     out_len = sum(an.out_shape[e.src][0] * an.out_shape[e.src][1]
                   for e in g.in_edges(an.topo[-1]))
 
-    def read(e, slot) -> torch.Tensor:
-        """Decode one shift-register slot (a zero template on the device
-        until its producer has run, then an off-chip handle)."""
-        return dec[e](slot if slot is zeros[e] else hop.restore(slot))
+    @contextlib.contextmanager
+    def on_stage(j: int):
+        """Stage ``j``'s device and stream as the current ones, where the
+        kernels and PyTorch's own work go (none to switch to without stage
+        streams)."""
+        if streams is None:
+            yield
+            return
+        with torch.cuda.device(stage_devices[j]), torch.cuda.stream(
+                streams[j]):
+            yield
 
-    def run_stage(params, j: int, x, reads, t: int):
-        """Stage ``j`` at tick ``t``: its crossing payloads leave for slot
-        ``t % delay`` of their shift registers."""
+    def mark(j: int):
+        """An event behind what stage ``j``'s stream holds so far."""
+        if streams is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(streams[j])
+        return ev
+
+    def after(j: int, ev) -> None:
+        """Stage ``j``'s stream waits on ``ev``."""
+        if ev is not None:
+            streams[j].wait_event(ev)
+
+    def fence(js) -> None:
+        """The streams of stages ``js`` wait on the caller's current stream
+        of every ring device: what the caller enqueued (inputs, weights,
+        earlier reads of the outputs) comes first."""
+        if streams is not None:
+            for j in js:
+                for d in ring_devices:
+                    streams[j].wait_stream(torch.cuda.current_stream(d))
+
+    def join(js) -> None:
+        """The caller's current stream of every ring device waits on the
+        streams of stages ``js``."""
+        if streams is not None:
+            for d in ring_devices:
+                cur = torch.cuda.current_stream(d)
+                for j in js:
+                    cur.wait_stream(streams[j])
+
+    def read(e, handle) -> torch.Tensor:
+        """Decode one shift-register slot on the current stream, onto the
+        consumer's device: the zero template until its producer has run,
+        then an off-chip handle."""
+        if handle is zeros[e]:
+            return dec[e](handle)
+        return dec[e](hops[stage_of[e[1]]].restore(handle))
+
+    # (edge, slot) -> the event behind the slot's last eviction (the ring)
+    written: dict = {}
+
+    def run_stage(params, j: int, x, reads, t: int, restored: dict):
+        """Stage ``j`` at tick ``t``, on the current stream: its crossing
+        payloads leave for slot ``t % delay`` of their shift registers,
+        each after that slot's last restore (``restored``)."""
         produced, y = stage_fns[j](params, x, reads)
-        return {e: hop.evict(("crossing", e, t % delay[e]), p)
-                for e, p in produced.items()}, y
+        out = {}
+        for e, pay in produced.items():
+            i = t % delay[e]
+            after(j, restored.get(e))
+            out[e] = hops[j].evict(("crossing", e, i), pay)
+            written[e, i] = mark(j)
+        return out, y
 
     def make_carry0() -> dict:
         return {e: [zeros[e]] * delay[e] for e in crossing}
@@ -562,24 +716,38 @@ def lower_plan_pipelined(g: Graph, plan: ExecutionPlan, *,
     # the tick body is shared between the stream (forward) and the traced
     # loop (StreamingExecutor.run_traced): one definition, so the traced
     # run cannot drift numerically from the fast path.  At tick t every
-    # stage reads the oldest slot of each shift register (written at tick
-    # t - delay, or the zero template) before any stage pushes; a push
-    # reuses the slot just read, after the read on the same stream.
+    # consumer reads the oldest slot of each of its shift registers
+    # (written at tick t - delay, or the zero template) before any stage
+    # pushes, and a push reuses the slot just read.  The interleave runs
+    # it all on one stream.  In the ring each stage runs on its own stream:
+    # a restore waits on its eviction's event, and an eviction on the event
+    # behind the restore of the slot it overwrites.
     @torch.no_grad()
     def tick_body(params, carry, t: int, xs):
         x_t = xs[min(t, B - 1)]
-        reads = {e: read(e, carry[e][-1]) for e in crossing}
+        reads, restored = {}, {}
+        for e in crossing:
+            c = stage_of[e[1]]
+            handle = carry[e][-1]
+            with on_stage(c):
+                if handle is zeros[e]:
+                    reads[e] = read(e, handle)
+                    continue
+                after(c, written[e, t % delay[e]])
+                reads[e] = read(e, handle)
+                restored[e] = mark(c)
         produced: dict = {}
         y = None
         for j in range(S):
-            prod_j, y_j = run_stage(params, j, x_t if j == 0 else None,
-                                    reads, t)
-            produced.update(prod_j)
-            if j == S - 1:
-                y = y_j
+            with on_stage(j):
+                prod_j, y_j = run_stage(params, j, x_t if j == 0 else None,
+                                        reads, t, restored)
+                produced.update(prod_j)
+                if j == S - 1:
+                    y = y_j if y_j is not None else torch.zeros(
+                        (out_len,), dtype=torch.float32,
+                        device=stage_devices[-1])
         del reads
-        if y is None:
-            y = torch.zeros((out_len,), dtype=torch.float32, device=device)
         return {e: [produced[e]] + carry[e][:-1] for e in crossing}, y
 
     def forward(params, xs):
@@ -587,13 +755,22 @@ def lower_plan_pipelined(g: Graph, plan: ExecutionPlan, *,
             raise ValueError(
                 f"microbatch stream shape {tuple(xs.shape)} does not match "
                 f"the lowered ({B}, *{an.in_shape}) for {g.name!r}")
+        fence(range(S))
         carry = make_carry0()
         ys = []
         for t in range(sched.ticks):
             carry, y = tick_body(params, carry, t, xs)
             if t >= S - 1:
                 ys.append(y)
-        return torch.stack(ys)
+        with on_stage(S - 1):
+            out = torch.stack(ys)
+        del ys, carry
+        join(range(S))
+        if streams is not None:
+            # the outputs came from the last stage's pool: none of it goes
+            # back to that stream while the caller's may still read it
+            out.record_stream(torch.cuda.current_stream(out.device))
+        return out
 
     # -- report: schedule + bounded-queue accounting --------------------------
     lat = SCH.stage_latencies(g, plan)
@@ -605,16 +782,16 @@ def lower_plan_pipelined(g: Graph, plan: ExecutionPlan, *,
             mem = build_memory_model(
                 spills=an.spills,
                 weight_bits_by_stage=stage_weight_bits(g, an),
-                stage_of=an.stage_of, base_latencies=lat,
+                stage_of=stage_of, base_latencies=lat,
                 gbps=gbps, freq_mhz=freq_mhz, config=channel,
                 microbatches=B)
     specs = Q.queue_specs(
-        g, an.stage_of, an.out_shape, codec_of,
+        g, stage_of, an.out_shape, codec_of,
         extra_delay=(mem.extra_queue_delay() if mem is not None else None))
     sim = SCH.simulate_schedule(
         sched, Q.build_queues(specs),
-        producer_stage={e: an.stage_of[e[0]] for e in specs},
-        consumer_stage={e: an.stage_of[e[1]] for e in specs})
+        producer_stage={e: stage_of[e[0]] for e in specs},
+        consumer_stage={e: stage_of[e[1]] for e in specs})
     base = an.report()
     report = StreamReport(
         spills=base.spills, streamed_weight_bits=base.streamed_weight_bits,
@@ -630,19 +807,34 @@ def lower_plan_pipelined(g: Graph, plan: ExecutionPlan, *,
         return {e: dec[e](zeros[e]) for e in crossing}
 
     def stage_call(j, params, x, reads):
+        """Stage ``j`` alone, on its stream, between the caller's current
+        streams (where :func:`measured_stage_latencies` times it)."""
         with torch.no_grad():
-            return run_stage(params, j, x, reads, 0)
+            fence([j])
+            with on_stage(j):
+                out, y = run_stage(params, j, x, reads, 0, {})
+            join([j])
+        return out, y
 
+    params = init_params(
+        g, seed=seed, device=({v: stage_devices[j]
+                               for v, j in stage_of.items()}
+                              if ring else device))
+    # what the lowering enqueued (weights, zero templates) comes before the
+    # stages' first work, whichever stream the caller is on by then
+    fence(range(S))
     return StreamingExecutor(
-        fn=forward, params=init_params(g, seed=seed, device=device),
+        fn=forward, params=params,
         report=report, plan=plan, graph_name=g.name, n_stages=S,
         microbatches=B, placement=placement, device=device,
         stage_fns=[functools.partial(stage_call, j) for j in range(S)],
         _zero_reads=zero_reads,
         _decoders={e: functools.partial(read, e) for e in crossing},
-        _crossing=crossing, schedule=sched, _tick_fn=tick_body,
+        _crossing=crossing, schedule=sched,
+        _tick_fn=None if ring else tick_body,
         _carry0=make_carry0, _queue_specs=specs,
-        _stage_of=dict(an.stage_of), _stream_shape=(B,) + an.in_shape)
+        _stage_of=dict(stage_of), _stream_shape=(B,) + an.in_shape,
+        devices=stage_devices, streams=streams)
 
 
 # =============================================================================
@@ -653,8 +845,9 @@ def measured_stage_latencies(sx: StreamingExecutor, x: torch.Tensor, *,
                              repeats: int = 5, warmup: int = 2
                              ) -> list[float]:
     """Seconds per stage, each stage run on its own (median of
-    ``repeats``): CUDA events around the stage on a CUDA device, the host
-    clock on the CPU.
+    ``repeats``) on its device: CUDA events on that device's current
+    stream around the stage (a ring's stage runs on its own stream between
+    them) on a CUDA device, the host clock on the CPU.
 
     This is what the *sequential* schedule pays per frame: each stage is a
     separate dispatch fed through the decoded reads.  Feeding stage ``j+1``
@@ -663,19 +856,20 @@ def measured_stage_latencies(sx: StreamingExecutor, x: torch.Tensor, *,
     estimators to place measured pipeline throughput between the
     sequential sum and the slowest-stage bound.
     """
-    on_cuda = sx.device.type == "cuda"
     reads = sx.zero_reads()
     lat: list[float] = []
     for j, fn in enumerate(sx.stage_fns):
         x_j = x if j == 0 else None
+        dev = sx.devices[j]
 
         def timed():
-            if on_cuda:
+            if dev.type == "cuda":
+                cur = torch.cuda.current_stream(dev)
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
-                a.record()
+                a.record(cur)
                 out = fn(sx.params, x_j, reads)
-                b.record()
+                b.record(cur)
                 b.synchronize()
                 return out, a.elapsed_time(b) / 1e3
             t0 = time.perf_counter()

@@ -403,7 +403,11 @@ class GraphStreamServer:
             executor = smof_compile(spec).executor
         self.executor = executor
         self.microbatches = executor.microbatches
+        # frames go to the first stage's device, results come from the
+        # last stage's: one device, but a ring's two ends
         self.device = executor.device
+        self.out_device = executor.out_device
+        self._stage_devices = list(dict.fromkeys(executor.devices))
         # flushed-but-unclaimed results allowed to stay resident (the
         # executor's own tensors) before the oldest is evicted to the
         # byte-packed host store; 0 = unbounded.  Results are finished
@@ -504,14 +508,18 @@ class GraphStreamServer:
         return self._next_ticket - 1
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        """Wait for the current stream of every device the executor runs
+        on (a ring's stage streams are joined into them)."""
+        for d in self._stage_devices:
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
 
     def flush(self) -> dict[int, torch.Tensor]:
         """Run all queued frames; returns {ticket: output} for this flush.
 
-        Every stream is one tensor on the executor's device, its tail
-        zero-padded to ``B`` frames.  With an attached SLO evaluator
+        Every stream is one tensor on the executor's device (a ring's first
+        stage's), its tail zero-padded to ``B`` frames; the outputs lie on
+        ``out_device`` (a ring's last stage's).  With an attached SLO evaluator
         (:meth:`enable_slo`), every stream run lands one window
         observation and is re-scored — breaches fire the evaluator's
         ``on_breach`` hooks (e.g. a flight-recorder dump) and the verdict
@@ -603,7 +611,7 @@ class GraphStreamServer:
         return self.slo
 
     def result(self, ticket: int) -> torch.Tensor:
-        """Claim a flushed output, on the executor's device (one-shot: the
+        """Claim a flushed output, on ``out_device`` (one-shot: the
         server does not keep delivered results, so a long-lived front end
         stays bounded).
 
@@ -614,5 +622,5 @@ class GraphStreamServer:
             self._c_restored_results.inc()
             host = torch.from_numpy(
                 np.frombuffer(raw, dtype=np.float32).reshape(shape).copy())
-            return host.to(self.device)
+            return host.to(self.out_device)
         return self._results.pop(ticket)

@@ -312,10 +312,13 @@ def test_backward_stage_edge_rejected():
                                        device="cpu")
 
 
-@pytest.mark.parametrize("placement,err", [("shard_map", NotImplementedError),
+@pytest.mark.parametrize("placement,err", [("shard_map", ValueError),
                                            ("ring", ValueError)])
 def test_placement_refused(cases, placement, err):
+    # shard_map: the reference's refusal of a ring with fewer devices than
+    # stages (one CPU, S > 1)
     case = cases["unet_dse"]
+    assert case.tplan.n_stages > 1
     with pytest.raises(err):
         tstreamer.lower_plan_pipelined(case.tg, case.tplan, microbatches=2,
                                        placement=placement, device="cpu")

@@ -266,7 +266,10 @@ def test_main_path_launches_four_kernels(paper_unet_plans):
 # =============================================================================
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(mode="pipelined", placement="shard_map"), NotImplementedError),
+    # the reference's refusal at lowering: its DSE cuts the UNet in 3 stages
+    # on the tiny sheet, and the CPU is one device
+    (dict(mode="pipelined", placement="shard_map", torch_device="cpu",
+          device=TDevice(**_TINY)), ValueError),
     (dict(strategy="autotune", mode="pipelined", kernel_mode="cuda",
           torch_device="cpu"), ValueError),
     (dict(kernel_mode="pallas"), ValueError),
@@ -278,6 +281,32 @@ def test_main_path_launches_four_kernels(paper_unet_plans):
 def test_compile_spec_refuses(kw, err):
     with pytest.raises(err):
         repro_torch.compile(repro_torch.CompileSpec(model="unet_exec", **kw))
+
+
+@pytest.mark.parametrize("device_kind,stages", [("u200", 1), ("tiny", 3)])
+def test_shard_map_facade_follows_the_reference(device_kind, stages):
+    """The façade takes placement="shard_map" where the reference does (its
+    u200 plan has one stage, which rings on the one device) and refuses it
+    with the reference's ValueError where the plan has more stages than
+    the host has devices (the tiny sheet's three)."""
+    kw = dict(model="unet_exec", mode="pipelined", placement="shard_map")
+    jkw = kw | ({} if device_kind == "u200" else {"device": JDevice(**_TINY)})
+    tkw = kw | ({} if device_kind == "u200" else {"device": TDevice(**_TINY)})
+    if stages == 1:
+        jc = japi.compile(japi.CompileSpec(**jkw))
+        tc = repro_torch.compile(repro_torch.CompileSpec(
+            **tkw, torch_device="cpu"))
+        assert jc.plan.n_stages == tc.plan.n_stages == 1
+        assert jc.executor.placement == tc.executor.placement == "shard_map"
+        assert tc.report()["traffic"]["placement"] == "shard_map"
+        return
+    with pytest.raises(ValueError) as jinfo:
+        japi.compile(japi.CompileSpec(**jkw))
+    with pytest.raises(ValueError) as tinfo:
+        repro_torch.compile(repro_torch.CompileSpec(**tkw,
+                                                    torch_device="cpu"))
+    assert str(tinfo.value) == str(jinfo.value) == (
+        f"shard_map placement needs >= {stages} devices, have 1")
 
 
 def test_reference_mode_report_on_cpu():
