@@ -164,6 +164,17 @@ and prints no result line):
    the bf16 attention instances, routes held to bf16_route_tol (2^-7
    sqrt(depth) of max|plain|), 4 steps of
    TRAIN_BF16_OPT, the fourth loss below the first, the launches counted).
+   Then the train step on a device mesh (``mesh_phase``): (a)
+   ``lm-mesh-1``, yi-6b whole, one TRAIN_OPT step of ``lm-train``'s batch
+   on ``make_host_mesh()`` (a 1x1 mesh, NCCL, a world of one) held bit for
+   bit to the unsharded step (loss, grad_norm, embed and every layer's
+   attention projections after the update) with the same launches; (c)
+   ``lm-mesh-pod``, ``make_pod_compressed_grad_fn`` on two gloo ranks
+   spawned by ``repro_torch.testing.ranks`` forming the pod axis, yi-6b
+   at its published widths cut to 2 layers, each leaf within 0.02 of the
+   exact mean and every new error exact.  A 2x2 mesh of ranks sharing the
+   card runs only in the CPU tests: gloo's functional all-gather of CUDA
+   tensors ends its process (``examples/torch_gloo_cuda_collectives.py``).
    bf16 is served too (``lm-serve-bf16``, after ``lm-serve``: yi-6b
    through ``ServingEngine(dtype=bf16)``, the same prompts, schedule and
    counters).  The staged executor (``lm-staged``): (a) yi-6b f32 on
@@ -608,6 +619,24 @@ TRAIN_TOL = 2e-4
 # a BFP8 checkpoint round trip, of max|w| (the reference's
 # test_bfp8_roundtrip_close)
 TRAIN_BFP8_REL = 0.02
+# the train step on a device mesh (mesh_phase): (a) a world of one, yi-6b
+# whole, one TRAIN_OPT step of lm-train's batch on make_host_mesh() against
+# the unsharded step, bit for bit; (c) make_pod_compressed_grad_fn on two
+# gloo ranks forming the pod axis, yi-6b at its published widths cut to
+# MESH_POD_LAYERS layers, MESH_POD x MESH_POD_SEQ tokens, held within
+# MESH_POD_REL of the exact mean (the reference's TestPodCompression
+# bound).  Part (b), the 2x2 mesh of four gloo ranks sharing the card, runs
+# only in the CPU tests (tests/test_torch_mesh.py): on the card gloo's
+# functional all-gather of CUDA tensors, which DTensor's redistribution
+# calls, ends its process with a segmentation fault (PERF.md §6;
+# examples/torch_gloo_cuda_collectives.py)
+MESH_ONE_TAG = "lm-mesh-1"
+MESH_KEEP = ("embed",) + TRAIN_KEEP
+MESH_POD = 2
+MESH_POD_LAYERS = 2
+MESH_POD_SEQ = 512
+MESH_POD_REL = 0.02
+MESH_TIMEOUT = 240
 
 TPU_SRC = {
     "streamed_matmul": "src/repro/kernels/streamed_matmul.py:31",
@@ -3551,6 +3580,112 @@ def train_whisper_phase(torch, library):
     return out
 
 
+def mesh_one(torch, library, cfg, batch, mesh):
+    """One TRAIN_OPT step of make_train_step on yi-6b made from LM_SEED,
+    unsharded (``mesh`` None) or on ``mesh``: (metrics, the kept leaves on
+    the host, launches, launch shapes, seconds, peak memory).  Weights,
+    states and gradients are released before it returns."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import _leaves
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.testing.mesh_cases import _whole
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
+                         cfg)
+    state = init_opt_state(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, remat="full", device="cuda",
+                           mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    library.reset_launches()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batch)
+    metrics = {k: float(v) for k, v in m.items()}      # synchronises
+    secs = time.perf_counter() - t0
+    counts, shapes = library.launches(), library.launch_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    kept = {n: _whole(t) for n, t in _leaves(params)
+            if any(n.endswith(k) for k in MESH_KEEP)}
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics, kept, counts, shapes, secs, peak
+
+
+def mesh_phase(torch, library):
+    """The train step on a device mesh (``make_train_step(..., mesh=)``):
+    (a) a world of one, (c) pod compression on two ranks (constants
+    MESH_*).  Returns {tag: (launches, launch shapes)} of (a)."""
+    import numpy as np
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.testing.mesh_cases import config
+    from repro_torch.testing.ranks import run_ranks
+    on = card()
+    out = {}
+    t_phase = time.perf_counter()
+    tag = MESH_ONE_TAG
+    cfg = ARCHS[TRAIN_ARCH]
+    batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                     global_batch=1)).batch_at(0)
+    mesh = make_host_mesh()
+    ref = mesh_one(torch, library, cfg, batch, None)
+    got = mesh_one(torch, library, cfg, batch, mesh)
+    if got[0] != ref[0]:
+        raise AssertionError(f"[{tag}] metrics {got[0]} on the 1x1 mesh, "
+                             f"{ref[0]} unsharded")
+    for n, w in ref[1].items():
+        if not np.array_equal(got[1][n], w):
+            raise AssertionError(f"[{tag}] {n} after the step differs "
+                                 f"from the unsharded step's")
+    L = cfg.n_layers
+    want = dict.fromkeys(library.SIGNATURES, 0) | {
+        "flash_attention_lse": 2 * L, "flash_attention_bwd_dq": L,
+        "flash_attention_bwd_dkdv": L}
+    if got[2] != ref[2] or got[2] != want:
+        raise AssertionError(f"[{tag}] launches {got[2]} on the mesh, "
+                             f"{ref[2]} unsharded, expected {want}")
+    print(f"[{tag}] {cfg.name} whole ({L} layers), one TRAIN_OPT step "
+          f"of 1 x {TRAIN_SEQ} tokens on make_host_mesh() (NCCL, a "
+          f"world of one) bit for bit the unsharded step: loss "
+          f"{got[0]['loss']!r}, grad_norm {got[0]['grad_norm']!r}, "
+          f"{len(ref[1])} kept leaves ({', '.join(MESH_KEEP)}) equal; "
+          f"launches {({k: n for k, n in got[2].items() if n})} both; "
+          f"{got[4]:.3f} s vs {ref[4]:.3f} s a step (host clock, the "
+          f"first), peak {got[5]} vs {ref[5]} bytes; {on}")
+    out[tag] = (got[2], got[3])
+    del ref, got
+    torch.distributed.destroy_process_group()
+    tag = "lm-mesh-pod"
+    arch, layers = TRAIN_ARCH, MESH_POD_LAYERS
+    cfg = config(arch, reduced=False, layers=layers)
+    print(f"[{tag}] {cfg.name}: depth cut from {ARCHS[arch].n_layers} "
+          f"to {layers} layers, every width published")
+    batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=MESH_POD_SEQ,
+                                     global_batch=MESH_POD)).batch_at(0)
+    res = run_ranks("repro_torch.testing.mesh_cases:pod_lm", MESH_POD,
+                    arch, batch, layers=layers, reduced=False,
+                    seed=LM_SEED, device="cuda", backend="gloo",
+                    timeout=MESH_TIMEOUT)
+    worst = max(max(r["rel"].values()) for r in res)
+    if not worst < MESH_POD_REL or not all(r["exact_error"]
+                                           for r in res):
+        raise AssertionError(f"[{tag}] compressed gradient {worst:.4f} "
+                             f"of max|exact| (bound {MESH_POD_REL}); new "
+                             f"errors exact: "
+                             f"{[r['exact_error'] for r in res]}")
+    print(f"[{tag}] make_pod_compressed_grad_fn on {MESH_POD} gloo ranks "
+          f"forming the pod axis, {cfg.name} cut to {layers} layers, "
+          f"{MESH_POD} x {MESH_POD_SEQ} tokens: every leaf within "
+          f"{worst:.5f} of max|exact mean| (bound {MESH_POD_REL}), every "
+          f"new error exactly corrected - q scale, loss "
+          f"{res[0]['loss']!r}; {on}")
+    print(f"mesh phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def train_bf16_phase(torch, library):
     """lm-train-bf16: yi-6b at its published widths in bf16 (parameters and
     gradients bf16, int8 AdamW states, remat full, the same one microbatch
@@ -4530,6 +4665,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained |= train_whisper_phase(torch, library)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained |= mesh_phase(torch, library)
     t4 = time.perf_counter()
     lm["lm-staged-jamba"] = staged_jamba_phase(torch, library)
     lm_s["lm-staged-jamba"] = time.perf_counter() - t4

@@ -18,9 +18,15 @@ point format (``core/compression.py``, about 2x smaller); restore
 dequantises transparently.
 
 Restore returns torch tensors on ``device`` (by default each template
-leaf's own).  The reference's elastic restore onto new shardings
-(``restore(..., shardings=...)``) serves a mesh, which one GPU has not: it
-raises, naming ROADMAP.md Queue 1, item 12.
+leaf's own).  On a mesh: ``save`` / ``save_async`` take DTensor leaves,
+each gathered whole on the caller's thread (every rank takes part in the
+collective; the writer thread runs none), one rank writes, and every rank
+meets the others at a barrier when the write is done (``wait`` for an
+asynchronous save).  ``restore(..., shardings=...)`` (a tree of
+``runtime.sharding.NamedSharding``) lays every leaf out again on its new
+mesh and spec, each rank keeping its own slice: the elastic restore of a
+job restarted on another device population.  The bytes on disk are the
+same either way.
 """
 from __future__ import annotations
 
@@ -36,8 +42,15 @@ import torch
 
 from ..core.compression import BFP8Blocks, bfp8_decode, bfp8_encode
 
-MESH_LATER = ("restoring onto shardings (elastic remesh) needs a device "
-              "mesh: not ported yet (ROADMAP.md, Queue 1, item 12)")
+
+
+def _world() -> tuple[int, int]:
+    """(rank, world size) of the running process group, (0, 1) without
+    one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def _paths(tree: Any, prefix: tuple = ()):
@@ -75,6 +88,9 @@ def _host(leaf: Any) -> tuple[np.ndarray, bool]:
     """A leaf as a host array, and whether it is bf16 (then its uint16
     bits)."""
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16).copy(), True
@@ -101,23 +117,38 @@ class CheckpointStore:
         self.keep_last = keep_last
         self._pool = cf.ThreadPoolExecutor(max_workers=1)
         self._pending: cf.Future | None = None
+        self._barrier = False
 
     # -- save -----------------------------------------------------------------
     def save(self, step: int, tree: Any, extra: dict | None = None) -> None:
         flat = {k: _host(v) for k, v in _flat(tree).items()}
-        self._write(step, flat, extra or {})
+        rank, world = _world()
+        if rank == 0:
+            self._write(step, flat, extra or {})
+        if world > 1:
+            import torch.distributed as dist
+            dist.barrier()
 
     def save_async(self, step: int, tree: Any,
                    extra: dict | None = None) -> None:
-        """Snapshot to host now, serialise on the worker thread."""
+        """Snapshot to host now (every rank gathering its DTensor leaves
+        whole), serialise on the worker thread of rank 0."""
         self.wait()
         flat = {k: _host(v) for k, v in _flat(tree).items()}
-        self._pending = self._pool.submit(self._write, step, flat, extra or {})
+        rank, world = _world()
+        if rank == 0:
+            self._pending = self._pool.submit(self._write, step, flat,
+                                              extra or {})
+        self._barrier = world > 1
 
     def wait(self) -> None:
         if self._pending is not None:
             self._pending.result()
             self._pending = None
+        if self._barrier:
+            import torch.distributed as dist
+            dist.barrier()
+            self._barrier = False
 
     def _write(self, step: int, flat: dict[str, tuple[np.ndarray, bool]],
                extra: dict) -> None:
@@ -171,15 +202,18 @@ class CheckpointStore:
                 shardings: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of ``template`` (tensors or arrays):
         each leaf a tensor of its template leaf's dtype, on ``device`` or,
-        by default, on the template leaf's device (the CPU for an
-        array)."""
-        if shardings is not None:
-            raise NotImplementedError(MESH_LATER)
+        by default, on the template leaf's device (the CPU for an array).
+        With ``shardings``, a tree of ``NamedSharding`` matching
+        ``template``, each leaf is a DTensor laid out on its mesh and spec
+        (on ``device`` or the mesh's device type, the current card for
+        ``cuda``)."""
+        from ..runtime.sharding import distribute
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())
+        flat_s = _flat(shardings) if shardings is not None else {}
         out = {}
         for key, leaf in _flat(template).items():
             meta = manifest["leaves"][key]
@@ -196,6 +230,15 @@ class CheckpointStore:
             t = t.reshape(meta["shape"])
             want = (leaf.dtype if isinstance(leaf, torch.Tensor)
                     else _TORCH_OF[np.asarray(leaf).dtype.name])
+            sh = flat_s.get(key)
+            if sh is not None:
+                dev = device if device is not None else (
+                    "cpu" if sh.mesh.device_type == "cpu"
+                    else torch.device(sh.mesh.device_type,
+                                      torch.cuda.current_device()))
+                out[key] = distribute(t.to(dtype=want).to(dev), sh.spec,
+                                      sh.mesh)
+                continue
             dev = device if device is not None else (
                 leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
             out[key] = t.to(dtype=want).to(dev)

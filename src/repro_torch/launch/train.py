@@ -9,9 +9,12 @@ The reference CLI's flags and closing line, plus ``--device`` (default
 ``cuda``).  ``--smoke`` runs the config's reduced form.  The loop is
 fault-tolerant: async checkpoints, deterministic data resume, straggler
 logging (``runtime/fault.py``).  Parameters come from ``init_params`` with
-a generator seeded on the device.  ``--mesh`` takes ``host`` only (one
-device): ``single`` and ``multi`` build the reference's production mesh,
-which waits for ROADMAP.md Queue 1, item 12.  ``--dtype bfloat16`` makes
+a generator seeded on the device.  The step runs on a device mesh
+(``launch/mesh.py``) through ``make_train_step(..., mesh=)``, as the
+reference's CLI: ``--mesh host`` (the default) is the 1x1 mesh on the one
+device; ``single`` and ``multi`` the production mesh of 256 or 512 ranks
+over a ``torchrun`` world, refused, naming the world size they need, on a
+world of another size.  ``--dtype bfloat16`` makes
 the parameters bf16 (the reference's default working type; the port's
 default stays ``float32``), and attention takes the kernels' bf16
 instances on the card.  An encoder-decoder (whisper) is refused before its
@@ -32,9 +35,7 @@ from ..models import init_params
 from ..optim.adamw import AdamWConfig, init_opt_state
 from ..runtime.fault import FaultConfig, FaultTolerantLoop
 from ..runtime.steps import make_train_step
-
-MESH_LATER = ("a production mesh (--mesh single|multi) is not ported yet "
-              "(ROADMAP.md, Queue 1, item 12)")
+from .mesh import make_host_mesh, make_production_mesh
 NO_FRAMES = ("{}: the token pipeline has no encoder frames to give an "
              "encoder-decoder; train it through "
              "repro_torch.runtime.steps.make_train_step with batches that "
@@ -60,8 +61,11 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise NotImplementedError(MESH_LATER)
+    if args.mesh == "host":
+        mesh = make_host_mesh(args.device)
+    else:
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=args.device)
     cfg = ARCHS[args.arch]
     if cfg.is_encdec:
         raise ValueError(NO_FRAMES.format(cfg.name))
@@ -75,7 +79,7 @@ def main(argv: list[str] | None = None) -> None:
 
     dtype = getattr(torch, args.dtype)
     step_fn = make_train_step(cfg, opt_cfg, remat=args.remat, dtype=dtype,
-                              device=args.device)
+                              device=args.device, mesh=mesh)
     params = init_params(torch.Generator(device=args.device).manual_seed(0),
                          cfg, dtype=dtype)
     opt = init_opt_state(params, opt_cfg)

@@ -16,15 +16,18 @@ The encoder's attention (:func:`encoder_attention`) and the cross attention
 (:func:`cross_attention`, keys of their own length) are non-causal: on the
 kernel route both run ``flash_attention(..., causal=False)`` where no
 gradient is wanted (serving) and ``FlashAttention`` (non-causal, over keys
-of their own length) where autograd records the call (training).  The
-reference's sharding hints (``runtime/hints``) have no counterpart on one
-GPU and are left out.
+of their own length) where autograd records the call (training).  As the
+reference, q, k and v are constrained to ("dp", None, "tp", None) after the
+head reshape (``runtime/hints.py``, the identity outside a mesh step's
+hints); on a mesh the training kernels run on each rank's own rows and
+heads (``local_map``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.flash_attention import NEG_INF, FlashAttention, flash_attention
+from ..runtime.hints import constrain
 from .common import (apply_mrope, apply_rope, dense_init,
                      text_mrope_positions, typed_scale)
 
@@ -66,9 +69,9 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
         wv = wv.reshape(d, KH, hd).repeat_interleave(G, dim=1).reshape(
             d, H * hd)
         KH = H
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ wk).reshape(B, S, KH, hd)
-    v = (x @ wv).reshape(B, S, KH, hd)
+    q = constrain((x @ p["wq"]).reshape(B, S, H, hd), "dp", None, "tp", None)
+    k = constrain((x @ wk).reshape(B, S, KH, hd), "dp", None, "tp", None)
+    v = constrain((x @ wv).reshape(B, S, KH, hd), "dp", None, "tp", None)
     if cfg.rope == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
@@ -77,6 +80,30 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
         q = apply_mrope(q, mpos, cfg.mrope_sections, cfg.rope_theta)
         k = apply_mrope(k, mpos, cfg.mrope_sections, cfg.rope_theta)
     return q, k, v
+
+
+def _flash_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> torch.Tensor:
+    """``FlashAttention`` on q, k, v (B, S, H, D), k and v with q's H heads.
+    On a mesh (DTensors, laid out ("dp", None, "tp", None) by the hints:
+    rows and heads split, every position whole) the kernels run on each
+    rank's own rows and heads, plain contiguous tensors, and the output
+    keeps that layout."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(q, DTensor):
+        return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal)
+    from torch.distributed.tensor.experimental import local_map
+    q, k, v = (constrain(t, "dp", None, "tp", None) for t in (q, k, v))
+    pl = q.placements
+    if k.placements != pl or v.placements != pl:
+        raise ValueError(f"q, k, v laid out {pl}, {k.placements}, "
+                         f"{v.placements}: the kernels take one layout")
+    fn = local_map(lambda q, k, v: FlashAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal),
+        out_placements=list(pl), in_placements=(pl, pl, pl),
+        device_mesh=q.device_mesh)
+    return fn(q, k, v)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,8 +191,7 @@ def prefill_attention(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor, *,
     if inference and use_kernels:
         out = flash_attention(q, k, v, causal=True)
     elif use_kernels:
-        out = FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), True)
+        out = _flash_train(q, k, v, True)
     else:
         out = chunked_attention(q, k, v, causal=True, chunk=min(chunk, S),
                                 skip_masked=inference)
@@ -220,11 +246,11 @@ def _noncausal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, False)
-    return flash_attention(q, k, v, causal=False)
+        return _flash_train(q, k, v, False)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=False)
 
 
 def cross_kv(p: dict, enc: torch.Tensor, cfg) -> tuple:

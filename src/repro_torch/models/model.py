@@ -428,7 +428,11 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
            patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """The token embeddings, the first P replaced by ``patch_embeds`` (B,
     P, d) where the config takes patches (qwen2-vl)."""
-    x = F.embedding(tokens, params["embed"])
+    from ..runtime.hints import constrain
+    # on a mesh the rows are looked up in the whole table: a lookup in a
+    # vocab-sharded one leaves a masked partial sum that neither the
+    # reference (its sharded step fails at this gather) nor DTensor reduces
+    x = F.embedding(tokens, constrain(params["embed"], None, None))
     if patch_embeds is not None and cfg.vlm_patches:
         P = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
@@ -568,9 +572,13 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         raise ValueError(f"lm_loss: sequence length {Sq} is not a multiple "
                          f"of its chunk {C}")
     labels = labels.long()
+    from ..runtime.hints import constrain
 
     def chunk_loss(xb, lb):
-        logits = project_logits(params, cfg, xb)               # (B, C, V)
+        # on a mesh the vocab axis is gathered for the row's log-sum-exp
+        # and gold logit (a no-op outside the step's hints)
+        logits = constrain(project_logits(params, cfg, xb),
+                           "dp", None, None)                   # (B, C, V)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lb[..., None])[..., 0]
         return (lse - gold).sum()

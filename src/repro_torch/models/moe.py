@@ -12,10 +12,11 @@ stable descending sort, which ranks equal probabilities lower expert index
 first, as ``jax.lax.top_k`` does (``torch.topk`` promises no order among
 ties).
 
-Expert weights: (E, d, f).  The reference constrains the dispatched
-activations to an expert- or hidden-sharded layout through its sharding
-hints; on one device those are the identity, and the port has no sharding
-yet (ROADMAP.md, Queue 1, item 12), so it leaves them out.
+Expert weights: (E, d, f).  On a mesh the sharding hints
+(``runtime/hints.py``) lay the dispatched activations out as the
+reference's: expert-parallel over ``model`` where the experts divide it,
+the hidden axis over ``model`` otherwise (at every token count, where the
+reference starts at 2048); outside a step's hints they are the identity.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..runtime.hints import axis_size, constrain
 from .common import dense_init, gated_act
 
 GROUP = 512  # tokens per dispatch group
@@ -130,16 +132,24 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
         raise ValueError(f"{N} tokens do not split into dispatch groups of "
                          f"{T}: a batch of more than {GROUP} tokens must be "
                          f"a multiple of {GROUP}")
-    xg = x.reshape(N // T, T, d)
+    # the reference leaves decode-size token counts (N < 2048) to GSPMD's
+    # propagation; DTensor's propagation through the unconstrained dispatch
+    # loses a gradient's layout, so on a mesh the port constrains every
+    # count (outside a step's hints constrain is the identity)
+    xg = constrain(x.reshape(N // T, T, d), "dp", None, None)
     dispatch, combine, aux = route(xg, p["router"], cfg)
     dd, cc = dispatch.to(x.dtype), combine.to(x.dtype)
-    xe = torch.einsum("gtd,gtec->gecd", xg, dd)              # (G, E, C, d)
+    # EP when the expert axis divides the model axis, TP on d_ff otherwise
+    ep = cfg.moe.n_experts % max(axis_size("tp"), 1) == 0
+    xe = constrain(torch.einsum("gtd,gtec->gecd", xg, dd),
+                   "dp", "tp" if ep else None, None, None)   # (G, E, C, d)
     up = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
     if "w_gate" in p:
         h = gated_act(cfg.act, up,
                       torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
     else:
         h = F.gelu(up, approximate="tanh")                   # jax.nn.gelu
+    h = constrain(h, "dp", "tp" if ep else None, None, None if ep else "tp")
     out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
     y = torch.einsum("gecd,gtec->gtd", out, cc)
     return y.reshape(B, S, d), aux

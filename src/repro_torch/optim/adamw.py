@@ -59,9 +59,13 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 # -- int8 row-quantised storage ------------------------------------------------
 
-def _q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Quantise along the last axis: int8 payload + f32 row scale."""
+def _q8(x: torch.Tensor, row_amax=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantise along the last axis: int8 payload + f32 row scale.
+    ``row_amax`` turns a local row maximum into the whole row's (a
+    parameter whose last axis is sharded)."""
     amax = x.abs().amax(dim=-1, keepdim=True)
+    if row_amax is not None:
+        amax = row_amax(amax)
     scale = torch.clamp(amax, min=1e-20) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
@@ -118,15 +122,19 @@ def _slices(n0: int, row: int):
 
 
 def adamw_update(params: Any, grads: Any, state: dict,
-                 cfg: AdamWConfig) -> tuple[Any, dict, dict]:
+                 cfg: AdamWConfig, *, grad_norm: torch.Tensor | None = None,
+                 row_amax: dict | None = None) -> tuple[Any, dict, dict]:
     """One AdamW step.  Returns (params, state, metrics).
 
     The port updates ``params`` and ``state`` in place and returns them;
     ``grads`` is consumed: each leaf is set to ``None`` in it once its
-    update is done."""
+    update is done.  On a mesh the trees are each rank's local shards:
+    ``grad_norm`` is then the whole gradient's norm, and ``row_amax`` maps
+    a leaf's name to the function that makes a local row maximum the whole
+    row's, for the int8 states of a leaf whose last axis is sharded."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     quant = cfg.quantize_states
     stepf = step.to(torch.float32)
@@ -135,7 +143,7 @@ def adamw_update(params: Any, grads: Any, state: dict,
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
 
-    def upd(p, g, m, v, decay: bool):
+    def upd(p, g, m, v, decay: bool, amax_fn=None):
         g = g.to(torch.float32) * clip
         m_f = _dq8(m["q"], m["s"]) if quant else m
         v_f = _dq8(v["q"], v["s"]) if quant else v
@@ -147,7 +155,7 @@ def adamw_update(params: Any, grads: Any, state: dict,
         p.copy_((p.to(torch.float32) - lr * u).to(p.dtype))
         if quant:
             for st, x in ((m, m_f), (v, v_f)):
-                q, s = _q8(x)
+                q, s = _q8(x, amax_fn)
                 st["q"].copy_(q)
                 st["s"].copy_(s)
         else:
@@ -160,12 +168,14 @@ def adamw_update(params: Any, grads: Any, state: dict,
             g = gnode[key]
             m = _node(state["m"], name)[0][key]
             v = _node(state["v"], name)[0][key]
+            amax_fn = (row_amax or {}).get(name)
             if p.dim() < 2:
-                upd(p, g, m, v, decay=False)
+                upd(p, g, m, v, decay=False, amax_fn=amax_fn)
             else:
                 for a, b in _slices(p.shape[0], p[0].numel()):
                     upd(p[a:b], g[a:b], _tree_map(lambda t: t[a:b], m),
-                        _tree_map(lambda t: t[a:b], v), decay=True)
+                        _tree_map(lambda t: t[a:b], v), decay=True,
+                        amax_fn=amax_fn)
             gnode[key] = None
         state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}

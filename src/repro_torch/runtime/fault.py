@@ -18,9 +18,9 @@ is synthetic:
   and the policy hook decides (log | rebalance | skip). At scale the same
   hook triggers backup-task dispatch.
 * **elastic rescaling** — on a device-count change, rebuild the mesh,
-  recompute shardings, and restore the checkpoint into the new layout.
-  That needs a device mesh, which one GPU has not: ``elastic_remesh`` and
-  ``try_restore(shardings=...)`` raise, naming ROADMAP.md Queue 1, item 12.
+  recompute shardings, and restore the checkpoint into the new layout
+  (:func:`elastic_remesh`, ``try_restore(shardings=...)``: every leaf a
+  DTensor on the new mesh, ``checkpoint/store.py``).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import time
 from statistics import median
 from typing import Any, Callable
 
-from ..checkpoint.store import MESH_LATER, CheckpointStore
+from ..checkpoint.store import CheckpointStore
 
 
 @dataclasses.dataclass
@@ -88,13 +88,12 @@ class FaultTolerantLoop:
     def try_restore(self, template: Any, shardings: Any = None
                     ) -> tuple[Any, int]:
         """(state, next_step) from the newest checkpoint, or (template, 0);
-        the state's leaves on the template leaves' devices."""
-        if shardings is not None:
-            raise NotImplementedError(MESH_LATER)
+        the state's leaves on the template leaves' devices, or laid out by
+        ``shardings`` (a tree of ``NamedSharding``)."""
         step = self.store.latest_step()
         if step is None:
             return template, 0
-        state, extra = self.store.restore(template, step)
+        state, extra = self.store.restore(template, step, shardings=shardings)
         self._event("restore", step=step)
         return state, int(extra.get("next_step", step + 1))
 
@@ -159,5 +158,11 @@ def elastic_remesh(make_mesh: Callable[[], Any],
                    make_shardings: Callable[[Any], Any],
                    store: CheckpointStore, template: Any) -> tuple[Any, Any, int]:
     """Rebuild mesh + shardings for the CURRENT device population and
-    restore the newest checkpoint into that layout: not on one GPU."""
-    raise NotImplementedError(MESH_LATER)
+    restore the newest checkpoint into that layout."""
+    mesh = make_mesh()
+    shardings = make_shardings(mesh)
+    step = store.latest_step()
+    if step is None:
+        return mesh, template, 0
+    state, extra = store.restore(template, step, shardings=shardings)
+    return mesh, state, int(extra.get("next_step", step + 1))

@@ -20,10 +20,21 @@ The decode step writes the cache in place, as ``models.decode_step``.
 bf16 (the reference's default); as in the reference, the step computes in
 the types of the tensors it is given.
 
-The reference's sharding hints (``runtime/hints.py``), its
-``in_shardings``, donation and the abstract-shape builders
-(``abstract_*``, ``input_specs``) serve a mesh, which one GPU has not: they
-wait for ROADMAP.md Queue 1, item 12.
+``make_train_step(..., mesh=)`` runs the step on a ``torch.distributed``
+``DeviceMesh`` (``launch/mesh.py``), as the reference's GSPMD step: the
+model code stays as it is, the parameters and optimizer state are DTensors
+laid out by ``runtime/sharding.py``'s rules (:func:`shard_train_state`),
+the batch by ``batch_shardings``, and the step runs under the activation
+hints (``runtime/hints.py``), whose constraints redistribute q, k, v and
+the MoE dispatch; the attention kernels run on each rank's own rows and
+heads.  Each microbatch's gradients are laid out as their parameters
+(a reduce-scatter of FSDP's partial sums), as the reference pins its
+accumulator, and AdamW updates each rank's local shards in place, the
+gradient norm and the int8 states' row maxima taken over the whole
+tensors.  On a 1x1 mesh the step is bit for bit the unsharded one.  The
+prefill and decode steps on a mesh and the abstract-shape builders
+(``abstract_*``, ``input_specs``) wait for ROADMAP.md Queue 1, item 12's
+second part.
 """
 from __future__ import annotations
 
@@ -35,7 +46,9 @@ import torch
 from ..models.config import ArchConfig
 from ..models.model import (_leaves, _tree, decode_step, forward, lm_loss,
                             project_logits)
-from ..optim.adamw import AdamWConfig, adamw_update
+from ..optim.adamw import AdamWConfig, adamw_update, global_norm
+from . import sharding as SH
+from .hints import activation_hints
 
 #: the working types of the steps: the parameters' (and the cache's)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -83,68 +96,153 @@ def loss_and_grads(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def accumulate_grads(params: dict, cfg: ArchConfig, batch: dict,
                      microbatches: int, acc_dtype: torch.dtype, *,
-                     remat: str = "full", use_kernels: bool = True
-                     ) -> tuple[torch.Tensor, dict]:
+                     remat: str = "full", use_kernels: bool = True,
+                     mesh=None) -> tuple[torch.Tensor, dict]:
     """``(loss, grads)`` over ``microbatches`` equal slices of ``batch``
     (rows in order; its ``enc_frames`` and ``patch_embeds`` too, where it
     has them), as the reference's scan: with more than one, each slice's
     gradients are added into ``acc_dtype`` zeros, the sum divided by the
-    count, and the loss is the slices' mean."""
-    tokens, labels = batch["tokens"], batch["labels"]
-    extra = {n: batch[n] for n in ("enc_frames", "patch_embeds")
-             if batch.get(n) is not None}
-    if microbatches <= 1:
-        return loss_and_grads(params, cfg, tokens, labels, remat=remat,
-                              use_kernels=use_kernels, **extra)
-    B = tokens.shape[0]
-    if B % microbatches:
+    count, and the loss is the slices' mean.  On a ``mesh`` (DTensor
+    parameters) each slice is laid out by ``batch_shardings`` and each
+    slice's gradients as their parameters before they are added."""
+    parts = {n: batch[n] for n in ("tokens", "labels", "enc_frames",
+                                   "patch_embeds") if batch.get(n) is not None}
+    B = parts["tokens"].shape[0]
+    mbs = max(microbatches, 1)
+    if B % mbs:
         raise ValueError(f"batch {B} is not a multiple of {microbatches} "
                          f"microbatches")
-    rows = B // microbatches
-    acc = {n: torch.zeros(t.shape, dtype=acc_dtype, device=t.device)
-           for n, t in _leaves(params)}
+    rows = B // mbs
+    if mesh is not None:
+        specs = SH.batch_shardings(cfg, rows, mesh)
+        place = {n: t.placements for n, t in _leaves(params)}
+
+    def run(sl):
+        mb = {n: t[sl] for n, t in parts.items()}
+        if mesh is not None:
+            mb = {n: SH.distribute(t, specs[n], mesh) for n, t in mb.items()}
+        loss, grads = loss_and_grads(params, cfg, mb.pop("tokens"),
+                                     mb.pop("labels"), remat=remat,
+                                     use_kernels=use_kernels, **mb)
+        if mesh is not None:
+            grads = _tree({n: g.redistribute(g.device_mesh, place[n])
+                           for n, g in _leaves(grads)})
+        return loss, grads
+
+    if mbs == 1:
+        return run(slice(0, B))
+    acc = {n: torch.zeros_like(t, dtype=acc_dtype) for n, t in
+           _leaves(params)}
     losses = []
-    for i in range(microbatches):
-        sl = slice(i * rows, (i + 1) * rows)
-        loss, grads = loss_and_grads(
-            params, cfg, tokens[sl], labels[sl], remat=remat,
-            use_kernels=use_kernels,
-            **{n: t[sl] for n, t in extra.items()})
+    for i in range(mbs):
+        loss, grads = run(slice(i * rows, (i + 1) * rows))
         for n, g in _leaves(grads):
             acc[n].add_(g.to(acc_dtype))
         del grads
         losses.append(loss)
-    grads = {n: a / microbatches for n, a in acc.items()}
+    grads = {n: a / mbs for n, a in acc.items()}
     return torch.stack(losses).mean(), _tree(grads)
+
+
+def shard_train_state(cfg: ArchConfig, params: dict, opt_state: dict, mesh
+                      ) -> tuple[dict, dict]:
+    """``params`` and ``opt_state``, every leaf whole on every rank (or a
+    DTensor already), as DTensors on ``mesh`` laid out by
+    ``param_shardings`` / ``opt_state_shardings``: each rank keeps its own
+    slice, no collective runs (a DTensor of another layout is
+    redistributed)."""
+    p = SH.distribute_tree(params, SH.param_shardings(cfg, params, mesh),
+                           mesh)
+    o = SH.distribute_tree(opt_state,
+                           SH.opt_state_shardings(cfg, opt_state, mesh), mesh)
+    return p, o
+
+
+def _row_amax(cfg: ArchConfig, params: dict, mesh) -> dict:
+    """leaf name -> the function that takes a local row maximum to the
+    whole row's (an all-reduce MAX over the mesh axes that split the
+    leaf's last axis), for the leaves whose last axis is sharded."""
+    import torch.distributed as dist
+    out = {}
+    for name, spec in _leaves(SH.param_shardings(cfg, params, mesh)):
+        last = spec[-1] if spec else None
+        if last is None:
+            continue
+        groups = [mesh.get_group(a) for a in
+                  (last if isinstance(last, tuple) else (last,))]
+
+        def amax(a, groups=groups):
+            for g in groups:
+                dist.all_reduce(a, op=dist.ReduceOp.MAX, group=g)
+            return a
+        out[name] = amax
+    return out
+
+
+def _local(tree):
+    """Every DTensor leaf as its local shard (a view: in-place updates
+    reach the DTensor)."""
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    return tree.to_local()
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                     remat: str = "full", dtype=torch.float32,
                     microbatches: int | None = None,
                     device: str | torch.device = "cuda",
-                    use_kernels: bool = True) -> Callable:
+                    use_kernels: bool = True, mesh=None) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``,
     ``batch`` a dict of (B, S) ``tokens`` and ``labels`` (numpy or torch)
     and, for an encoder-decoder, (B, enc_frames, d) ``enc_frames`` or, for
     a VLM, (B, P, d) ``patch_embeds``, moved to ``device``;
     metrics ``loss``, ``lr`` and ``grad_norm``, 0-d tensors.
     ``microbatches`` defaults to :func:`auto_microbatches` of the
-    batch on one device.  ``use_kernels=False`` runs attention's plain
-    version through autograd (the check of the kernel route)."""
+    batch on the mesh's data-parallel ranks (one device without a mesh).
+    ``use_kernels=False`` runs attention's plain version through autograd
+    (the check of the kernel route).
+
+    With a ``mesh`` every rank calls the step with the whole batch; the
+    parameters and states may come whole or laid out already
+    (:func:`shard_train_state`), and are returned as DTensors laid out by
+    the rules, updated in place."""
     _check_dtype(dtype)
     # f32 accumulation by default; bf16 when the optimizer states are
     # already int8-quantised, as the reference
     acc_dtype = torch.bfloat16 if opt_cfg.quantize_states else torch.float32
+    if mesh is not None:
+        SH.register_strategies()
 
     def step(params, opt_state, batch):
         batch = _on(batch, device)
         B = batch["tokens"].shape[0]
-        mbs = microbatches or auto_microbatches(B)
-        loss, grads = accumulate_grads(params, cfg, batch, mbs, acc_dtype,
-                                       remat=remat, use_kernels=use_kernels)
-        params, opt_state, metrics = adamw_update(params, grads, opt_state,
-                                                  opt_cfg)
-        metrics["loss"] = loss
+        if mesh is None:
+            mbs = microbatches or auto_microbatches(B)
+            loss, grads = accumulate_grads(params, cfg, batch, mbs,
+                                           acc_dtype, remat=remat,
+                                           use_kernels=use_kernels)
+            params, opt_state, metrics = adamw_update(params, grads,
+                                                      opt_state, opt_cfg)
+            metrics["loss"] = loss
+            return params, opt_state, metrics
+        from torch.distributed.tensor.experimental import implicit_replication
+        mbs = microbatches or auto_microbatches(B, SH.dp_size(mesh))
+        params, opt_state = shard_train_state(cfg, params, opt_state, mesh)
+        with activation_hints(mesh, SH.dp_axes(mesh), "model"), \
+                implicit_replication():
+            loss, grads = accumulate_grads(params, cfg, batch, mbs,
+                                           acc_dtype, remat=remat,
+                                           use_kernels=use_kernels,
+                                           mesh=mesh)
+            gnorm = global_norm(grads).full_tensor()
+        state = {"m": _local(opt_state["m"]), "v": _local(opt_state["v"]),
+                 "step": opt_state["step"].to_local()}
+        _, state, metrics = adamw_update(
+            _local(params), _local(grads), state, opt_cfg, grad_norm=gnorm,
+            row_amax=_row_amax(cfg, params, mesh)
+            if opt_cfg.quantize_states else None)
+        opt_state["step"] = SH.distribute(state["step"], (), mesh)
+        metrics["loss"] = loss.full_tensor()
         return params, opt_state, metrics
 
     return step
@@ -206,4 +304,4 @@ def make_decode_step(cfg: ArchConfig, batch: int, s_max: int,
 
 
 __all__ = ["auto_microbatches", "loss_and_grads", "accumulate_grads",
-           "make_train_step", "make_prefill_step", "make_decode_step"]
+           "shard_train_state", "make_train_step", "make_prefill_step", "make_decode_step"]

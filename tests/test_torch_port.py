@@ -118,7 +118,13 @@ def test_import_leaves_jax_and_repro_out():
                                     "repro_torch.checkpoint",
                                     "repro_torch.data",
                                     "repro_torch.launch.train",
-                                    "repro_torch.kernels.flash_attention"])
+                                    "repro_torch.kernels.flash_attention",
+                                    "repro_torch.runtime.sharding",
+                                    "repro_torch.runtime.hints",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.optim.compress",
+                                    "repro_torch.testing.ranks",
+                                    "repro_torch.testing.mesh_cases"])
 def test_streamer_packages_leave_jax_and_repro_out(module):
     """The pipelined streamer, its copies of the reference's memory and obs
     layers (the metrics registry, SLO scoring and flight recorder among
@@ -126,8 +132,9 @@ def test_streamer_packages_leave_jax_and_repro_out(module):
     conformance harness, the LM stack, its configs, the serving launcher,
     the autotuner and the training path (optimizer, train step, fault
     loop, checkpoints, data, the train launcher, the attention kernels'
-    gradient), each imported first in a fresh interpreter, with its
-    submodules."""
+    gradient) and its mesh (sharding rules, hints, meshes, pod
+    compression, the rank launcher and its cases), each imported first in
+    a fresh interpreter, with its submodules."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         mod = importlib.import_module({module!r})

@@ -585,6 +585,12 @@ def test_token_pipeline_batches_are_the_references(tmp_path):
 # checkpoints
 # =============================================================================
 
+def TF_paths(tree):
+    """(path, leaf) pairs of a checkpoint tree, in the store's order."""
+    from repro_torch.checkpoint.store import _paths
+    return list(_paths(tree))
+
+
 def _ck_trees():
     rng = np.random.default_rng(3)
     a = rng.standard_normal((3, 64)).astype(np.float32)
@@ -646,8 +652,21 @@ def test_checkpoint_commit_gc_and_async(tmp_path):
     assert extra == {"next_step": 6}
     assert torch.equal(out[0]["a"], tt[0]["a"])
     assert out[0]["b"]["c"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
-        store.restore(tt, shardings=tt)
+    # onto a 1x1 mesh: every leaf a DTensor laid out by its spec, the same
+    # bytes
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.sharding import named_shardings
+    mesh = make_host_mesh("cpu")
+    specs = ({"a": ("data", "model"), "b": {"c": (None, "model")}},
+             {"m": {"q": ("model", None)}, "step": ()})
+    laid, extra = store.restore(tt, shardings=named_shardings(mesh, specs))
+    assert extra == {"next_step": 6}
+    for (_, got), (_, want) in zip(TF_paths(laid), TF_paths(tt)):
+        assert isinstance(got, DTensor) and got.device_mesh == mesh
+        assert tuple(got.placements) == (Replicate(), Replicate())
+        assert got.dtype == want.dtype
+        assert torch.equal(got.full_tensor(), want)
     with pytest.raises(FileNotFoundError):
         CheckpointStore(str(tmp_path / "empty")).restore(tt)
 
@@ -748,15 +767,6 @@ def test_fault_events_land_in_the_metrics_registry(tmp_path):
         reg.metrics_text())
 
 
-def test_elastic_remesh_and_sharded_restore_are_refused(tmp_path):
-    store = CheckpointStore(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
-        TF.elastic_remesh(lambda: None, lambda m: None, store, {})
-    loop = TF.FaultTolerantLoop(lambda s, b: s, store)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
-        loop.try_restore({}, shardings={})
-
-
 # =============================================================================
 # the CLI
 # =============================================================================
@@ -778,12 +788,29 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     assert "2 steps, loss" in out
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh", "single"], "12"),
-                                        (["--mesh", "multi"], "12")])
-def test_train_cli_refusals_name_their_queue_items(flags, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1, item {item}"):
+@pytest.mark.parametrize("flags,need", [(["--mesh", "single"], 256),
+                                        (["--mesh", "multi"], 512)])
+def test_train_cli_refusals_name_their_queue_items(flags, need):
+    """The production meshes refuse a world of another size (here a world
+    of one), naming the size they need."""
+    with pytest.raises(ValueError, match=f"needs a world of {need} ranks; "
+                                         f"this one has 1"):
         ttrain_cli.main(["--arch", "yi-6b", "--device", "cpu", "--smoke",
                          *flags])
+
+
+def test_train_cli_on_the_host_mesh(tmp_path, capsys):
+    """--mesh host --device cpu --smoke: the step on make_host_mesh("cpu"),
+    a 1x1 mesh over a gloo world of one, with the reference's closing
+    line."""
+    ttrain_cli.main(["--arch", "yi-6b", "--mesh", "host", "--device", "cpu",
+                     "--smoke", "--steps", "2", "--batch", "2", "--seq",
+                     "32", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    m = re.search(r"yi-6b-smoke: 2 steps, loss ([\d.]+) -> ([\d.]+); "
+                  r"events: \[\]", out)
+    assert m, out
+    assert all(np.isfinite(float(x)) for x in m.groups())
 
 
 @pytest.mark.parametrize("arch", RECURRENT)
