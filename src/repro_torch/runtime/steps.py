@@ -304,4 +304,5 @@ def make_decode_step(cfg: ArchConfig, batch: int, s_max: int,
 
 
 __all__ = ["auto_microbatches", "loss_and_grads", "accumulate_grads",
-           "shard_train_state", "make_train_step", "make_prefill_step", "make_decode_step"]
+           "shard_train_state", "make_train_step", "make_prefill_step",
+           "make_decode_step"]

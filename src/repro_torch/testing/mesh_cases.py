@@ -17,6 +17,7 @@ Python and numpy values, and imports only the port.
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 
@@ -79,8 +80,10 @@ def train_steps(rank: int, world: int, arch: str, batches: list, *,
     "full", AdamW ``opt``) on a ``mesh_shape`` mesh of the reduced
     ``arch`` from the numpy parameter ``tree``.  Returns the metrics of
     each step, rank 0's every parameter gathered whole after each, this
-    rank's placements and local shape of every leaf, and the type and
-    shape of every q ``FlashAttention`` ran on."""
+    rank's placements and local shape of every leaf, the type and shape
+    of every q ``FlashAttention`` ran on, and the modules of jax, of the
+    reference package or of a test module loaded in this rank (none
+    expected)."""
     from ..checkpoint import CheckpointStore
     from ..kernels import flash_attention as FA
     from ..models.model import _leaves
@@ -113,6 +116,9 @@ def train_steps(rank: int, world: int, arch: str, batches: list, *,
     finally:
         FA.FlashAttention.forward = staticmethod(forward)
     out["attention"] = sorted(seen)
+    out["foreign"] = sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                            or m.split(".")[0].startswith("test_"))
     out["placements"] = {n: [str(p) for p in t.placements]
                          for n, t in _leaves(params)}
     out["local_shapes"] = {n: tuple(t.to_local().shape)

@@ -65,6 +65,16 @@ MBS = 2
 AMPLIFIED = 1.5          # as tests/test_torch_train.py
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this process's steps, as each spawned rank
+    has (beside the other test workers, small ops stall in a pool)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def close(got, want, tol=TOL):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     lim = tol * max(1.0, float(np.abs(want).max()))
@@ -182,6 +192,14 @@ def test_mesh_step_lays_parameters_out_by_the_rules(trees, runs, arch):
             assert r["local_shapes"][n] == tuple(local), n
     if arch == "olmoe-1b-7b":
         assert specs["groups/pos_0/moe/w_up"][1] == "model"
+
+
+def test_ranks_import_only_the_port(runs):
+    """The spawned ranks load neither jax, nor the reference package, nor
+    a test module."""
+    for arch in ROWS:
+        for r in runs[0][arch][2]:
+            assert r["foreign"] == []
 
 
 @pytest.mark.parametrize("arch", ROWS)
