@@ -43,7 +43,6 @@ import torch
 from ..core.compression import BFP8Blocks, bfp8_decode, bfp8_encode
 
 
-
 def _world() -> tuple[int, int]:
     """(rank, world size) of the running process group, (0, 1) without
     one."""

@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from ..runtime.hints import constrain
 from . import attention as A
 from . import moe as M
 from . import ssm as S
@@ -428,7 +429,6 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
            patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """The token embeddings, the first P replaced by ``patch_embeds`` (B,
     P, d) where the config takes patches (qwen2-vl)."""
-    from ..runtime.hints import constrain
     # on a mesh the rows are looked up in the whole table: a lookup in a
     # vocab-sharded one leaves a masked partial sum that neither the
     # reference (its sharded step fails at this gather) nor DTensor reduces
@@ -572,7 +572,6 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         raise ValueError(f"lm_loss: sequence length {Sq} is not a multiple "
                          f"of its chunk {C}")
     labels = labels.long()
-    from ..runtime.hints import constrain
 
     def chunk_loss(xb, lb):
         # on a mesh the vocab axis is gathered for the row's log-sum-exp
