@@ -4,7 +4,9 @@ models — the counterpart of the reference package's ``runtime/hints.py``.
 The model zoo stays pure (no mesh imports); the step builders activate a
 context around the step, and layer code calls :func:`constrain` at the
 points where the reference constrains its activations (q/k/v head axes
-after the head reshape, MoE expert/hidden axes).  Outside the context
+after the head reshape, MoE expert/hidden axes) and where DTensor needs a
+whole axis that GSPMD would gather by itself (the embedding table before
+its lookup, a loss chunk's vocab axis).  Outside the context
 ``constrain`` is the identity, so the unsharded paths run unchanged, bit
 for bit.  Inside it, a DTensor is redistributed to the guarded spec (a
 plain tensor, replicated by the step's implicit replication, passes as it

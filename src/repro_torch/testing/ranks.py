@@ -12,8 +12,8 @@ A child's exception is raised in the caller with its traceback; a world
 that does not finish within ``timeout`` seconds is killed.
 
     from repro_torch.testing.ranks import run_ranks
-    out = run_ranks("repro_torch.testing.mesh_cases:train_steps", 4,
-                    "yi-6b", backend="gloo", timeout=120)
+    out = run_ranks("repro_torch.testing.mesh_cases:pod_compress", 2,
+                    grads, errors, w, batch, backend="gloo", timeout=120)
 """
 from __future__ import annotations
 
