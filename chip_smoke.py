@@ -168,7 +168,14 @@ and prints no result line):
    ``lm-mesh-1``, yi-6b whole, one TRAIN_OPT step of ``lm-train``'s batch
    on ``make_host_mesh()`` (a 1x1 mesh, NCCL, a world of one) held bit for
    bit to the unsharded step (loss, grad_norm, embed and every layer's
-   attention projections after the update) with the same launches; (c)
+   attention projections after the update) with the same launches, then
+   ``lm-mesh-serve``, yi-6b whole served on that mesh: one prefill of 1 x
+   1024 tokens and 4 decode steps through make_prefill_step /
+   make_decode_step(mesh=), bit for bit the unsharded steps (the last
+   logits, every decode's logits, every cache leaf) with the unsharded
+   prefill's flash_attention launches, and ``lm-mesh-turns``, the train
+   step on the mesh timed against the unsharded one in turns on one
+   state, medians of steps 2-4; (c)
    ``lm-mesh-pod``, ``make_pod_compressed_grad_fn`` on two gloo ranks
    spawned by ``repro_torch.testing.ranks`` forming the pod axis, yi-6b
    at its published widths cut to 2 layers, each leaf within 0.02 of the
@@ -247,6 +254,13 @@ and prints no result line):
    winner's staged frames held to its launch table and to reference mode,
    20 served frames bit for bit the staged executor's, and its artifact
    saved and loaded;
+   then the dry-run (``dryrun_phase``): ``python -m
+   repro_torch.launch.dryrun`` for yi-6b's train_4k, prefill_32k and
+   decode_32k on the 16x16 and 2x16x16 production meshes (fake worlds of
+   256 and 512 ranks, meta tensors, no device), one niced process a cell
+   started after the build and run beside the card phases; each cell's
+   run time, per-device bytes, fits_hbm, operations and collective bytes
+   printed, every cell required to succeed;
 7. one JSON line of per-kernel numbers, then the result line.
 
 Imports nothing of JAX and nothing of the ``repro`` package.
@@ -543,10 +557,10 @@ TRAIN_REDUCED = dict(seq_len=128, global_batch=2, microbatches=2)
 # there is amplified (m / (sqrt(v) + eps)), and a bf16 weight moves by
 # little else (lr is below half an ulp of every weight above 1.5e-3).  The
 # port's bf16 update equals the reference's to one ulp at every element,
-# amplified ones included (tests/test_torch_bf16.py); the port's rises only
-# past 16 of the 32 layers (torch_train_schedules.py --layers), and whether
-# the reference's own bf16 step overshoots alike there is open (ROADMAP.md,
-# Queue 3, fault 7)
+# amplified ones included (tests/test_torch_bf16.py); the port's first
+# rises at a depth of 29 to 32 of the 32 layers (torch_train_schedules.py
+# --layers), and whether the reference's own bf16 step overshoots alike
+# there is open (ROADMAP.md, Queue 3, fault 7)
 TRAIN_BF16_TAG = "lm-train-bf16"
 TRAIN_BF16_OPT = dict(lr=3e-6, warmup_steps=1, total_steps=4,
                       quantize_states=True)
@@ -632,6 +646,29 @@ TRAIN_BFP8_REL = 0.02
 # examples/torch_gloo_cuda_collectives.py)
 MESH_ONE_TAG = "lm-mesh-1"
 MESH_KEEP = ("embed",) + TRAIN_KEEP
+# (a) also serves on that mesh (lm-mesh-serve): yi-6b whole, one prefill of
+# 1 x MESH_SERVE_SEQ tokens (TokenPipeline batch 0) and MESH_SERVE_DECODES
+# decode steps of seeded tokens through make_prefill_step /
+# make_decode_step(mesh=), a cache of MESH_SERVE_S_MAX, bit for bit the
+# unsharded steps (the last logits, every decode's logits, every cache
+# leaf after each step) with the unsharded prefill's flash_attention
+# launches; and times the train step on the mesh against the unsharded one
+# in turns, MESH_TURNS steps each alternating on one training state,
+# medians of steps 2-4 as train_phase reports
+MESH_SERVE_TAG = "lm-mesh-serve"
+MESH_SERVE_SEQ = 1024
+MESH_SERVE_DECODES = 4
+MESH_SERVE_S_MAX = 2048
+MESH_TURNS = 4
+# the dry-run (dryrun_phase): python -m repro_torch.launch.dryrun for
+# DRYRUN_ARCH's DRYRUN_SHAPES on both production meshes (fake worlds of 256
+# and 512 ranks, meta tensors, no device), one process a cell, started
+# niced beside the card phases (after the build) and collected at the end;
+# every cell must succeed.  Records under results/dryrun_smoke/
+DRYRUN_ARCH = "yi-6b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_OUT = ROOT / "results" / "dryrun_smoke"
+DRYRUN_TIMEOUT = 900
 MESH_POD = 2
 MESH_POD_LAYERS = 2
 MESH_POD_SEQ = 512
@@ -3613,6 +3650,120 @@ def mesh_one(torch, library, cfg, batch, mesh):
     return metrics, kept, counts, shapes, secs, peak
 
 
+def mesh_serve(torch, library, cfg, mesh):
+    """lm-mesh-serve: one prefill and MESH_SERVE_DECODES decode steps of
+    yi-6b made from LM_SEED, unsharded, then on ``mesh``, each mesh step
+    held bit for bit to the unsharded one.  Returns (the mesh run's
+    launches and launch shapes), the unsharded and the mesh seconds of the
+    prefill and of each decode step, and the number of cache leaves."""
+    import numpy as np
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.model import _leaves
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    B, S, S_MAX = 1, MESH_SERVE_SEQ, MESH_SERVE_S_MAX
+    tag = MESH_SERVE_TAG
+    tokens = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                      global_batch=B)).batch_at(0)["tokens"]
+    decode = np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, (MESH_SERVE_DECODES, B))
+    params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
+                         cfg)
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def run(m, held=None):
+        """[(logits, {leaf: copy})] after each step (or each step held to
+        ``held``'s), launches, launch shapes and seconds."""
+        prefill = make_prefill_step(cfg, B, S_MAX, device="cuda", mesh=m)
+        step = make_decode_step(cfg, B, S_MAX, device="cuda", mesh=m)
+        cache = init_cache(cfg, B, S_MAX, device="cuda")
+        outs, secs = [], []
+
+        def keep(i, logits, cache):
+            got = (whole(logits).clone(),
+                   {n: whole(t).clone() for n, t in _leaves(cache)})
+            if held is None:
+                outs.append(got)
+                return
+            want = held[i]
+            what = "the prefill" if i == 0 else f"decode step {i}"
+            if not bit_equal(torch, got[0], want[0]):
+                raise AssertionError(f"[{tag}] logits of {what} on the "
+                                     f"mesh differ from the unsharded's")
+            bad = [n for n in want[1] if not bit_equal(torch, got[1][n],
+                                                       want[1][n])]
+            if bad:
+                raise AssertionError(f"[{tag}] cache leaves {bad} after "
+                                     f"{what} differ on the mesh")
+        torch.cuda.synchronize()
+        library.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cache, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts, shapes = library.launches(), library.launch_shapes()
+        keep(0, logits, cache)
+        for i, tok in enumerate(decode):
+            t0 = time.perf_counter()
+            logits, cache = step(params, cache,
+                                 torch.as_tensor(tok, device="cuda")[:, None],
+                                 torch.full((B,), S + i, device="cuda"))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            keep(i + 1, logits, cache)
+        return outs, counts, shapes, secs
+
+    plain, p_counts, _, p_secs = run(None)
+    _, m_counts, m_shapes, m_secs = run(mesh, plain)
+    want = dict.fromkeys(library.SIGNATURES, 0) | {
+        "flash_attention": cfg.n_layers}
+    if m_counts != p_counts or m_counts != want:
+        raise AssertionError(f"[{tag}] prefill launches {m_counts} on the "
+                             f"mesh, {p_counts} unsharded, expected {want}")
+    n_leaves = len(plain[0][1])
+    del plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (m_counts, m_shapes), p_secs, m_secs, n_leaves
+
+
+def mesh_turns(torch, cfg, batch, mesh):
+    """The train step unsharded and on ``mesh`` in turns on one training
+    state (yi-6b from LM_SEED, TRAIN_OPT): MESH_TURNS steps of each,
+    alternating, each timed on the host clock to its loss.  Returns
+    {"unsharded": [s, ...], "mesh": [s, ...]} and the losses."""
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime.steps import _local, make_train_step
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    params = init_params(torch.Generator(device="cuda").manual_seed(LM_SEED),
+                         cfg)
+    state = init_opt_state(params, opt_cfg)
+    steps = {"unsharded": make_train_step(cfg, opt_cfg, remat="full",
+                                          device="cuda"),
+             "mesh": make_train_step(cfg, opt_cfg, remat="full",
+                                     device="cuda", mesh=mesh)}
+    times: dict = {"unsharded": [], "mesh": []}
+    losses = []
+    for i in range(2 * MESH_TURNS):
+        label = ("unsharded", "mesh")[i % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = steps[label](params, state, batch)
+        losses.append(float(m["loss"]))                 # synchronises
+        times[label].append(time.perf_counter() - t0)
+        if label == "mesh":
+            # a 1x1 mesh's local shards are the whole tensors, the same
+            # storage: the next unsharded step takes them as they are
+            params, state = _local(params), _local(state)
+    del params, state, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return times, losses
+
+
 def mesh_phase(torch, library):
     """The train step on a device mesh (``make_train_step(..., mesh=)``):
     (a) a world of one, (c) pod compression on two ranks (constants
@@ -3657,6 +3808,36 @@ def mesh_phase(torch, library):
           f"first), peak {got[5]} vs {ref[5]} bytes; {on}")
     out[tag] = (got[2], got[3])
     del ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    tag = MESH_SERVE_TAG
+    launched, p_secs, m_secs, n_leaves = mesh_serve(torch, library, cfg,
+                                                    mesh)
+    print(f"[{tag}] {cfg.name} whole, one prefill of 1 x {MESH_SERVE_SEQ} "
+          f"tokens and {MESH_SERVE_DECODES} decode steps (cache of "
+          f"{MESH_SERVE_S_MAX}) through make_prefill_step / "
+          f"make_decode_step(mesh=make_host_mesh()) bit for bit the "
+          f"unsharded steps: the last logits, every decode's logits and all "
+          f"{n_leaves} cache leaves (each stacked over {cfg.n_groups} layer "
+          f"groups) after each step; launches "
+          f"{({k: n for k, n in launched[0].items() if n})} both; prefill "
+          f"{m_secs[0]:.3f} s vs {p_secs[0]:.3f} s unsharded, decode "
+          f"steps {[round(x, 4) for x in m_secs[1:]]} vs "
+          f"{[round(x, 4) for x in p_secs[1:]]} s (host clock, first "
+          f"call of each); {on}")
+    out[tag] = launched
+    tag = "lm-mesh-turns"
+    times, losses = mesh_turns(torch, cfg, batch, mesh)
+    med = {k: statistics.median(v[1:]) for k, v in times.items()}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[{tag}] losses {losses}")
+    print(f"[{tag}] the train step in turns on one state, {MESH_TURNS} "
+          f"steps each (unsharded first): median of steps 2-{MESH_TURNS} "
+          f"{med['mesh']:.4f} s on the mesh vs {med['unsharded']:.4f} s "
+          f"unsharded, {med['mesh'] / med['unsharded']:.4f} x; steps "
+          f"{[round(x, 4) for x in times['mesh']]} vs "
+          f"{[round(x, 4) for x in times['unsharded']]} s (host clock to "
+          f"the loss); losses {[round(x, 6) for x in losses]}; {on}")
     torch.distributed.destroy_process_group()
     tag = "lm-mesh-pod"
     arch, layers = TRAIN_ARCH, MESH_POD_LAYERS
@@ -3684,6 +3865,74 @@ def mesh_phase(torch, library):
           f"{res[0]['loss']!r}; {on}")
     print(f"mesh phase {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def dryrun_start() -> list:
+    """Start ``python -m repro_torch.launch.dryrun`` for every
+    DRYRUN_SHAPES cell of DRYRUN_ARCH on both production meshes, one
+    niced process a cell (one intra-op thread, no device), beside the
+    card phases.  Returns [(cell, process, start time, log path)]."""
+    import atexit
+    import os
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for multi in (False, True):
+        for shape in DRYRUN_SHAPES:
+            cell = (DRYRUN_ARCH, shape, "multipod" if multi else "singlepod")
+            log = DRYRUN_OUT / f"{'__'.join(cell)}.log"
+            (DRYRUN_OUT / f"{'__'.join(cell)}.json").unlink(missing_ok=True)
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", DRYRUN_ARCH, "--shape", shape, "--out",
+                    str(DRYRUN_OUT)]
+            with open(log, "w") as f:
+                procs.append((cell, subprocess.Popen(
+                    argv + (["--multi-pod"] if multi else []), stdout=f,
+                    stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                    preexec_fn=lambda: os.nice(19)),
+                    time.perf_counter(), log))
+
+    def stop():
+        for _, proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+    return procs
+
+
+def dryrun_phase(procs: list) -> None:
+    """Wait for :func:`dryrun_start`'s cells (at most DRYRUN_TIMEOUT
+    seconds from their start) and print each record's line: its run's
+    seconds, per-device bytes, fits_hbm, operations and collective bytes
+    by kind.  Raises if a cell errors or does not finish."""
+    failed = []
+    for cell, proc, t0, log in procs:
+        try:
+            proc.wait(max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            failed.append(f"{cell} not finished in {DRYRUN_TIMEOUT} s")
+            continue
+        path = DRYRUN_OUT / f"{'__'.join(cell)}.json"
+        if proc.returncode or not path.exists():
+            tail = log.read_text()[-2000:]
+            failed.append(f"{cell} exit {proc.returncode}: {tail}")
+            continue
+        rec = json.loads(path.read_text())
+        coll = rec["collectives"]
+        print(f"[dryrun] {'/'.join(cell)}: {rec['n_devices']} ranks, step "
+              f"{rec['lower_s']} s on meta tensors, per-device bytes "
+              f"{rec['per_device_bytes']} (arguments "
+              f"{rec['memory']['argument_size_in_bytes']}, peak temporaries "
+              f"{rec['memory']['temp_size_in_bytes']}), fits_hbm "
+              f"{rec['fits_hbm']}, {rec['cost']['flops']:.6e} operations a "
+              f"device, collective bytes {coll['total_bytes']:.6e} "
+              f"({json.dumps(coll['by_kind'])}) in {coll['n_ops']} ops")
+    if failed:
+        raise AssertionError("dry-run cells failed: " + "; ".join(failed))
 
 
 def train_bf16_phase(torch, library):
@@ -4607,6 +4856,8 @@ def main() -> int:
             spills.append(f"{source} [{kernel}]: {line.strip()}")
     if spills:
         raise AssertionError("spills: " + "; ".join(spills))
+    # the dry-run's cells run on the host beside the card phases
+    dry = dryrun_start()
     # the attention kernels' tiles: shared memory, registers and blocks an
     # SM of each backward instance and of the bf16 forward pair, as the card
     # reports them
@@ -4745,6 +4996,10 @@ def main() -> int:
 
     # -- the autotuned path (after phase 5: phase 4 replays none of it) -------
     autotune_phase(torch, repro_torch, library)
+    t0 = time.perf_counter()
+    dryrun_phase(dry)
+    print(f"dry-run phase: waited {time.perf_counter() - t0:.1f} s after "
+          f"the card phases")
 
     # -- 6. results -------------------------------------------------------------
     print(json.dumps({"kernels": list(rows.values())}))

@@ -3,8 +3,8 @@ surface of the kernel library (build, launch counts).
 
 ``KernelEntry.cuda`` is the wrapper that launches the op's CUDA kernel on a
 CUDA tensor (and runs its plain version on a CPU one); ``reference`` is the
-plain body that ``kernel_mode="reference"`` runs.  Which wrappers have a
-kernel on the card yet is stated in ``streaming_conv`` and ROADMAP.md.
+plain body that ``kernel_mode="reference"`` runs.  Every wrapper has its
+kernel on the card.
 """
 from __future__ import annotations
 

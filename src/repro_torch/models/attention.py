@@ -19,15 +19,29 @@ gradient is wanted (serving) and ``FlashAttention`` (non-causal, over keys
 of their own length) where autograd records the call (training).  As the
 reference, q, k and v are constrained to ("dp", None, "tp", None) after the
 head reshape (``runtime/hints.py``, the identity outside a mesh step's
-hints); on a mesh the training kernels run on each rank's own rows and
-heads (``local_map``).
+hints).
+
+On a mesh (DTensors, a step's hints active) every attention kernel, the
+serving ``flash_attention`` and the training ``FlashAttention``, runs on
+each rank's own rows and heads (``local_map``).  A prefill lays the
+prompt's keys and values out as the cache pages it is given
+(``cache_shardings``: the sequence split over ``model``, or over
+(``data``, ``model``) when the rows do not split): the weight-repeated
+heads, padded to the page's length, move from a head split to a sequence
+split (an all-to-all), then each rank keeps every G-th head.  A decode
+writes the new key and value only on the rank that holds its position, and
+takes the softmax over the split key axis as a split softmax: each rank's
+maximum and sum of exponentials all-reduced over the axes that split the
+sequence, then the weighted values; no cache page leaves its rank.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.flash_attention import NEG_INF, FlashAttention, flash_attention
-from ..runtime.hints import constrain
+from ..runtime.hints import (constrain, merge_heads, split_heads,
+                             whole_heads)
+from ..runtime.sharding import contiguous_strides
 from .common import (apply_mrope, apply_rope, dense_init,
                      text_mrope_positions, typed_scale)
 
@@ -64,14 +78,17 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
     wk, wv = p["wk"], p["wv"]
     if repeat_kv and G > 1:
         d = wk.shape[0]
-        wk = wk.reshape(d, KH, hd).repeat_interleave(G, dim=1).reshape(
-            d, H * hd)
-        wv = wv.reshape(d, KH, hd).repeat_interleave(G, dim=1).reshape(
-            d, H * hd)
+        # on a mesh the repeated weights keep their heads whole where the
+        # KH heads do not split, so that their gradient takes the (d, KH,
+        # G, hd) view that sums the G copies
+        wk = whole_heads(whole_heads(wk, KH).reshape(d, KH, hd)
+                         .repeat_interleave(G, dim=1).reshape(d, H * hd), KH)
+        wv = whole_heads(whole_heads(wv, KH).reshape(d, KH, hd)
+                         .repeat_interleave(G, dim=1).reshape(d, H * hd), KH)
         KH = H
-    q = constrain((x @ p["wq"]).reshape(B, S, H, hd), "dp", None, "tp", None)
-    k = constrain((x @ wk).reshape(B, S, KH, hd), "dp", None, "tp", None)
-    v = constrain((x @ wv).reshape(B, S, KH, hd), "dp", None, "tp", None)
+    q = split_heads(x @ p["wq"], H, hd)
+    k = split_heads(x @ wk, KH, hd)
+    v = split_heads(x @ wv, KH, hd)
     if cfg.rope == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
@@ -82,28 +99,43 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
     return q, k, v
 
 
-def _flash_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 causal: bool) -> torch.Tensor:
-    """``FlashAttention`` on q, k, v (B, S, H, D), k and v with q's H heads.
-    On a mesh (DTensors, laid out ("dp", None, "tp", None) by the hints:
-    rows and heads split, every position whole) the kernels run on each
-    rank's own rows and heads, plain contiguous tensors, and the output
-    keeps that layout."""
+def _local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> torch.Tensor:
+    """``fn(q, k, v)`` on q (B, Sq, H, D) and k, v (B, Sk, H, D), plain
+    contiguous tensors.  On a mesh (DTensors) q, k and v are laid out
+    ("dp", None, "tp", None) (rows and heads split, every position whole)
+    and ``fn`` runs on each rank's own rows and heads; the output keeps
+    that layout."""
     from torch.distributed.tensor import DTensor
     if not isinstance(q, DTensor):
-        return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal)
+        return fn(q.contiguous(), k.contiguous(), v.contiguous())
     from torch.distributed.tensor.experimental import local_map
     q, k, v = (constrain(t, "dp", None, "tp", None) for t in (q, k, v))
     pl = q.placements
     if k.placements != pl or v.placements != pl:
         raise ValueError(f"q, k, v laid out {pl}, {k.placements}, "
                          f"{v.placements}: the kernels take one layout")
-    fn = local_map(lambda q, k, v: FlashAttention.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal),
-        out_placements=list(pl), in_placements=(pl, pl, pl),
-        device_mesh=q.device_mesh)
-    return fn(q, k, v)
+    run = local_map(lambda q, k, v: fn(q.contiguous(), k.contiguous(),
+                                       v.contiguous()),
+                    out_placements=list(pl), in_placements=(pl, pl, pl),
+                    device_mesh=q.device_mesh)
+    return run(q, k, v)
+
+
+def _flash_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> torch.Tensor:
+    """``FlashAttention`` on q, k, v (B, S, H, D), k and v with q's H heads,
+    on each rank's own rows and heads on a mesh (:func:`_local_heads`)."""
+    return _local_heads(lambda q, k, v: FlashAttention.apply(q, k, v, causal),
+                        q, k, v)
+
+
+def _flash_serve(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> torch.Tensor:
+    """``flash_attention`` (no gradient) likewise."""
+    return _local_heads(lambda q, k, v: flash_attention(q, k, v,
+                                                        causal=causal),
+                        q, k, v)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -174,29 +206,144 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _page(t: torch.Tensor, G: int, like: torch.Tensor) -> torch.Tensor:
+    """A cache page of ``like``'s shape (B, s_max, KH, D), type and layout
+    holding the prompt's keys or values ``t`` (B, S, H, D), H = G KH
+    weight-repeated heads, in its first S positions and zeros after.  On a
+    mesh ``t`` is padded to s_max on each rank (every position is whole
+    there), moved to ``like``'s row and sequence split with its heads whole
+    (an all-to-all where the heads were split), and each rank keeps every
+    G-th head of its own block."""
+    S = t.shape[1]
+    if not _is_dtensor(t):
+        c = torch.zeros_like(like)
+        c[:, :S] = t[:, :, ::G].to(c.dtype)
+        return c
+    from torch.distributed.tensor import DTensor
+    mesh = like.device_mesh
+    loc = t.to_local()
+    pad = loc.new_zeros((loc.shape[0], like.shape[1]) + tuple(loc.shape[2:]))
+    pad[:, :S] = loc
+    shape = (t.shape[0], like.shape[1]) + tuple(t.shape[2:])
+    full = DTensor.from_local(pad, mesh, t.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+    mine = full.redistribute(mesh, like.placements).to_local()
+    return DTensor.from_local(mine[:, :, ::G].to(like.dtype).contiguous(),
+                              mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
 def prefill_attention(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor, *,
                       chunk: int = 1024, inference: bool = False,
-                      use_kernels: bool = True):
-    """Full-sequence causal self-attention; returns (out, (k, v) cache).
-    The returned cache keeps the true KH KV heads (strided slice of the
-    weight-repeated heads).  ``inference`` enables causal block skipping
-    (forward only) and, with ``use_kernels``, the ``flash_attention``
-    kernel route; without ``inference``, ``use_kernels`` takes the training
-    route, ``FlashAttention`` (the lse forward and the backward kernels).
-    GQA as the reference: the KV weights are repeated to H heads, so
-    autograd sums dK and dV back over the G copies."""
+                      use_kernels: bool = True, pages: tuple | None = None):
+    """Full-sequence causal self-attention; returns (out, kv).  ``kv`` is
+    the prompt's keys and values with the true KH KV heads (a strided slice
+    of the weight-repeated heads), or, with ``pages`` (one group's k and v
+    cache, (B, s_max, KH, D) each), new pages of their shapes, types and
+    layouts holding them in the first S positions (:func:`_page`).  On a
+    mesh without ``pages`` (the training forward) ``kv`` is None.
+    ``inference`` enables causal block skipping (forward only) and, with
+    ``use_kernels``, the ``flash_attention`` kernel route; without
+    ``inference``, ``use_kernels`` takes the training route,
+    ``FlashAttention`` (the lse forward and the backward kernels).  GQA as
+    the reference: the KV weights are repeated to H heads, so autograd sums
+    dK and dV back over the G copies."""
     B, S, _ = x.shape
     G = cfg.n_heads // cfg.n_kv_heads
     q, k, v = _project_qkv(p, x, cfg, pos, repeat_kv=True)
     if inference and use_kernels:
-        out = flash_attention(q, k, v, causal=True)
+        out = _flash_serve(q, k, v, True)
     elif use_kernels:
         out = _flash_train(q, k, v, True)
     else:
         out = chunked_attention(q, k, v, causal=True, chunk=min(chunk, S),
                                 skip_masked=inference)
-    out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    out = merge_heads(out) @ p["wo"]
+    if pages is not None:
+        return out, (_page(k, G, pages[0]), _page(v, G, pages[1]))
+    if _is_dtensor(k):
+        return out, None
     return out, (k[:, :, ::G], v[:, :, ::G])
+
+
+def _all_reduce(t: torch.Tensor, op: str, mesh, dims: tuple) -> torch.Tensor:
+    """``t`` all-reduced (``op``) over the mesh dimensions ``dims`` in turn
+    (functional collectives)."""
+    import torch.distributed._functional_collectives as funcol
+    for d in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, d)))
+    return t
+
+
+def _decode_mesh(q, k, v, ck, cv, pos, cfg):
+    """:func:`decode_attention`'s write and softmax on a mesh: ``ck``,
+    ``cv`` (B, S_max, KH, D) DTensors laid out by ``cache_shardings`` (rows
+    over the data ranks where they split, the sequence over the others);
+    q (B, 1, H, D), k, v (B, 1, KH, D) and ``pos`` (B,) DTensors.  Each rank
+    takes its own rows of q, k, v and pos with every head, writes k and v
+    where it holds position ``pos``, and sums its block of keys; the
+    softmax's maximum, its sum of exponentials and the weighted values are
+    all-reduced over the mesh dimensions that split the sequence (none on a
+    mesh that does not: there ``torch.softmax``, as unsharded).  Returns
+    (B, 1, H D) of q's type, laid out as the rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = ck.device_mesh
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in ck.placements)
+    split = tuple(d for d, p in enumerate(ck.placements)
+                  if isinstance(p, Shard) and p.dim == 1
+                  and mesh.size(d) > 1)
+    ql, kl, vl = (t.redistribute(mesh, rows).to_local() for t in (q, k, v))
+    posl = pos.redistribute(mesh, rows).to_local() \
+        if isinstance(pos, DTensor) else pos
+    ckl, cvl = ck.to_local(), cv.to_local()
+    b, S_loc = ckl.shape[:2]
+    _, off = compute_local_shape_and_global_offset(ck.shape, mesh,
+                                                   ck.placements)
+    s0 = off[1]
+    if posl.shape[0] != b:
+        raise ValueError(f"pos of {posl.shape[0]} rows on a rank holding "
+                         f"{b} cache rows")
+    # the new key and value, written only where this rank holds pos (else
+    # the slot's own value is written back)
+    at = posl - s0
+    inside = ((at >= 0) & (at < S_loc))[:, None, None]
+    at = at.clamp(0, S_loc - 1)
+    r = torch.arange(b, device=ckl.device)
+    ckl[r, at] = torch.where(inside, kl[:, 0].to(ckl.dtype), ckl[r, at])
+    cvl[r, at] = torch.where(inside, vl[:, 0].to(cvl.dtype), cvl[r, at])
+    KH, D = cfg.n_kv_heads, cfg.hd
+    G = cfg.n_heads // KH
+    qf = (ql * typed_scale(D ** -0.5, ql.dtype)).reshape(b, KH, G, D).to(
+        ckl.dtype)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf.float(), ckl.float())
+    keys = s0 + torch.arange(S_loc, device=ckl.device)
+    s = torch.where((keys[None] <= posl[:, None])[:, None, None, :], s,
+                    NEG_INF)
+    if not split:
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", w.to(cvl.dtype).float(),
+                         cvl.float())
+    else:
+        m = _all_reduce(s.amax(dim=-1, keepdim=True), "max", mesh, split)
+        e = torch.exp(s - m)
+        l = _all_reduce(e.sum(dim=-1, keepdim=True), "sum", mesh, split)
+        o = torch.einsum("bhgk,bkhd->bhgd", (e / l).to(cvl.dtype).float(),
+                         cvl.float())
+        o = _all_reduce(o, "sum", mesh, split)
+    out = o.reshape(b, 1, cfg.n_heads * D).to(ql.dtype)
+    shape = (ck.shape[0], 1, cfg.n_heads * D)
+    return DTensor.from_local(out, mesh, rows, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
 
 
 def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
@@ -207,13 +354,18 @@ def decode_attention(p: dict, x: torch.Tensor, cfg, cache: tuple,
     are written into the cache tensors at ``pos`` in place (the reference
     returns updated copies; in place saves a copy of the cache per layer
     and step), and positions > pos are masked out.  Returns (out, (k cache,
-    v cache)), the same tensors."""
+    v cache)), the same tensors.  On a mesh (a DTensor cache) the write and
+    the softmax run on each rank's own block of the cache
+    (:func:`_decode_mesh`)."""
     B, S1, _ = x.shape
     if S1 != 1:
         raise ValueError(f"decode_attention takes one token, got {S1}")
     ck, cv = cache
     S_max = ck.shape[1]
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
+    if _is_dtensor(ck):
+        out = _decode_mesh(q, k, v, ck, cv, pos, cfg)
+        return out @ p["wo"], (ck, cv)
     rows = torch.arange(ck.shape[0], device=ck.device)
     ck[rows, pos] = k[:, 0].to(ck.dtype)
     cv[rows, pos] = v[:, 0].to(cv.dtype)
@@ -249,17 +401,15 @@ def _noncausal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _flash_train(q, k, v, False)
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=False)
+    return _flash_serve(q, k, v, False)
 
 
 def cross_kv(p: dict, enc: torch.Tensor, cfg) -> tuple:
     """The encoder output's keys and values for one decoder layer's cross
     attention, (B, T, KH, D) each: what a prefill writes to the cache as
     ``xk`` and ``xv``."""
-    B, T, _ = enc.shape
-    k = (enc @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
-    v = (enc @ p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    k = split_heads(enc @ p["wk"], cfg.n_kv_heads, cfg.hd)
+    v = split_heads(enc @ p["wv"], cfg.n_kv_heads, cfg.hd)
     return k, v
 
 
@@ -271,10 +421,9 @@ def cross_attention(p: dict, x: torch.Tensor, kv: tuple, cfg,
     :func:`cross_kv` (projected once for the attention and the cache) or
     the cache's in a decode step (S = 1).  The reference projects them
     from the encoder output inside; no rotary embedding, as there."""
-    B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    q = split_heads(x @ p["wq"], cfg.n_heads, cfg.hd)
     out = _noncausal(q, *kv, chunk, use_kernels)
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 def encoder_attention(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
@@ -282,7 +431,6 @@ def encoder_attention(p: dict, x: torch.Tensor, cfg, pos: torch.Tensor,
                       ) -> torch.Tensor:
     """Non-causal self-attention of the whisper encoder over x (B, T,
     d)."""
-    B, T, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, pos, repeat_kv=True)
     out = _noncausal(q, k, v, chunk, use_kernels)
-    return out.reshape(B, T, cfg.n_heads * cfg.hd) @ p["wo"]
+    return merge_heads(out) @ p["wo"]

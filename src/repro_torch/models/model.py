@@ -279,6 +279,14 @@ def param_count(params: Params) -> int:
 # layer application
 # =============================================================================
 
+def _rows(out: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output (B, S, d) before it joins the residual stream:
+    on a mesh laid out ("dp", None, None), its partial sums over the model
+    axis reduced whole (else DTensor may scatter them over the sequence,
+    a split no later view of the rows can take)."""
+    return constrain(out, "dp", None, None)
+
+
 def _apply_layer(lp: dict, x: torch.Tensor, cfg: ArchConfig, layer_idx: int,
                  *, pos: torch.Tensor, enc: torch.Tensor | None = None,
                  cache: dict | None = None, mode: str,
@@ -309,21 +317,17 @@ def _apply_layer(lp: dict, x: torch.Tensor, cfg: ArchConfig, layer_idx: int,
     elif mode == "full":
         # cache production == serving prefill == forward-only: the
         # causal-block-skipping attention (and its kernel) is safe
-        out, (k, v) = A.prefill_attention(lp["mixer"], h, cfg, pos,
-                                          inference=cache is not None,
-                                          use_kernels=use_kernels)
+        out, kv = A.prefill_attention(
+            lp["mixer"], h, cfg, pos, inference=cache is not None,
+            use_kernels=use_kernels,
+            pages=None if cache is None else (cache["k"], cache["v"]))
         if cache is not None:
-            Sq = k.shape[1]
-            new_cache = {}
-            for name, t in (("k", k), ("v", v)):
-                c = torch.zeros_like(cache[name])
-                c[:, :Sq] = t.to(c.dtype)
-                new_cache[name] = c
+            new_cache = {"k": kv[0], "v": kv[1]}
     else:
         out, (ck, cv) = A.decode_attention(
             lp["mixer"], h, cfg, (cache["k"], cache["v"]), pos)
         new_cache = {"k": ck, "v": cv}
-    x = x + out
+    x = x + _rows(out)
     if "cross" in lp:
         hx = apply_norm(cfg.norm, x, lp["norm_x"])
         if mode == "full":
@@ -339,15 +343,15 @@ def _apply_layer(lp: dict, x: torch.Tensor, cfg: ArchConfig, layer_idx: int,
         else:
             kv = (cache["xk"], cache["xv"])
             new_cache |= {"xk": cache["xk"], "xv": cache["xv"]}
-        x = x + A.cross_attention(lp["cross"], hx, kv, cfg,
-                                  use_kernels=use_kernels)
+        x = x + _rows(A.cross_attention(lp["cross"], hx, kv, cfg,
+                                        use_kernels=use_kernels))
     if cfg.d_ff > 0:
         h2 = apply_norm(cfg.norm, x, lp["norm2"])
         if "moe" in lp:
             out2, aux = M.apply_moe(lp["moe"], h2, cfg)
         else:
             out2 = M.apply_dense_ffn(lp["ffn"], h2, cfg)
-        x = x + out2
+        x = x + _rows(out2)
     return x, new_cache, aux
 
 
@@ -450,10 +454,10 @@ def _encoder_forward(params: Params, cfg: ArchConfig, frames: torch.Tensor,
     for gp in _unbind(params["encoder"]["groups"], cfg.encoder_layers):
         lp = gp["pos_0"]
         h = apply_norm(cfg.norm, x, lp["norm1"])
-        x = x + A.encoder_attention(lp["mixer"], h, enc_cfg, pos,
-                                    use_kernels=use_kernels)
+        x = x + _rows(A.encoder_attention(lp["mixer"], h, enc_cfg, pos,
+                                          use_kernels=use_kernels))
         h2 = apply_norm(cfg.norm, x, lp["norm2"])
-        x = x + M.apply_dense_ffn(lp["ffn"], h2, enc_cfg)
+        x = x + _rows(M.apply_dense_ffn(lp["ffn"], h2, enc_cfg))
     return apply_norm(cfg.norm, x, params["encoder"]["final_norm"])
 
 
@@ -536,7 +540,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     the ``flash_attention`` kernel; the self-attention decode is plain, as
     the reference's."""
     _check_supported(cfg)
-    x = F.embedding(token, params["embed"])
+    x = F.embedding(token, constrain(params["embed"], None, None))
     for g in range(cfg.n_groups):
         gp = _group(params["groups"], g)
         gc = _group(cache, g)

@@ -17,6 +17,9 @@ Expert weights: (E, d, f).  On a mesh the sharding hints
 reference's: expert-parallel over ``model`` where the experts divide it,
 the hidden axis over ``model`` otherwise (at every token count, where the
 reference starts at 2048); outside a step's hints they are the identity.
+The dispatch, the experts' products and the combine then run on each
+rank's own groups and experts (or hidden slice), a partial sum over
+``model``, the weights gathered over ``data`` first (``hints.on_ranks``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..runtime.hints import axis_size, constrain
+from ..runtime.hints import active as hints_active
+from ..runtime.hints import axis_size, constrain, on_ranks, spec_of
 from .common import dense_init, gated_act
 
 GROUP = 512  # tokens per dispatch group
@@ -141,17 +145,40 @@ def apply_moe(p: dict, x: torch.Tensor, cfg
     dd, cc = dispatch.to(x.dtype), combine.to(x.dtype)
     # EP when the expert axis divides the model axis, TP on d_ff otherwise
     ep = cfg.moe.n_experts % max(axis_size("tp"), 1) == 0
-    xe = constrain(torch.einsum("gtd,gtec->gecd", xg, dd),
-                   "dp", "tp" if ep else None, None, None)   # (G, E, C, d)
-    up = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
-    if "w_gate" in p:
-        h = gated_act(cfg.act, up,
-                      torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
-    else:
-        h = F.gelu(up, approximate="tanh")                   # jax.nn.gelu
-    h = constrain(h, "dp", "tp" if ep else None, None, None if ep else "tp")
-    out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
-    y = torch.einsum("gecd,gtec->gtd", out, cc)
+    names = [n for n in ("w_up", "w_gate", "w_down") if n in p]
+
+    def experts(xg, dd, cc, *w):
+        w = dict(zip(names, w))
+        xe = torch.einsum("gtd,gtec->gecd", xg, dd)          # (G, E, C, d)
+        up = torch.einsum("gecd,edf->gecf", xe, w["w_up"])
+        if "w_gate" in w:
+            h = gated_act(cfg.act, up,
+                          torch.einsum("gecd,edf->gecf", xe, w["w_gate"]))
+        else:
+            h = F.gelu(up, approximate="tanh")               # jax.nn.gelu
+        out = torch.einsum("gecf,efd->gecd", h, w["w_down"])
+        return torch.einsum("gecd,gtec->gtd", out, cc)
+    # on a mesh the dispatch, the experts' products and the combine run on
+    # each rank's own groups and its experts (EP, as the reference lays the
+    # dispatched tokens out) or its d_ff slice (TP), the weights gathered
+    # over data first (FSDP); the output is then a partial sum over the
+    # model axis
+    e_ax = "tp" if ep else None
+    wspec = {n: ((e_ax, None, None) if ep else (None, None, "tp"))
+             for n in ("w_up", "w_gate")}
+    wspec["w_down"] = (e_ax, None, None) if ep else (None, "tp", None)
+    split = hints_active() and (
+        spec_of(tuple(dd.shape), None, None, e_ax, None)[2] is not None
+        if ep else
+        spec_of(tuple(p["w_down"].shape), None, "tp", None)[1] is not None)
+    y = on_ranks(experts, (xg, dd, cc, *(p[n] for n in names)),
+                 (("dp", None, None), ("dp", None, e_ax, None),
+                  ("dp", None, e_ax, None), *(wspec[n] for n in names)),
+                 ((tuple(xg.shape), ("dp", None, None))
+                  + (("tp",) if split else ()),))
+    # the groups laid out over the rows' axes before they become rows (a
+    # split over more ranks than there are rows has no (B, S, d) view)
+    y = constrain(y, "dp", None, None)
     return y.reshape(B, S, d), aux
 
 

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from ..runtime.hints import merge_heads, on_ranks, split_heads
 from .common import dense_init, typed_scale
 
 # Mamba prefill steps whose discretisation is computed at once (bounds the
@@ -158,9 +159,19 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg):
     delta, Bm, Cm = _mamba_dbc(p, xin, cfg)
     A = -torch.exp(p["A_log"])                              # (di, ds)
     xf = xin.float()
-    h0 = torch.zeros((B, cfg.d_inner, cfg.d_state), dtype=torch.float32,
-                     device=x.device)
-    h, ys = _mamba_scan(h0, delta, Bm, Cm, xf, A, remat=_records(p, x))
+    remat = _records(p, x)
+
+    def scan(delta, Bm, Cm, xf, A):
+        h0 = torch.zeros((delta.shape[0], delta.shape[2], A.shape[1]),
+                         dtype=torch.float32, device=delta.device)
+        return _mamba_scan(h0, delta, Bm, Cm, xf, A, remat=remat)
+    # on a mesh the scan runs on each rank's own rows and channels, every
+    # step whole
+    h, ys = on_ranks(scan, (delta, Bm, Cm, xf, A),
+                     (("dp", None, "tp"), ("dp", None, None),
+                      ("dp", None, None), ("dp", None, "tp"), ("tp", None)),
+                     (((B, cfg.d_inner, cfg.d_state), ("dp", "tp", None)),
+                      (tuple(delta.shape), ("dp", None, "tp"))))
     y = ys + xf * p["D"]
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     return y, {"conv": conv_state, "h": h}
@@ -222,10 +233,9 @@ def _mlstm_qkv_gates(p: dict, x: torch.Tensor, cfg):
     H = cfg.n_heads
     dh = cfg.d_inner // H
     xm, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-    q = (xm * p["wq"]).reshape(B, S, H, dh)
-    k = (xm * p["wk"]).reshape(B, S, H, dh) * typed_scale(dh ** -0.5,
-                                                         xm.dtype)
-    v = xm.reshape(B, S, H, dh)
+    q = split_heads(xm * p["wq"], H, dh)
+    k = split_heads(xm * p["wk"], H, dh) * typed_scale(dh ** -0.5, xm.dtype)
+    v = split_heads(xm, H, dh)
     gates = x.float() @ p["gate_proj"] + p["gate_bias"]
     i_gate, f_gate = gates.chunk(2, dim=-1)                  # (B, S, H)
     log_f = F.logsigmoid(f_gate)
@@ -303,14 +313,25 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg):
         raise ValueError(f"mlstm_forward: sequence length {S} is not a "
                          f"multiple of its chunk {L}")
     q, k, v, ig, lf, z = _mlstm_qkv_gates(p, x, cfg)
-    xs = (q.float(), k.float(), v.float(), ig, lf)
-    C = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device)
-    nrm = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
-    if _records(p, x):
-        C, nrm, y = _mlstm_scan_train(C, nrm, xs, L)
-    else:
-        C, nrm, y = _mlstm_chunks(C, nrm, xs, L, remat=False)
-    y = y.reshape(B, S, cfg.d_inner).to(x.dtype)
+    remat = _records(p, x)
+
+    def scan(*xs):
+        b, h = xs[0].shape[0], xs[0].shape[2]
+        C = torch.zeros((b, h, dh, dh), dtype=torch.float32,
+                        device=xs[0].device)
+        nrm = torch.zeros((b, h, dh), dtype=torch.float32,
+                          device=xs[0].device)
+        if remat:
+            return _mlstm_scan_train(C, nrm, xs, L)
+        return _mlstm_chunks(C, nrm, xs, L, remat=False)
+    # on a mesh the chunks run on each rank's own rows and heads
+    heads, gates = ("dp", None, "tp", None), ("dp", None, "tp")
+    C, nrm, y = on_ranks(scan, (q.float(), k.float(), v.float(), ig, lf),
+                         (heads, heads, heads, gates, gates),
+                         (((B, H, dh, dh), ("dp", "tp", None, None)),
+                          ((B, H, dh), ("dp", "tp", None)),
+                          (tuple(q.shape), heads)))
+    y = merge_heads(y).to(x.dtype)
     y = (y * F.silu(z)) @ p["out_proj"]
     return y, {"C": C, "n": nrm}
 
@@ -318,15 +339,26 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg):
 def mlstm_decode(p: dict, x: torch.Tensor, cfg, cache: dict):
     B = x.shape[0]
     q, k, v, ig, lf, z = _mlstm_qkv_gates(p, x, cfg)
-    qf, kf, vf = (a[:, 0].float() for a in (q, k, v))        # (B, H, dh)
-    f = torch.exp(lf[:, 0])                                  # (B, H)
-    i = ig[:, 0]
-    C = f[..., None, None] * cache["C"] + i[..., None, None] * torch.einsum(
-        "bhd,bhe->bhde", kf, vf)
-    nrm = f[..., None] * cache["n"] + i[..., None] * kf
-    y = torch.einsum("bhd,bhde->bhe", qf, C)
-    denom = torch.clamp_min(torch.einsum("bhd,bhd->bh", qf, nrm).abs(), 1.0)
-    y = (y / denom[..., None]).reshape(B, 1, cfg.d_inner).to(x.dtype)
+
+    def step(q, k, v, ig, lf, C, nrm):
+        qf, kf, vf = (a[:, 0].float() for a in (q, k, v))    # (B, H, dh)
+        f = torch.exp(lf[:, 0])                              # (B, H)
+        i = ig[:, 0]
+        C = f[..., None, None] * C + i[..., None, None] * torch.einsum(
+            "bhd,bhe->bhde", kf, vf)
+        nrm = f[..., None] * nrm + i[..., None] * kf
+        y = torch.einsum("bhd,bhde->bhe", qf, C)
+        denom = torch.clamp_min(torch.einsum("bhd,bhd->bh", qf, nrm).abs(),
+                                1.0)
+        return C, nrm, y / denom[..., None]
+    # on a mesh the update runs on each rank's own rows, every head
+    rows = (("dp", None, None, None), ("dp", None, None))
+    C, nrm, y = on_ranks(step, (q, k, v, ig, lf, cache["C"], cache["n"]),
+                         (rows[0],) * 3 + (rows[1],) * 2 + rows,
+                         tuple((tuple(t.shape), spec) for t, spec in
+                               zip((cache["C"], cache["n"], cache["n"]),
+                                   rows + (rows[1],))))
+    y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
     y = (y * F.silu(z)) @ p["out_proj"]
     return y, {"C": C, "n": nrm}
 
@@ -403,20 +435,35 @@ def _slstm_scan_train(p: dict, cfg, carry: tuple, zx: torch.Tensor
 
 
 def slstm_forward(p: dict, x: torch.Tensor, cfg):
-    B, _, d = x.shape
+    B, S, d = x.shape
     zx = x @ p["w_in"]                                       # (B, S, 4d)
-    carry = tuple(torch.zeros((B, d), dtype=torch.float32, device=x.device)
-                  for _ in range(4))
-    scan = _slstm_scan_train if _records(p, x) else _slstm_chunk
-    carry, hs = scan(p, cfg, carry, zx)
+    run = _slstm_scan_train if _records(p, x) else _slstm_chunk
+
+    def scan(zx, r, bias):
+        carry = tuple(torch.zeros((zx.shape[0], d), dtype=torch.float32,
+                                  device=zx.device) for _ in range(4))
+        carry, hs = run({"r": r, "bias": bias}, cfg, carry, zx)
+        return (*carry, hs)
+    # on a mesh the recurrence runs on each rank's own rows, every head
+    *carry, hs = on_ranks(scan, (zx, p["r"], p["bias"]),
+                          (("dp", None, None), (None, None, None), (None,)),
+                          (((B, d), ("dp", None)),) * 4
+                          + (((B, S, d), ("dp", None, None)),))
     y = hs.to(x.dtype) @ p["out_proj"]
     return y, dict(zip(("h", "c", "n", "m"), carry))
 
 
 def slstm_decode(p: dict, x: torch.Tensor, cfg, cache: dict):
     zx = x[:, 0] @ p["w_in"]
-    carry = (cache["h"], cache["c"], cache["n"], cache["m"])
-    h, c, n, m = _slstm_step(p, cfg, carry, zx)
+    carry = tuple(cache[n] for n in ("h", "c", "n", "m"))
+
+    def step(zx, r, bias, *carry):
+        return _slstm_step({"r": r, "bias": bias}, cfg, carry, zx)
+    # on a mesh the step runs on each rank's own rows, every head
+    h, c, n, m = on_ranks(step, (zx, p["r"], p["bias"], *carry),
+                          (("dp", None), (None, None, None), (None,))
+                          + (("dp", None),) * 4,
+                          ((tuple(carry[0].shape), ("dp", None)),) * 4)
     y = h[:, None].to(x.dtype) @ p["out_proj"]
     return y, {"h": h, "c": c, "n": n, "m": m}
 

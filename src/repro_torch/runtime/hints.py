@@ -10,7 +10,11 @@ its lookup, a loss chunk's vocab axis).  Outside the context
 ``constrain`` is the identity, so the unsharded paths run unchanged, bit
 for bit.  Inside it, a DTensor is redistributed to the guarded spec (a
 plain tensor, replicated by the step's implicit replication, passes as it
-is).
+is).  Where DTensor cannot follow a layout GSPMD would, the helpers keep it
+on a path it can: :func:`split_heads` / :func:`merge_heads` keep a head
+axis whole where the heads do not split over "tp" (a split inside a head
+has no view), and :func:`on_ranks` runs a function on each rank's own
+shards (``local_map``: the recurrent scans, the experts' products).
 """
 from __future__ import annotations
 
@@ -86,5 +90,83 @@ def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
                           placements(spec_of(x.shape, *spec), h["mesh"]))
 
 
+def whole_heads(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` (..., n hd) with its last axis split over "tp" only where the
+    n heads are: on a mesh whose "tp" extent does not divide n, laid out
+    ("dp", None, ...) so that it takes the (..., n, hd) view (a split
+    inside a head has none); elsewhere ``t`` itself."""
+    tp = axis_size("tp")
+    if tp == 1 or n % tp == 0:
+        return t
+    return constrain(t, *(("dp",) + (None,) * (t.dim() - 1)))
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n hd) as (B, S, n, hd), constrained ("dp", None, "tp",
+    None), as the reference constrains its heads."""
+    B, S = t.shape[:2]
+    return constrain(whole_heads(t, n).reshape(B, S, n, hd), "dp", None,
+                     "tp", None)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, n, hd) as (B, S, n hd); on a mesh whose "tp" extent does not
+    divide n its heads stay whole, so that the gradient takes the (B, S,
+    n, hd) view back."""
+    B, S, n, hd = t.shape
+    return whole_heads(t.reshape(B, S, n * hd), n)
+
+
+def on_ranks(fn, args: tuple, specs: tuple, out: tuple):
+    """``fn(*args)`` on each rank's own shards.  Inside a step's hints,
+    with a DTensor among ``args``: each argument (a plain tensor is taken
+    as whole on every rank) is laid out by its spec (entries "dp" | "tp" |
+    None, guarded as :func:`constrain`'s), ``fn`` runs on the local
+    tensors (``local_map``), and its outputs come back as DTensors laid
+    out by ``out``, one (global shape, spec) pair each, or (global shape,
+    spec, kind) with ``kind`` "dp" or "tp": an output that is a partial sum
+    over those axes.  ``fn`` works on each rank's own shards alone, so an
+    argument whole along a mesh dimension that splits another argument
+    gets a partial gradient there, summed over the ranks.  Elsewhere
+    ``fn(*args)`` itself."""
+    h = _HINTS.get()
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    if h is None or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = h["mesh"]
+    ins = []
+    for a, spec in zip(args, specs):
+        pl = placements(spec_of(a.shape, *spec), mesh)
+        ins.append(a.redistribute(mesh, pl) if isinstance(a, DTensor) else
+                   distribute_tensor(a, mesh, pl, src_data_rank=None))
+    # the work is split along each mesh dimension some input is split on:
+    # there an input whole on every rank gets a partial gradient from each
+    split = {d for a in ins for d, p in enumerate(a.placements)
+             if isinstance(p, Shard)}
+    grads = tuple(tuple(Partial() if d in split and isinstance(p, Replicate)
+                        else p for d, p in enumerate(a.placements))
+                  for a in ins)
+    run = local_map(fn, out_placements=tuple(_out(o, h) for o in out),
+                    in_placements=tuple(a.placements for a in ins),
+                    in_grad_placements=grads, device_mesh=mesh)
+    return run(*ins)
+
+
+def _out(o: tuple, h: dict) -> tuple:
+    """The placements of one :func:`on_ranks` output."""
+    from torch.distributed.tensor import Partial
+    shape, spec, *partial = o
+    pl = list(placements(spec_of(shape, *spec), h["mesh"]))
+    if partial:
+        axes = _axes(h, partial[0])
+        names = list(h["mesh"].mesh_dim_names)
+        for a in axes if isinstance(axes, tuple) else (axes,):
+            pl[names.index(a)] = Partial()
+    return tuple(pl)
+
+
 __all__ = ["activation_hints", "active", "axis_size", "spec_of",
-           "constrain"]
+           "constrain", "whole_heads", "split_heads", "merge_heads",
+           "on_ranks"]

@@ -304,6 +304,16 @@ def register_strategies() -> None:
     _REGISTERED.append(_log_sigmoid_backward)
 
 
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor's global
+    strides, with no tensor made)."""
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
 def distribute(t: torch.Tensor, spec: Spec, mesh):
     """``t``, the whole tensor on every rank, as a DTensor laid out by
     ``spec``: each rank keeps its own slice, no collective runs.  A DTensor
@@ -329,4 +339,5 @@ def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
 __all__ = ["MeshShape", "mesh_shape", "dp_axes", "dp_size",
            "param_shardings", "opt_state_shardings", "batch_shardings",
            "cache_shardings", "replicated", "NamedSharding",
-           "named_shardings", "placements", "distribute", "distribute_tree"]
+           "named_shardings", "placements", "contiguous_strides",
+           "distribute", "distribute_tree"]

@@ -13,6 +13,11 @@ Python and numpy values, and imports only the port.
 * :func:`pod_compress` — ``compressed_psum`` on given per-pod gradients
   and errors, and ``make_pod_compressed_grad_fn`` on a loss, over the
   world as the ``pod`` axis; :func:`pod_lm` the latter on ``lm_loss``.
+* :func:`serve_steps` — ``make_prefill_step`` / ``make_decode_step(...,
+  mesh=)``: a prefill and decode steps on a ``DeviceMesh`` of the world,
+  each step's logits and (rank 0) every cache leaf gathered whole, the
+  leaves whose layout strays from ``cache_shardings``, and each decode
+  step's collectives (``launch/hlo_analysis.py``).
 """
 from __future__ import annotations
 
@@ -257,5 +262,76 @@ def pod_lm(rank: int, world: int, arch: str, batch: dict, *,
     return {"loss": float(loss), "rel": rel, "exact_error": exact_error}
 
 
+def serve_steps(rank: int, world: int, arch: str, tokens: np.ndarray,
+                decode: np.ndarray, *, mesh_shape: tuple, s_max: int, tree,
+                device: str = "cpu") -> dict:
+    """One prefill of ``tokens`` (B, S) and a decode step of each row of
+    ``decode`` (n, B) at positions S, S + 1, ... on a ``mesh_shape`` mesh
+    of the reduced ``arch`` from the numpy parameter ``tree``, f32, cache of
+    length ``s_max``.  Returns the logits of each step and (rank 0) every
+    cache leaf after each, gathered whole; after each step the leaves not
+    laid out by ``cache_shardings`` (none expected); this rank's local
+    cache shapes and bytes; per decode step
+    :class:`~repro_torch.launch.hlo_analysis.StepStats`' collectives (by
+    kind, total and largest operand bytes, each operand's shapes); and the
+    type and shape of every q ``flash_attention`` ran on."""
+    import torch
+    from ..launch.hlo_analysis import StepStats, collective_stats, local_bytes
+    from ..models import attention as A
+    from ..models import init_cache
+    from ..models.model import _leaves
+    from ..runtime import sharding as SH
+    from ..runtime.steps import (make_decode_step, make_prefill_step,
+                                 shard_serve_state)
+    dev = _device(device)
+    mesh = make_mesh(device, mesh_shape)
+    cfg = config(arch)
+    B, S = tokens.shape
+    params, cache, _ = shard_serve_state(
+        cfg, B, weights(cfg, tree, 0, dev), init_cache(cfg, B, s_max,
+                                                       device=dev), mesh)
+    prefill = make_prefill_step(cfg, B, s_max, device=dev, mesh=mesh)
+    step = make_decode_step(cfg, B, s_max, device=dev, mesh=mesh)
+    out: dict = {"logits": [], "cache": [], "stray": [], "collectives": []}
+
+    def record(logits, cache):
+        out["logits"].append(_whole(logits))
+        specs = dict(_leaves(SH.cache_shardings(cfg, B, mesh, cache)))
+        out["stray"].append(sorted(
+            n for n, t in _leaves(cache)
+            if tuple(t.placements) != SH.placements(specs[n], mesh)))
+        whole = {n: _whole(t) for n, t in _leaves(cache)}
+        out["cache"].append(whole if rank == 0 else None)
+
+    seen: set = set()
+    flash = A.flash_attention
+
+    def recording(q, k, v, *, causal=True):
+        seen.add((type(q).__name__, tuple(q.shape)))
+        return flash(q, k, v, causal=causal)
+    A.flash_attention = recording
+    try:
+        logits, cache = prefill(params, cache, {"tokens": tokens})
+    finally:
+        A.flash_attention = flash
+    out["attention"] = sorted(seen)
+    record(logits, cache)
+    out["local_shapes"] = {n: tuple(t.to_local().shape)
+                           for n, t in _leaves(cache)}
+    out["local_cache_bytes"] = local_bytes(cache)
+    for i, tok in enumerate(decode):
+        pos = torch.full((B,), S + i, dtype=torch.long)
+        with StepStats((params, cache)) as st:
+            logits, cache = step(params, cache,
+                                 torch.as_tensor(tok)[:, None], pos)
+        out["collectives"].append(collective_stats(st).to_json()
+                                  | {"operands": st.operands})
+        record(logits, cache)
+    out["foreign"] = sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                            or m.split(".")[0].startswith("test_"))
+    return out
+
+
 __all__ = ["AXES", "config", "make_mesh", "weights", "train_steps",
-           "restore", "pod_compress", "pod_lm"]
+           "restore", "pod_compress", "pod_lm", "serve_steps"]

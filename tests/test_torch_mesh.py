@@ -17,6 +17,8 @@ numpy; batches come from seeded numpy generators.
   in another order); every parameter laid out by the rules.  One yi-6b step
   with int8 states, held as ``tests/test_torch_train.py`` holds int8 (the
   reference's amplified updates to their sign).
+* The recurrent mixers on the 2 x 2 mesh: one step of reduced jamba and
+  xlstm within the same tolerance of both unsharded steps.
 * A 1 x 1 mesh (``make_host_mesh("cpu")``, in this process) bit for bit the
   unsharded step.
 * Pod compression on 2 ranks forming the pod axis: ``compressed_psum``'s
@@ -192,6 +194,51 @@ def test_mesh_step_lays_parameters_out_by_the_rules(trees, runs, arch):
             assert r["local_shapes"][n] == tuple(local), n
     if arch == "olmoe-1b-7b":
         assert specs["groups/pos_0/moe/w_up"][1] == "model"
+
+
+RECURRENT = {"jamba-v0.1-52b": (4, 64), "xlstm-1.3b": (4, 64)}
+
+
+@pytest.fixture(scope="module")
+def recurrent_runs():
+    """arch -> (reference, port unsharded, the 2x2 ranks' results) of one
+    f32 step of the reduced recurrent configs."""
+    out = {}
+    for arch, (B, S) in RECURRENT.items():
+        jc, tc = JARCHS[arch].reduced(), ARCHS[arch].reduced()
+        jp = JM.init_params(jax.random.PRNGKey(0), jc, dtype=jnp.float32)
+        trees = {arch: (jc, tc, jp, jax.tree.map(np.asarray, jp))}
+        rng = np.random.default_rng(53)
+        batches = [{k: rng.integers(0, tc.vocab, (B, S)).astype(np.int32)
+                    for k in ("tokens", "labels")}]
+        res = run_ranks(f"{CASES}:train_steps", WORLD, arch, batches,
+                        mesh_shape=MESH, opt=OPT, tree=trees[arch][3],
+                        microbatches=MBS, timeout=SPAWN_TIMEOUT)
+        out[arch] = (_reference(trees, arch, False, batches),
+                     _port(trees, arch, False, batches), res)
+    return out
+
+
+@pytest.mark.parametrize("against", ["port", "reference"])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_mesh_step_of_the_recurrent_mixers_matches_the_unsharded_step(
+        recurrent_runs, arch, against):
+    """One f32 step of reduced jamba (Mamba channels split over model, its
+    4 experts expert-parallel) and xlstm (mLSTM heads split over model, the
+    sLSTM recurrence on each rank's rows) on the 2 x 2 mesh, the scans and
+    the experts on each rank's shards (``hints.on_ranks``, whose whole
+    arguments take partial gradients): loss, lr, grad_norm and every
+    parameter within 2e-4 x max(1, max|ref|) of the port's unsharded step
+    and of the reference's."""
+    ref, port, res = recurrent_runs[arch]
+    want_m, want_p = (port if against == "port" else ref)[0]
+    for r in res:
+        for k in ("loss", "lr", "grad_norm"):
+            close(r["metrics"][0][k], want_m[k])
+    got = res[0]["params"][0]
+    assert set(got) == set(want_p)
+    for n, w in want_p.items():
+        close(got[n], w)
 
 
 def test_ranks_import_only_the_port(runs):
