@@ -204,7 +204,9 @@ and prints no result line):
    launch shape against ``view(...).mean``, and each launch shape of the
    standalone codec (an (r, c) stripe and its 32 ceil(c / 32)-wide
    payload, no padded copy) against its bound; dwconv over 9 and 11 taps
-   (more than its window kernel is built for);
+   (more than its window kernel is built for); act_relu_decode alone at
+   the YOLO head's act shape and at ACT_DECODE_AT's largest
+   act_relu_decode_encode shape, timed against its bound;
    flash_attention at the LM paths' shapes (causal, and non-causal over
    keys of their own length: whisper's encoder, cross attention and cross
    decode) and at ragged S with head widths 16-128, causal and not, and
@@ -254,6 +256,17 @@ and prints no result line):
    winner's staged frames held to its launch table and to reference mode,
    20 served frames bit for bit the staged executor's, and its artifact
    saved and loaded;
+   then the public wrapper and the walkthroughs (``walkthrough_phase``):
+   ``kernels.ops.fragmented_matmul`` at the UNet path's streamed_matmul
+   launch with the most weights, at static fractions 0, 0.25, 0.5 and 1,
+   each call exactly one streamed_matmul launch within VERTEX_PARITY_TOL
+   x max(1, max|plain|) of its plain version, and timed; then the four
+   walkthroughs' ``main`` in-process on the card (``examples/
+   torch_quickstart.py`` costing the paper UNet on zcu102 and executing
+   unet_exec pipelined under a starved channel, ``torch_serve_batched.py``
+   on its LM and graph paths, ``torch_train_small.py`` with its restart,
+   ``torch_long_context.py`` on xlstm), each held to the lines
+   WALKTHROUGHS names, its launches printed;
    then the dry-run (``dryrun_phase``): ``python -m
    repro_torch.launch.dryrun`` for yi-6b's train_4k, prefill_32k and
    decode_32k on the 16x16 and 2x16x16 production meshes (fake worlds of
@@ -427,6 +440,9 @@ FUZZ_SEED = 0
 FUZZ_CASES = 12
 FUZZ_P_PALLAS = 1.0
 FUZZ_ACT_DECODE_LAUNCHES = 11
+# phase 4 also times the act decode alone at this path's largest
+# act_relu_decode_encode launch shape (the fuzz launches are launch-bound)
+ACT_DECODE_AT = "x3d-evict-all"
 
 # the served path: the YOLO head's DSE stream behind GraphStreamServer
 SERVE_FRAMES = 20           # 2 full streams of 8 and one with 4 bubbles
@@ -674,6 +690,37 @@ MESH_POD_LAYERS = 2
 MESH_POD_SEQ = 512
 MESH_POD_REL = 0.02
 MESH_TIMEOUT = 240
+
+# the walkthroughs (examples/torch_*.py), each main run in-process on the
+# card at the arguments their docstrings and the README give, and the lines
+# each must print: the counters its schedule fixes, the same as the
+# reference package's example prints at these arguments
+WALK_GRAPH = ("--channel", "weighted-fair", "--channel-gbps", "0.5",
+              "--onchip-kbits", "300")
+WALKTHROUGHS = (
+    ("torch_quickstart", ("--device", "zcu102"),
+     ("  evictions  : 1 edges", "  fragmented : 23 layers (mean m=1.00)")),
+    ("torch_quickstart", ("--model", "unet_exec", "--mode", "pipelined",
+                          "--execute") + WALK_GRAPH,
+     ("executed (pipelined): output shape (2048,)",
+      "  prefetch deadline misses: 8 {0: 8}")),
+    ("torch_serve_batched", ("--arch", "yi-6b", "--requests", "6",
+                             "--max-new", "12"),
+     ("  prefills      : 6", "  decode steps  : 22 (continuous batching: "
+      "66 tokens through 3 slots)", "  evicted pages : 12 ")),
+    ("torch_serve_batched", ("--model", "unet_exec") + WALK_GRAPH,
+     ("served 6/6 frames of unet_exec (pipelined, u200)",
+      "  prefetch deadline misses: 4 {0: 4}")),
+    ("torch_train_small", ("--steps", "60", "--arch", "yi-6b"),
+     ("  restored at step 20",)),
+    ("torch_long_context", ("--arch", "xlstm-1.3b"),
+     ("  ctx= 1024:", "  stages=1 ")),
+)
+# fragmented_matmul on the card at one of the UNet path's streamed_matmul
+# launch shapes (the one with the most weights, then the most weight rows),
+# at these fractions
+FRAG_PATH = "unet"
+FRAG_FRACTIONS = (0.0, 0.25, 0.5, 1.0)
 
 TPU_SRC = {
     "streamed_matmul": "src/repro/kernels/streamed_matmul.py:31",
@@ -1577,6 +1624,22 @@ def kernel_phase(torch, timer, path_shapes):
         ms=t_kern, plain_ms=t_plain, bound_ms=b, bound_by=bound_by)
     print(f"  act_relu_decode at 25600 x 64: ms {t_kern:.4f} plain "
           f"{t_plain:.4f} bound {b:.4f} ({bound_by})")
+    # ... and at the size of x3d-evict-all's largest act_relu_decode_encode
+    # launch (its payload in, y out), where bytes, not the launch, should
+    # set its time
+    m, c = max((s[2] for k, s in path_shapes.get(ACT_DECODE_AT, {})
+                if k == "act_relu_decode_encode"),
+               key=lambda mc: mc[0] * mc[1])
+    check, kern, plain, _, nbytes, ops = case(
+        "act_relu_decode", ((m, 32 * -(-c // 32)), (m, -(-c // 32)), (m, c)))
+    check()
+    t_kern, t_plain = timer(kern), timer(plain)
+    b, bound_by = bound_ms(nbytes, ops)
+    rows["act_relu_decode"][f"at_{m}x{c}"] = dict(
+        ms=t_kern, plain_ms=t_plain, bound_ms=b, bound_by=bound_by)
+    print(f"  act_relu_decode at {m} x {c} ({ACT_DECODE_AT}'s largest "
+          f"act_relu_decode_encode): ms {t_kern:.4f} plain {t_plain:.4f} "
+          f"bound {b:.4f} ({bound_by}), {b / t_kern:.3f} of its bound")
     torch.cuda.synchronize()
     reset_launches()        # the comparisons above are not path launches
     return rows
@@ -2187,6 +2250,81 @@ def fuzz_phase(torch, library):
                              f"{counts['act_relu_decode']} times, expected "
                              f"{FUZZ_ACT_DECODE_LAUNCHES}")
     return counts, shapes
+
+
+def walkthrough_phase(torch, library, timer, path_shapes) -> None:
+    """``kernels.ops.fragmented_matmul`` on the card at the shapes of one
+    of FRAG_PATH's ``streamed_matmul`` launches (``path_shapes``, its
+    launch shapes), at FRAG_FRACTIONS:
+    each call exactly one ``streamed_matmul`` launch and nothing else, its
+    result within VERTEX_PARITY_TOL x max(1, max|plain|) of its plain
+    version, and its time.  Then every walkthrough of WALKTHROUGHS through
+    its ``main`` in-process on the card: it must finish (its own
+    assertions hold) and print the lines the table names; its launches are
+    printed."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import fragmented_matmul
+    from repro_torch.testing.oracle import VERTEX_PARITY_TOL as tol
+    t0 = time.perf_counter()
+    (m, k), (ks, n), (kd, _), *_ = max(
+        (s for kind, s in path_shapes if kind == "streamed_matmul"),
+        key=lambda s: ((s[1][0] + s[2][0]) * s[1][1], s[1][0] + s[2][0]))
+    k = ks + kd
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    plain = ref.conv2d_ref(x, w)
+    bound = max(1.0, float(plain.abs().max()))
+    for f in FRAG_FRACTIONS:
+        torch.cuda.synchronize()
+        library.reset_launches()
+        y = fragmented_matmul(x, w, static_fraction=f)
+        torch.cuda.synchronize()
+        got = {name: c for name, c in library.launches().items() if c}
+        if got != {"streamed_matmul": 1}:
+            raise AssertionError(f"[walk] fragmented_matmul at fraction {f}"
+                                 f" launched {got}, not one streamed_matmul")
+        err = float((y - plain).abs().max())
+        if not err <= tol * bound:
+            raise AssertionError(f"[walk] fragmented_matmul at fraction {f}"
+                                 f": max abs err {err:.3e} over "
+                                 f"{tol} x {bound:.3e}")
+        ms = timer(lambda: fragmented_matmul(x, w, static_fraction=f))
+        print(f"[walk] fragmented_matmul ({m}, {k}) @ ({k}, {n}) "
+              f"static_fraction {f}: one streamed_matmul launch, max abs err "
+              f"{err:.3e} (tol {tol} x {bound:.3e}), ms {ms:.4f}")
+    t1 = time.perf_counter()
+    for name, argv, lines in WALKTHROUGHS:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        torch.cuda.synchronize()
+        library.reset_launches()
+        out = io.StringIO()
+        t2 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                mod.main(list(argv))
+            torch.cuda.synchronize()
+        finally:
+            text = out.getvalue()
+            for line in text.splitlines():
+                print(f"[walk] {name}: {line}")
+        dt = time.perf_counter() - t2
+        missing = [ln for ln in lines if ln not in text]
+        if missing:
+            raise AssertionError(f"[walk] {name} {' '.join(argv)}: printed "
+                                 f"no line with {missing}")
+        print(f"[walk] {name} {' '.join(argv)}: {dt:.2f} s, launches "
+              f"{ {kern: c for kern, c in library.launches().items() if c} }")
+    library.reset_launches()
+    print(f"[walk] fragmented_matmul {t1 - t0:.1f} s, walkthroughs "
+          f"{time.perf_counter() - t1:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def lm_schedule(lengths, slots: int, max_new: int, resident: int,
@@ -4996,6 +5134,8 @@ def main() -> int:
 
     # -- the autotuned path (after phase 5: phase 4 replays none of it) -------
     autotune_phase(torch, repro_torch, library)
+    # -- the public wrapper and the walkthroughs (phase 4 replays none) ------
+    walkthrough_phase(torch, library, timer, shapes[FRAG_PATH])
     t0 = time.perf_counter()
     dryrun_phase(dry)
     print(f"dry-run phase: waited {time.perf_counter() - t0:.1f} s after "

@@ -306,10 +306,11 @@ def compile(spec: CompileSpec) -> "Compiled":
 class Compiled:
     """A runnable compiled design: executor + plan + provenance.
 
-    ``run`` executes, ``serve`` wraps the pipelined executor in a
-    :class:`~repro_torch.serving.GraphStreamServer`, ``trace`` runs once
-    with telemetry on, ``metrics`` / ``metrics_text`` read the artifact's
-    one metrics registry, and ``save`` / ``load`` round-trip the artifact.
+    ``run`` (or calling the artifact) executes, ``serve`` wraps the
+    pipelined executor in a :class:`~repro_torch.serving.GraphStreamServer`,
+    ``trace`` runs once with telemetry on, ``metrics`` / ``metrics_text``
+    read the artifact's one metrics registry, and ``save`` / ``load``
+    round-trip the artifact.
     """
     spec: CompileSpec
     graph: Graph
@@ -344,6 +345,9 @@ class Compiled:
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
         return x.to(self.executor.device)
+
+    def __call__(self, x) -> torch.Tensor:
+        return self.run(x)
 
     def run(self, x) -> torch.Tensor:
         """Staged / reference: one ``(m, c)`` frame (tensor or array) ->

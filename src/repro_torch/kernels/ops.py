@@ -1,5 +1,7 @@
-"""The kernel registry the executor's dispatch follows, and the public
-surface of the kernel library (build, launch counts).
+"""The kernel registry the executor's dispatch follows, the public
+wrappers (``fragmented_matmul``, ``flash_attn``, ``evict_encode`` /
+``evict_decode``) and the public surface of the kernel library (build,
+launch counts).
 
 ``KernelEntry.cuda`` is the wrapper that launches the op's CUDA kernel on a
 CUDA tensor (and runs its plain version on a CPU one); ``reference`` is the
@@ -18,6 +20,8 @@ from .bfp8 import bfp8_dequant, bfp8_quant
 from .flash_attention import flash_attention
 from .library import (LAUNCHES, KernelLibrary, launches, load_library,
                       reset_launches)
+from .streamed_matmul import (TILE, smem_bytes, streamed_matmul,
+                              streamed_matmul_padded)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +71,25 @@ def kernel_for(kind: str, *, use_kernels: bool
     return entry.reference, False
 
 
+def fragmented_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                      static_fraction: float = 0.5) -> torch.Tensor:
+    """y = x @ w with the leading ``static_fraction`` of w's rows the static
+    panel (the paper's 1 - m) and the rest streamed: the public form of the
+    weight-fragmentation kernel, splitting w at a 128-aligned row, the
+    reference's rule.  Where K > 128 this is one ``streamed_matmul`` (the
+    kernel on a CUDA tensor, its plain version on a CPU one), so M, N and
+    K are multiples of 128; a K of 128 or less has no dynamic region and is
+    a plain product."""
+    K = w.shape[0]
+    if K <= TILE:
+        return ref.conv2d_ref(x, w)
+    # at least one static panel and one dynamic block, as the reference's
+    # split at ks <= 0 takes the first 128 rows static
+    ks = int(round(static_fraction * K / 128.0)) * 128
+    ks = max(min(ks, K - TILE), TILE)
+    return streamed_matmul(x, w[:ks], w[ks:])
+
+
 def flash_attn(q, k, v, *, causal: bool = True):
     """Blockwise softmax attention over (B, S, H, D): the
     ``flash_attention`` kernel on a CUDA tensor, its plain version on a CPU
@@ -94,7 +117,9 @@ def lowerable_kinds() -> tuple[str, ...]:
     return tuple(KERNEL_REGISTRY)
 
 
-__all__ = ["KernelEntry", "KERNEL_REGISTRY", "kernel_for", "fusable_kinds",
-           "lowerable_kinds", "flash_attn", "flash_attention", "evict_encode",
-           "evict_decode", "LAUNCHES",
-           "KernelLibrary", "launches", "load_library", "reset_launches"]
+__all__ = ["fragmented_matmul", "flash_attn", "evict_encode", "evict_decode",
+           "streamed_matmul", "streamed_matmul_padded", "flash_attention",
+           "bfp8_quant", "bfp8_dequant", "smem_bytes", "ref", "KernelEntry",
+           "KERNEL_REGISTRY", "kernel_for", "fusable_kinds",
+           "lowerable_kinds", "streaming_conv", "LAUNCHES", "KernelLibrary",
+           "launches", "load_library", "reset_launches"]

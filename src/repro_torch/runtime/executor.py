@@ -74,6 +74,10 @@ class SpillRecord:
     offchip_bits: int      # bits actually crossing the off-chip boundary
     exact: bool            # True when offchip_bits is compile-time exact
 
+    @property
+    def ratio(self) -> float:
+        return self.offchip_bits / max(self.raw_bits, 1)
+
 
 @dataclasses.dataclass
 class SpillReport:
